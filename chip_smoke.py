@@ -9,14 +9,18 @@ It builds the CUDA kernels from csrc/ (nvcc, sm_90a), holds each kernel
 against its plain PyTorch version at the main path's shapes, drives the
 main path through the user entry points — BASELINE config 2 (one
 N=2^20 complex64 fft, the ``rql`` plan), config 3 (4096 rows of 4096
-points, the ``rows`` plan) and the paper's funnel/tube ``cuda`` backend
-at N=2^20 — checks the results against a complex128 oracle, and times
-every kernel and path with CUDA events.  The last line of standard
-output is ``{"ok": true, "device": {...}}``; any failed phase raises
-and the script exits non-zero without it.  It imports nothing of JAX.
+points, the ``rows`` plan), the paper's funnel/tube ``cuda`` backend
+at N=2^20, and the large-n 1-D path (``fft`` at n = 2^22 and 2^24 on
+the ``fourstep`` plan, 2^25 and 2^27 on ``sixstep``, one launch each) —
+checks the results against a complex128 oracle, and times every kernel
+and path with CUDA events.  The last line of standard output is
+``{"ok": true, "device": {...}}``; any failed phase raises and the
+script exits non-zero without it.  It imports nothing of JAX.
 
-Bounds use NVIDIA's data-sheet peaks for the H100 SXM: 3.35 TB/s of HBM
-bandwidth and 67 TFLOP/s of float32 outside the tensor cores.
+Bounds and carry ceilings come from the port's ``utils/roofline.py``:
+NVIDIA's data-sheet peaks for the card by name (3.35 TB/s of HBM
+bandwidth and 67 TFLOP/s of float32 outside the tensor cores for the
+H100 SXM).
 """
 
 from __future__ import annotations
@@ -28,13 +32,16 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
 KERNEL_TOL = 1e-6   # kernel vs plain version, rel L2: FMA contraction
 PATH_TOL = 1e-5     # whole transform vs complex128, rel L2: split3 budget
 MAX_ABS_TOL = 1e-5  # BASELINE's bound on max abs error
 REPS = 30
+#: reps of the plain versions at n = 2^27, a few hundred ms per call
+PLAIN_REPS_2_27 = 5
 SEED = 0
+#: (log2 n, plan) of the large-n 1-D path
+LARGE = ((22, "fourstep"), (24, "fourstep"), (25, "sixstep"),
+         (27, "sixstep"))
 
 
 def log(msg):
@@ -57,18 +64,12 @@ def max_abs(a, b):
                  .abs().max())
 
 
-def bound_ms(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def random_complex(rng, shape, device):
+def random_complex(rng, shape, device, n=None):
+    """Seeded uniform planes in +-1/sqrt(n); n defaults to the trailing
+    axis (one transform per row)."""
     import torch
 
-    n = shape[-1]
-    amp = 1.0 / np.sqrt(n)
+    amp = 1.0 / np.sqrt(n or shape[-1])
     xr = rng.uniform(-amp, amp, shape).astype(np.float32)
     xi = rng.uniform(-amp, amp, shape).astype(np.float32)
     return (torch.from_numpy(xr).to(device),
@@ -89,17 +90,25 @@ def main() -> int:
     from cs87project_msolano2_tpu_torch.backends.registry import get_backend
     from cs87project_msolano2_tpu_torch.cli import main as cli_main
     from cs87project_msolano2_tpu_torch.cli import make_input
-    from cs87project_msolano2_tpu_torch.models.fft import fft, fft_planes_fast
+    from cs87project_msolano2_tpu_torch.models.fft import (
+        fft,
+        fft_planes_fast,
+        ifft,
+    )
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
         device_factors,
         flat_tables,
     )
-    from cs87project_msolano2_tpu_torch.utils import buildlib, verify
+    from cs87project_msolano2_tpu_torch.utils import buildlib, roofline, verify
     from cs87project_msolano2_tpu_torch.utils.timing import time_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    kind = torch.cuda.get_device_name(0)
+
+    def bound_ms(nbytes, flops):
+        return roofline.bound_ms(nbytes, flops, kind)
 
     # phase 1: the card
     smi = subprocess.run(
@@ -116,7 +125,13 @@ def main() -> int:
     buildlib.build()
     buildlib.load_kernels()
     log(f"# phase 2 build: {time.perf_counter() - t0:.1f} s "
-        f"({len(buildlib.sources())} sources)")
+        f"({len(buildlib.sources())} sources, "
+        f"{len(buildlib.headers())} headers)")
+    with open(buildlib.build_log_path()) as f:
+        for line in f:
+            if line.startswith("==") or "registers" in line \
+                    or "spill" in line:
+                log(f"# ptxas {line.strip()}")
 
     # phase 3: each kernel vs its plain version at the main path's shapes
     R, T = 64, 1 << 14
@@ -150,6 +165,22 @@ def main() -> int:
     check_kernel("long_range_sep(1,64,16384)",
                  lambda *a: cf.long_range_sep(*a, cf.DEFAULT_CB),
                  cf.long_range_sep_plain, (xr3, xi3, *fac))
+    # the large-n path's kernels at its blocking: fourstep at n = 2^24,
+    # sixstep at n = 2^27 (work items outnumber the persistent grid)
+    t4, R4, cb4 = cf.fourstep_blocking(1 << 24)
+    xr4, xi4 = random_complex(rng, (R4, t4), dev, R4 * t4)
+    label4 = f"fourstep({R4},{t4})"
+    check_kernel(label4, lambda *a: cf.fourstep(*a, cb4), cf.fourstep_plain,
+                 (xr4, xi4, *device_factors(R4, t4, dev), twr14, twi14))
+    t6, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << 27)
+    xr6, xi6 = random_complex(rng, (R1, R2, t6), dev, R1 * R2 * t6)
+    label6 = f"sixstep({R1},{R2},{t6})"
+    check_kernel(label6, lambda *a: cf.sixstep(*a, cb1, cb2),
+                 cf.sixstep_plain,
+                 (xr6, xi6, *device_factors(R1, R2 * t6, dev),
+                  *device_factors(R2, t6, dev), twr14, twi14))
+    log(f"# phase 3 blocking: fourstep R={R4} cb={cb4}; sixstep "
+        f"R1={R1} R2={R2} cb1={cb1} cb2={cb2}")
 
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
@@ -233,6 +264,60 @@ def main() -> int:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched: {launches}")
 
+    # phase 6b: the large-n 1-D path, counted — fft in natural order on
+    # the fourstep and sixstep plans, one launch of one kernel each
+    def counts():
+        return {"tile_fft": cf.tile_fft.launches,
+                "long_range_sep": cf.long_range_sep.launches,
+                "fourstep": cf.fourstep.launches,
+                "sixstep": cf.sixstep.launches}
+
+    cf.reset_launch_counts()
+    large = {}
+    for k, want in LARGE:
+        n = 1 << k
+        x = torch.complex(*random_complex(rng, (n,), dev))
+        pl = plans.plan_for((n,), device=dev)
+        if pl.variant != want:
+            raise AssertionError(f"n=2^{k} planned {pl.variant}, not {want}")
+        before = counts()
+        y = fft(x)
+        torch.cuda.synchronize()
+        delta = {name: c - before[name] for name, c in counts().items()}
+        expect = {name: int(name == want) for name in delta}
+        if delta != expect:
+            raise AssertionError(f"n=2^{k} fft launched {delta}, expected "
+                                 f"{expect}")
+        ref = torch.fft.fft(x.to(torch.complex128))
+        e, m = rel_l2(y, ref), max_abs(y, ref)
+        finite = bool(torch.isfinite(y).all())
+        log(f"# phase 6b fft n=2^{k} plan={pl.variant} {pl.params}: rel L2 "
+            f"{e:.3e} (budget {PATH_TOL}), max abs {m:.3e} (bound "
+            f"{MAX_ABS_TOL}), finite {finite}, launches {delta}")
+        if not (e <= PATH_TOL and m < MAX_ABS_TOL and y.shape == (n,)
+                and finite):
+            raise AssertionError(f"n=2^{k} fft out of tolerance")
+        large[k] = {"plan": pl.variant, "rel_l2": e, "max_abs": m,
+                    "x": x}
+        del y, ref
+    x24 = large[24]["x"]
+    before = counts()
+    back = ifft(fft(x24))
+    torch.cuda.synchronize()
+    e_rt = rel_l2(back, x24)
+    log(f"# phase 6b ifft(fft(x)) n=2^24: rel L2 {e_rt:.3e}, fourstep "
+        f"launches {cf.fourstep.launches - before['fourstep']}")
+    if not (e_rt <= PATH_TOL
+            and cf.fourstep.launches - before["fourstep"] == 2):
+        raise AssertionError("ifft(fft(x)) at 2^24 failed")
+    del back
+    large_launches = counts()
+    log(f"# large-n path launches: {large_launches}")
+    if large_launches["fourstep"] < 1 or large_launches["sixstep"] < 1:
+        raise AssertionError(f"a kernel never launched: {large_launches}")
+    launches.update(fourstep=large_launches["fourstep"],
+                    sixstep=large_launches["sixstep"])
+
     # phase 7: times (CUDA events, median of REPS, L2 flushed)
     def timed(fn, *args):
         return time_ms(fn, *args, reps=REPS, warmup=3, flush_l2=True)[0]
@@ -240,14 +325,16 @@ def main() -> int:
     timings = {}
 
     def kernel_row(label, kernel, plain, args, nbytes, flops, fft_flops,
-                   lib):
+                   lib, plain_reps=REPS):
         # flops: the operations the kernel does (its bound); fft_flops:
         # the repo's 5 n log2 n convention for its levels (GFLOP/s)
         ms = timed(kernel, *args)
-        plain_ms = timed(plain, *args)
+        plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
+                           flush_l2=True)[0]
         lib_ms = timed(*lib) if lib is not None else None
         bms, by = bound_ms(nbytes, flops)
         timings[label] = {"ms": ms, "plain_ms": plain_ms,
+                          "plain_reps": plain_reps,
                           "library_ms": lib_ms, "bytes": nbytes,
                           "bound_ms": bms, "bound_by": by,
                           "gflops": fft_flops / (ms * 1e-3) / 1e9}
@@ -273,26 +360,57 @@ def main() -> int:
                16 * R * T + 8 * (R - 1 + lev * T), 8 * R * T * lev,
                5 * R * T * lev, None)
 
+    def fac_bytes(rows, cols):
+        # separable factors: A (rows - 1) and B (levels x cols), re + im
+        return 8 * (rows - 1 + int(np.log2(rows)) * cols)
+
+    # fourstep at 2^24 and sixstep at 2^27: each element passes 8 flop
+    # per long-range level (6 of them rebuilding the twiddle) and 5 per
+    # tile level; bytes are the planes once each way, factors, tables
+    for label, rows, lib_tile, args, fn, plain, nbytes, lr_levels, reps in (
+            (label4, [R4], t4, cases[label4]["args"],
+             lambda *a: cf.fourstep(*a, cb4), cf.fourstep_plain,
+             16 * R4 * t4 + fac_bytes(R4, t4) + 8 * (t4 - 1),
+             int(np.log2(R4)), REPS),
+            (label6, [R1, R2], t6, cases[label6]["args"],
+             lambda *a: cf.sixstep(*a, cb1, cb2), cf.sixstep_plain,
+             16 * R1 * R2 * t6 + fac_bytes(R1, R2 * t6)
+             + fac_bytes(R2, t6) + 8 * (t6 - 1),
+             int(np.log2(R1 * R2)), PLAIN_REPS_2_27)):
+        n = int(np.prod(rows)) * lib_tile
+        xc = torch.complex(args[0], args[1]).reshape(n)
+        kernel_row(label, fn, plain, args, nbytes,
+                   n * (8 * lr_levels + 5 * int(np.log2(lib_tile))),
+                   5 * n * int(np.log2(n)), (torch.fft.fft, xc), reps)
+        del xc
+
     paths = {}
 
     def path_row(label, fn, args, n, count, launches_per_call, lib,
-                 plain=None):
+                 plain=None, variant=None, plain_reps=REPS):
         ms = timed(fn, *args)
-        plain_ms = timed(plain, *args) if plain is not None else None
+        plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
+                           flush_l2=True)[0] if plain is not None else None
         lib_ms = timed(*lib)
-        nbytes = 16 * n * count
+        nbytes = roofline.fft_min_hbm_bytes(n) * count
         flops = 5 * n * int(np.log2(n)) * count
         bms, by = bound_ms(nbytes, flops)
+        ceiling = roofline.roofline_ceiling(
+            roofline.plan_carry_passes(variant))
         paths[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "plain_reps": plain_reps if plain else None,
                         "library_ms": lib_ms, "bound_ms": bms,
                         "bound_by": by, "bytes": nbytes,
                         "launches_per_call": launches_per_call,
+                        "carry_ceiling": ceiling,
+                        "util": bms / ms,
                         "gflops": flops / (ms * 1e-3) / 1e9}
         log(f"# phase 7 path {label}: {ms:.4f} ms, "
             f"{paths[label]['gflops']:.1f} GFLOP/s (5 n log2 n), "
             f"{launches_per_call} launches, plain "
             f"{plain_ms if plain_ms is None else f'{plain_ms:.4f}'} ms, "
-            f"torch.fft {lib_ms:.4f} ms, bound {bms:.4f} ms by {by}")
+            f"torch.fft {lib_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
+            f"{bms / ms:.3f} of bound (carry ceiling {ceiling})")
 
     def rql_plain(xr, xi):
         # the rql composition on the two kernels' plain versions
@@ -303,17 +421,82 @@ def main() -> int:
 
     x2r, x2i = x2.real.contiguous(), x2.imag.contiguous()
     path_row("rql pi N=2^20", cf.fft_pi_layout_cuda_rql, (x2r, x2i),
-             n2, 1, 2, (torch.fft.fft, x2), rql_plain)
+             n2, 1, 2, (torch.fft.fft, x2), rql_plain, "rql")
     path_row("fft natural N=2^20 (plan rql + gather)", fft, (x2,),
-             n2, 1, 2, (torch.fft.fft, x2))
+             n2, 1, 2, (torch.fft.fft, x2), variant="rql")
     x3r, x3i = random_complex(rng, (4096, 4096), dev)
     x3 = torch.complex(x3r, x3i)
     path_row("rows pi (4096,4096)",
              lambda a, b: cf.fft_rows_cuda(a, b, natural=False),
              (x3r, x3i), 4096, 4096, 1, (torch.fft.fft, x3),
-             lambda a, b: cf.tile_fft_plain(a, b, twr, twi))
+             lambda a, b: cf.tile_fft_plain(a, b, twr, twi), "rows")
     path_row("fft_planes_fast natural (4096,4096)", fft_planes_fast,
-             (x3r, x3i), 4096, 4096, 1, (torch.fft.fft, x3))
+             (x3r, x3i), 4096, 4096, 1, (torch.fft.fft, x3), variant="rows")
+    del x3r, x3i, x3
+
+    def large_plain(variant):
+        # the fourstep/sixstep composition on the kernels' plain versions
+        def run(xr, xi):
+            n = xr.shape[0]
+            if variant == "fourstep":
+                tile, R_, _ = cf.fourstep_blocking(n)
+                return cf.fourstep_plain(
+                    xr.reshape(R_, tile), xi.reshape(R_, tile),
+                    *device_factors(R_, tile, dev), *flat_tables(tile, dev))
+            tile, r1, r2, _, _ = cf.sixstep_blocking(n)
+            return cf.sixstep_plain(
+                xr.reshape(r1, r2, tile), xi.reshape(r1, r2, tile),
+                *device_factors(r1, r2 * tile, dev),
+                *device_factors(r2, tile, dev), *flat_tables(tile, dev))
+        return run
+
+    for k, variant in LARGE:
+        n = 1 << k
+        xl = large[k]["x"]
+        xlr, xli = xl.real.contiguous(), xl.imag.contiguous()
+        compose = (cf.fft_pi_layout_cuda_fourstep if variant == "fourstep"
+                   else cf.fft_pi_layout_cuda_sixstep)
+        path_row(f"{variant} pi N=2^{k}", compose, (xlr, xli), n, 1, 1,
+                 (torch.fft.fft, xl), large_plain(variant), variant,
+                 PLAIN_REPS_2_27 if k == 27 else REPS)
+        path_row(f"fft natural N=2^{k} (plan {variant} + gather)", fft,
+                 (xl,), n, 1, 1, (torch.fft.fft, xl), variant=variant)
+        del xl, xlr, xli
+
+    # phase 7b: device time of one natural-order large-n fft by kernel,
+    # from torch.profiler, and the card's idle share of that call
+    from torch.profiler import ProfilerActivity, profile
+
+    profiles = {}
+    for k, variant in LARGE:
+        xl = large[k].pop("x")
+        fft(xl)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fft(xl)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0) + us / 1e3
+        busy = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+        profiles[f"2^{k}"] = {"wall_ms": wall_ms, "device_ms": busy,
+                              "idle_share": (1 - busy / wall_ms) if busy
+                              else None, "kernels_ms": dict(top)}
+        log(f"# phase 7b fft natural N=2^{k} ({variant}): device "
+            f"{busy:.4f} ms of {wall_ms:.4f} ms wall (profiled), "
+            + (f"idle share {1 - busy / wall_ms:.3f}; " if busy else
+               "no device time seen: not measured; ")
+            + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
+        del xl
 
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
@@ -322,7 +505,9 @@ def main() -> int:
             ("tile_fft", "tile_fft(4096,4096)", src + "tile_fft.cu",
              ref_src + "299"),
             ("long_range_sep", "long_range_sep(1,64,16384)",
-             src + "long_range.cu", ref_src + "519")):
+             src + "long_range.cu", ref_src + "519"),
+            ("fourstep", label4, src + "fourstep.cu", ref_src + "1046"),
+            ("sixstep", label6, src + "sixstep.cu", ref_src + "1354")):
         t = timings[label]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -332,7 +517,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-    log(json.dumps({"timings": timings, "paths": paths, "card": card}))
+    log(json.dumps({"timings": timings, "paths": paths, "card": card,
+                    "large_n": large, "profiles": profiles}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,10 @@
 // shared memory (2 * R * cb * 4 bytes: 16 KB at R = 64, cb = 32), loading
 // along columns so a warp reads 32 neighbouring floats of one row, runs
 // the log2(R) levels there with __syncthreads() between them, and writes
-// the block back.  The level-l twiddle of row offset j and column c is
-// rebuilt in-kernel as A[o + j] * B[l, c] (o = R - (R >> l)), the outer
+// the block back (pifft::long_range_levels in fft_common.cuh, shared
+// with the fourstep and sixstep kernels).  The level-l twiddle of row
+// offset j and column c is rebuilt in-kernel as A[o + j] * B[l, c]
+// (o = R - (R >> l)), the outer
 // product of the per-row factor A (R - 1 floats) and the per-level
 // column factor B (levels x C) of _long_range_factors (l.566), exactly
 // as the TPU kernel forms it at l.542-558.  So the pass reads R + levels
@@ -30,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_common.cuh"
+
 namespace {
 
 __global__ void long_range_sep_kernel(const float* __restrict__ xr,
@@ -42,57 +46,15 @@ __global__ void long_range_sep_kernel(const float* __restrict__ xr,
                                       const float* __restrict__ bi,
                                       int log2_r, int C, int log2_cb) {
   extern __shared__ float smem[];
-  const int R = 1 << log2_r;
-  const int cb = 1 << log2_cb;
-  const int total = R << log2_cb;  // R * cb
   float* sr = smem;
-  float* si = smem + total;
-
+  float* si = smem + (1 << (log2_r + log2_cb));
   const int col_blocks = C >> log2_cb;
   const long long t = blockIdx.x / col_blocks;  // transform in the batch
   const int c0 = (blockIdx.x - t * col_blocks) << log2_cb;
-  const size_t base = static_cast<size_t>(t) * R * C + c0;
-
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int r = idx >> log2_cb, c = idx & (cb - 1);
-    const size_t g = base + static_cast<size_t>(r) * C + c;
-    sr[idx] = xr[g];
-    si[idx] = xi[g];
-  }
-  __syncthreads();
-
-  for (int l = 0; l < log2_r; ++l) {
-    const int lh = log2_r - l - 1;  // log2(half)
-    const int half = 1 << lh;
-    const int o = R - (R >> l);
-    const float* blr = br + static_cast<size_t>(l) * C + c0;
-    const float* bli = bi + static_cast<size_t>(l) * C + c0;
-    for (int idx = threadIdx.x; idx < (total >> 1); idx += blockDim.x) {
-      const int q = idx >> log2_cb, c = idx & (cb - 1);
-      const int j = q & (half - 1);
-      const int top = (((q >> lh) << (lh + 1)) + j) << log2_cb | c;
-      const int bot = top + (half << log2_cb);
-      const float a_r = __ldg(ar + o + j), a_i = __ldg(ai + o + j);
-      const float b_r = __ldg(blr + c), b_i = __ldg(bli + c);
-      const float wr = a_r * b_r - a_i * b_i;
-      const float wi = a_r * b_i + a_i * b_r;
-      const float xr_t = sr[top], xi_t = si[top];
-      const float xr_b = sr[bot], xi_b = si[bot];
-      const float dr = xr_t - xr_b, di = xi_t - xi_b;
-      sr[top] = xr_t + xr_b;
-      si[top] = xi_t + xi_b;
-      sr[bot] = dr * wr - di * wi;
-      si[bot] = dr * wi + di * wr;
-    }
-    __syncthreads();
-  }
-
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int r = idx >> log2_cb, c = idx & (cb - 1);
-    const size_t g = base + static_cast<size_t>(r) * C + c;
-    yr[g] = sr[idx];
-    yi[g] = si[idx];
-  }
+  const size_t base = (static_cast<size_t>(t) << log2_r) * C + c0;
+  pifft::load_block<false>(sr, si, xr, xi, base, C, log2_r, log2_cb);
+  pifft::long_range_levels(sr, si, log2_r, log2_cb, ar, ai, br, bi, C, c0);
+  pifft::store_block(yr, yi, sr, si, base, C, log2_r, log2_cb);
 }
 
 }  // namespace

@@ -10,7 +10,9 @@
 // row's re/im planes into dynamic shared memory (2 * tile * 4 bytes:
 // 128 KB at the largest tile, 2^14, inside the 227 KB a block may opt
 // into), runs all log2(tile) radix-2 DIF levels there with
-// __syncthreads() between levels, and writes the row back.  Level l
+// __syncthreads() between levels (pifft::tile_levels in fft_common.cuh,
+// shared with the fourstep and sixstep kernels), and writes the row
+// back.  Level l
 // pairs (top, top + half) with half = tile >> (l + 1) and multiplies the
 // difference by w_l[j], read from the float32 per-level tables of
 // twiddle_tables(tile) concatenated into one array (level l at offset
@@ -30,6 +32,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_common.cuh"
+
 namespace {
 
 __global__ void tile_fft_kernel(const float* __restrict__ xr,
@@ -40,41 +44,12 @@ __global__ void tile_fft_kernel(const float* __restrict__ xr,
                                 const float* __restrict__ twi,
                                 int log2_tile) {
   extern __shared__ float smem[];
-  const int tile = 1 << log2_tile;
   float* sr = smem;
-  float* si = smem + tile;
-  const size_t base = static_cast<size_t>(blockIdx.x) * tile;
-
-  for (int k = threadIdx.x; k < tile; k += blockDim.x) {
-    sr[k] = xr[base + k];
-    si[k] = xi[base + k];
-  }
-  __syncthreads();
-
-  for (int l = 0; l < log2_tile; ++l) {
-    const int lh = log2_tile - l - 1;  // log2(half)
-    const int half = 1 << lh;
-    const int off = tile - (tile >> l);
-    for (int i = threadIdx.x; i < (tile >> 1); i += blockDim.x) {
-      const int j = i & (half - 1);
-      const int top = ((i >> lh) << (lh + 1)) + j;
-      const int bot = top + half;
-      const float ar = sr[top], ai = si[top];
-      const float br = sr[bot], bi = si[bot];
-      const float dr = ar - br, di = ai - bi;
-      const float wr = __ldg(twr + off + j), wi = __ldg(twi + off + j);
-      sr[top] = ar + br;
-      si[top] = ai + bi;
-      sr[bot] = dr * wr - di * wi;
-      si[bot] = dr * wi + di * wr;
-    }
-    __syncthreads();
-  }
-
-  for (int k = threadIdx.x; k < tile; k += blockDim.x) {
-    yr[base + k] = sr[k];
-    yi[base + k] = si[k];
-  }
+  float* si = smem + (1 << log2_tile);
+  const size_t base = static_cast<size_t>(blockIdx.x) << log2_tile;
+  pifft::load_block<false>(sr, si, xr, xi, base, 0, 0, log2_tile);
+  pifft::tile_levels(sr, si, log2_tile, twr, twi);
+  pifft::store_block(yr, yi, sr, si, base, 0, 0, log2_tile);
 }
 
 }  // namespace

@@ -44,7 +44,15 @@ def bit_reverse_indices(n: int) -> np.ndarray:
 
 @lru_cache(maxsize=32)
 def _index_tensor(n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(bit_reverse_indices(n)).to(device)
+    """``bit_reverse_indices(n)`` built on `device` itself: at n = 2^27
+    the host loop would take tens of seconds, the card's a few
+    milliseconds."""
+    bits = ilog2(n)
+    k = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.zeros_like(k)
+    for b in range(bits):
+        idx = (idx << 1) | ((k >> b) & 1)
+    return idx
 
 
 def to_natural(yr: torch.Tensor, yi: torch.Tensor):

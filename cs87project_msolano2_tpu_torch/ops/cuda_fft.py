@@ -1,14 +1,20 @@
 """The CUDA kernels of the FFT hot path, each beside its plain PyTorch
 version, and the whole-transform compositions built on them.
 
-The counterpart of the reference's ``ops/pallas_fft.py``.  Two kernels
+The counterpart of the reference's ``ops/pallas_fft.py``.  Four kernels
 (``csrc/``, built by ``utils.buildlib``) carry the main path:
 
 * ``tile_fft`` — the tile-point DIF of independent rows in shared
   memory (replaces ``_tile_fft_kernel`` / ``_tile_fft_compute``);
 * ``long_range_sep`` — the first log2(R) DIF levels of (…, R, C) views,
   twiddles rebuilt from separable factors (replaces
-  ``_long_range_kernel_sep``).
+  ``_long_range_kernel_sep``);
+* ``fourstep`` — a whole 1-D transform (long-range levels, then tile
+  rows) in one cooperative launch (replaces ``_fourstep_kernel``), the
+  plan for 2^21 <= n < 2^25;
+* ``sixstep`` — a whole 1-D transform with the long-range levels split
+  into outer and inner phases, in one cooperative launch (replaces
+  ``_sixstep_kernel``), the plan for n >= 2^25.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel for CUDA tensors (or raises) and counts the launch on its
@@ -93,6 +99,168 @@ def rql_blocking(n: int, tile: int | None = None, cb: int | None = None):
     if R > 1:
         check_long_range(R, cb)
     return tile, R, cb
+
+
+#: narrowest automatic column block: one whole 32-byte sector of a row
+MIN_AUTO_CB = 8
+
+
+def _auto_cb(tile: int, fits) -> int | None:
+    """The widest power-of-two column block dividing `tile` for which
+    ``fits(cb)`` holds, not below MIN_AUTO_CB; None when none fits.
+    The widest fitting block is at least DEFAULT_CB (one warp reads a
+    128-byte row segment) whenever such a block fits."""
+    cb = tile
+    while cb >= min(MIN_AUTO_CB, tile):
+        if fits(cb):
+            return cb
+        cb //= 2
+    return None
+
+
+def _check_cb(name: str, cb: int, tile: int) -> None:
+    if cb < 1 or not is_power_of_two(cb) or tile % cb:
+        raise ValueError(f"{name}={cb} must be a power of two dividing "
+                         f"tile={tile}")
+
+
+def fourstep_smem_bytes(R: int, cb: int, tile: int) -> int:
+    """Dynamic shared memory of one fourstep block: the persistent block
+    holds one phase at a time, so the larger of the R x cb long-range
+    block and the tile row (re + im float32 each)."""
+    return max(long_range_smem_bytes(R, cb), tile_smem_bytes(tile))
+
+
+def fourstep_auto_cb(n: int, tile: int) -> int:
+    """The fourstep column block for an n = R * tile transform: the
+    widest power of two dividing `tile` whose block fits shared memory,
+    never below MIN_AUTO_CB (the counterpart of the reference's
+    ``fourstep_auto_cb``, pallas_fft.py:1196, for Hopper's budget).
+    Raises ValueError naming (R, cb, bytes, limit) when even that block
+    does not fit: R is too tall for one column block, so the transform
+    needs sixstep or a larger tile."""
+    check_tile(tile)
+    R = n // tile
+    cb = _auto_cb(tile, lambda c: fourstep_smem_bytes(R, c, tile)
+                  <= SMEM_LIMIT_BYTES)
+    if cb is None:
+        lo = min(MIN_AUTO_CB, tile)
+        raise ValueError(
+            f"fourstep is infeasible at n={n} (tile={tile}): its narrowest "
+            f"block R={R} x cb={lo} needs "
+            f"{fourstep_smem_bytes(R, lo, tile)} bytes of shared memory "
+            f"(limit {SMEM_LIMIT_BYTES}); use sixstep or a larger tile")
+    return cb
+
+
+def fourstep_blocking(n: int, tile: int | None = None,
+                      cb: int | None = None):
+    """Validated (tile, R, cb) for an n-point fourstep transform.  tile
+    defaults to min(n, MAX_SMEM_TILE), cb to ``fourstep_auto_cb``.  R = 1
+    gives cb None: the transform is one tile row."""
+    if tile is None:
+        tile = min(n, MAX_SMEM_TILE)
+    check_tile(tile)
+    if n % tile:
+        raise ValueError(f"tile={tile} must divide n={n}")
+    R = n // tile
+    if R < 2:
+        return tile, R, None
+    if cb is None:
+        cb = fourstep_auto_cb(n, tile)
+    _check_cb("cb", cb, tile)
+    if fourstep_smem_bytes(R, cb, tile) > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"fourstep blocks R={R} x cb={cb} (tile={tile}) need "
+            f"{fourstep_smem_bytes(R, cb, tile)} bytes of shared memory "
+            f"(limit {SMEM_LIMIT_BYTES}); reduce cb or pass cb=None")
+    return tile, R, cb
+
+
+def sixstep_smem_bytes(R1: int, cb1: int, R2: int, cb2: int,
+                       tile: int) -> int:
+    """Dynamic shared memory of one sixstep block: the largest of the
+    outer R1 x cb1 block, the inner R2 x cb2 block and the tile row —
+    the persistent block holds one phase at a time."""
+    return max(long_range_smem_bytes(R1, cb1),
+               long_range_smem_bytes(R2, cb2), tile_smem_bytes(tile))
+
+
+def sixstep_auto_split(n: int, tile: int) -> tuple[int, int]:
+    """The balanced (R1, R2) outer/inner split of R = n/tile: R1 >= R2,
+    both >= 2 — the reference's ``sixstep_auto_split``
+    (pallas_fft.py:1606).  Raises ValueError for R < 4, which has
+    nothing to split: fourstep owns that regime."""
+    R = n // tile
+    lv = ilog2(R)
+    if lv < 2:
+        raise ValueError(
+            f"sixstep needs R = n/tile >= 4 (two nontrivial radices), "
+            f"got R={R} at n={n} tile={tile} — use the fourstep kernel")
+    l2 = lv // 2
+    return 1 << (lv - l2), 1 << l2
+
+
+def _sixstep_split(n: int, tile: int, r2: int | None) -> tuple[int, int]:
+    if r2 is None:
+        return sixstep_auto_split(n, tile)
+    R = n // tile
+    if r2 < 2 or not is_power_of_two(r2) or R % r2 or R // r2 < 2:
+        raise ValueError(
+            f"r2={r2} must be a power of two with 2 <= r2 <= R/2 "
+            f"dividing R={R} (n={n}, tile={tile})")
+    return R // r2, r2
+
+
+def sixstep_auto_cbs(n: int, tile: int,
+                     r2: int | None = None) -> tuple[int, int]:
+    """The (cb1, cb2) column blocks of an n = R1 * R2 * tile sixstep
+    transform: each the widest power of two dividing `tile` whose block
+    fits shared memory, never below MIN_AUTO_CB (the counterpart of the
+    reference's ``sixstep_auto_cbs``, pallas_fft.py:1621; the phases
+    share one block's memory in turn, so each is chosen on its own).
+    Raises ValueError naming the limiting (R, cb) pair."""
+    check_tile(tile)
+    R1, R2 = _sixstep_split(n, tile, r2)
+    cbs = []
+    for name, rr in (("R1", R1), ("R2", R2)):
+        cb = _auto_cb(tile, lambda c, rr=rr: long_range_smem_bytes(rr, c)
+                      <= SMEM_LIMIT_BYTES)
+        if cb is None:
+            lo = min(MIN_AUTO_CB, tile)
+            raise ValueError(
+                f"sixstep is infeasible at n={n} (tile={tile}): {name}="
+                f"{rr} x cb={lo} needs {long_range_smem_bytes(rr, lo)} "
+                f"bytes of shared memory (limit {SMEM_LIMIT_BYTES}); use "
+                f"a larger tile or another r2")
+        cbs.append(cb)
+    return cbs[0], cbs[1]
+
+
+def sixstep_blocking(n: int, tile: int | None = None, r2: int | None = None,
+                     cb1: int | None = None, cb2: int | None = None):
+    """Validated (tile, R1, R2, cb1, cb2) for an n-point sixstep
+    transform.  tile defaults to min(n, MAX_SMEM_TILE), the split to
+    ``sixstep_auto_split``, the column blocks to ``sixstep_auto_cbs``."""
+    if tile is None:
+        tile = min(n, MAX_SMEM_TILE)
+    check_tile(tile)
+    if n % tile:
+        raise ValueError(f"tile={tile} must divide n={n}")
+    R1, R2 = _sixstep_split(n, tile, r2)
+    if cb1 is None or cb2 is None:
+        auto1, auto2 = sixstep_auto_cbs(n, tile, R2)
+        cb1 = auto1 if cb1 is None else cb1
+        cb2 = auto2 if cb2 is None else cb2
+    _check_cb("cb1", cb1, tile)
+    _check_cb("cb2", cb2, tile)
+    need = sixstep_smem_bytes(R1, cb1, R2, cb2, tile)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"sixstep blocks R1={R1} x cb1={cb1} / R2={R2} x cb2={cb2} "
+            f"(tile={tile}) need {need} bytes of shared memory (limit "
+            f"{SMEM_LIMIT_BYTES}); reduce cb1/cb2 or pass them as None")
+    return tile, R1, R2, cb1, cb2
 
 
 def rows_plan_feasible(nrows: int, n: int) -> bool:
@@ -257,9 +425,113 @@ def long_range_sep(xr, xi, ar, ai, br, bi, cb: int = DEFAULT_CB):
 long_range_sep.launches = 0
 
 
+# --- kernel 3: fourstep -----------------------------------------------------
+
+
+def fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi):
+    """Plain version of ``fourstep``: ``long_range_sep_plain`` on the
+    (1, R, tile) view, then ``tile_fft_plain`` on the R rows."""
+    R, tile = xr.shape
+    yr, yi = long_range_sep_plain(xr.reshape(1, R, tile),
+                                  xi.reshape(1, R, tile), ar, ai, br, bi)
+    return tile_fft_plain(yr.reshape(R, tile), yi.reshape(R, tile), twr, twi)
+
+
+def fourstep(xr, xi, ar, ai, br, bi, twr, twi, cb: int | None = None):
+    """The whole pi-layout DIF of one n = R * tile transform held as
+    (R, tile) float32 planes: the log2(R) long-range levels in R x cb
+    column blocks (factors of ``twiddle.device_factors(R, tile)``), then
+    the tile DIF of every row (tables of ``twiddle.flat_tables(tile)``).
+    cb None takes ``fourstep_auto_cb``.  CUDA tensors launch the kernel
+    (csrc/fourstep.cu) once, as one cooperative launch; CPU tensors
+    take ``fourstep_plain``.  Returns new (R, tile) planes."""
+    _check_planes(xr, xi, 2, "fourstep")
+    R, tile = xr.shape
+    if R < 2 or not is_power_of_two(R):
+        raise ValueError(f"fourstep: R={R} must be a power of two >= 2")
+    _, _, cb = fourstep_blocking(R * tile, tile, cb)
+    levels = ilog2(R)
+    _check_operands("fourstep", xr.device,
+                    (ar, (R - 1,)), (ai, (R - 1,)),
+                    (br, (levels, tile)), (bi, (levels, tile)),
+                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+    if xr.device.type == "cpu":
+        return fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("fourstep", "pifft_fourstep", xr.device,
+            xr, xi, yr, yi, ar, ai, br, bi, twr, twi, levels, ilog2(tile),
+            ilog2(cb))
+    fourstep.launches += 1
+    return yr, yi
+
+
+fourstep.launches = 0
+
+
+# --- kernel 4: sixstep ------------------------------------------------------
+
+
+def sixstep_plain(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi):
+    """Plain version of ``sixstep``: ``long_range_sep_plain`` on the
+    (1, R1, m) view with the outer factors, then on the (R1, R2, tile)
+    view with the inner ones, then ``tile_fft_plain`` on the rows."""
+    R1, R2, tile = xr.shape
+    m = R2 * tile
+    yr, yi = long_range_sep_plain(xr.reshape(1, R1, m), xi.reshape(1, R1, m),
+                                  a1r, a1i, b1r, b1i)
+    yr, yi = long_range_sep_plain(yr.reshape(R1, R2, tile),
+                                  yi.reshape(R1, R2, tile),
+                                  a2r, a2i, b2r, b2i)
+    yr, yi = tile_fft_plain(yr.reshape(R1 * R2, tile),
+                            yi.reshape(R1 * R2, tile), twr, twi)
+    return yr.reshape(R1, R2, tile), yi.reshape(R1, R2, tile)
+
+
+def sixstep(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
+            cb1: int | None = None, cb2: int | None = None):
+    """The whole pi-layout DIF of one n = R1 * R2 * tile transform held
+    as (R1, R2, tile) float32 planes: the outer log2(R1) levels on the
+    (R1, m = R2 * tile) view in R1 x cb1 blocks (factors of
+    ``device_factors(R1, m)``), the inner log2(R2) levels of each group
+    on its (R2, tile) view in R2 x cb2 blocks (``device_factors(R2,
+    tile)``), then the tile DIF of every row (``flat_tables(tile)``);
+    cb1/cb2 None take ``sixstep_auto_cbs``.  CUDA tensors launch the
+    kernel (csrc/sixstep.cu) once, as one cooperative launch; CPU
+    tensors take ``sixstep_plain``.  Returns new (R1, R2, tile)
+    planes."""
+    _check_planes(xr, xi, 3, "sixstep")
+    R1, R2, tile = xr.shape
+    if min(R1, R2) < 2 or not (is_power_of_two(R1)
+                               and is_power_of_two(R2)):
+        raise ValueError(f"sixstep: R1={R1} and R2={R2} must be powers "
+                         f"of two >= 2")
+    _, _, _, cb1, cb2 = sixstep_blocking(R1 * R2 * tile, tile, R2, cb1, cb2)
+    l1, l2, m = ilog2(R1), ilog2(R2), R2 * tile
+    _check_operands("sixstep", xr.device,
+                    (a1r, (R1 - 1,)), (a1i, (R1 - 1,)),
+                    (b1r, (l1, m)), (b1i, (l1, m)),
+                    (a2r, (R2 - 1,)), (a2i, (R2 - 1,)),
+                    (b2r, (l2, tile)), (b2i, (l2, tile)),
+                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+    if xr.device.type == "cpu":
+        return sixstep_plain(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i,
+                             twr, twi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("sixstep", "pifft_sixstep", xr.device,
+            xr, xi, yr, yi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
+            l1, l2, ilog2(tile), ilog2(cb1), ilog2(cb2))
+    sixstep.launches += 1
+    return yr, yi
+
+
+sixstep.launches = 0
+
+
 def reset_launch_counts() -> None:
     tile_fft.launches = 0
     long_range_sep.launches = 0
+    fourstep.launches = 0
+    sixstep.launches = 0
 
 
 # --- compositions -----------------------------------------------------------
@@ -286,6 +558,54 @@ def fft_pi_layout_cuda_rql(xr, xi, tile: int | None = None,
     twr, twi = flat_tables(tile, dev)
     yr, yi = tile_fft(xr.reshape(-1, tile), xi.reshape(-1, tile), twr, twi)
     return yr.reshape(*lead, n), yi.reshape(*lead, n)
+
+
+def _one_transform(xr, xi, name: str) -> int:
+    if xr.dim() != 1 or xi.shape != xr.shape:
+        raise ValueError(f"{name}: one 1-D transform of (n,) planes, got "
+                         f"{tuple(xr.shape)} / {tuple(xi.shape)}")
+    return xr.shape[0]
+
+
+def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,
+                                cb: int | None = None):
+    """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
+    fourstep kernel (the reference's fft_pi_layout_pallas_fourstep,
+    pallas_fft.py:1228).  R = n/tile < 2 takes the tile kernel, as the
+    reference does.  Validates tile/cb before any launch."""
+    n = _one_transform(xr, xi, "fft_pi_layout_cuda_fourstep")
+    tile, R, cb = fourstep_blocking(n, tile, cb)
+    dev = xr.device
+    xr = xr.contiguous().reshape(R, tile)
+    xi = xi.contiguous().reshape(R, tile)
+    twr, twi = flat_tables(tile, dev)
+    if R < 2:
+        yr, yi = tile_fft(xr, xi, twr, twi)
+    else:
+        yr, yi = fourstep(xr, xi, *device_factors(R, tile, dev), twr, twi,
+                          cb)
+    return yr.reshape(n), yi.reshape(n)
+
+
+def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
+                               r2: int | None = None,
+                               cb1: int | None = None,
+                               cb2: int | None = None):
+    """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
+    sixstep kernel (the reference's fft_pi_layout_pallas_sixstep,
+    pallas_fft.py:1664): n = R1 * R2 * tile, `r2` the inner radix (None
+    = the balanced split), `cb1`/`cb2` the outer/inner column blocks
+    (None = the widest that fit).  Needs R = n/tile >= 4; validates every
+    parameter before any launch."""
+    n = _one_transform(xr, xi, "fft_pi_layout_cuda_sixstep")
+    tile, R1, R2, cb1, cb2 = sixstep_blocking(n, tile, r2, cb1, cb2)
+    dev = xr.device
+    yr, yi = sixstep(xr.contiguous().reshape(R1, R2, tile),
+                     xi.contiguous().reshape(R1, R2, tile),
+                     *device_factors(R1, R2 * tile, dev),
+                     *device_factors(R2, tile, dev),
+                     *flat_tables(tile, dev), cb1, cb2)
+    return yr.reshape(n), yi.reshape(n)
 
 
 def fft_rows_cuda(xr, xi, natural: bool = True):

@@ -1,15 +1,19 @@
 """Build (at first use) and load the port's CUDA kernels.
 
 The counterpart of the reference's ``utils/buildlib.py``, which builds
-the native C core.  Here every ``csrc/*.cu`` is compiled by ONE nvcc
-call for Hopper (``sm_90a``) into a shared library with a plain C
-interface, loaded with ctypes:
+the native C core.  Here every ``csrc/*.cu`` is compiled for Hopper
+(``sm_90a``) by its own nvcc process, all started together, and the
+objects are linked into one shared library with a plain C interface,
+loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libpifft_cuda_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -I csrc -c -o k.o csrc/k.cu  # each
+    nvcc -shared -o _build/libpifft_cuda_<hash>.so *.o
 
-The library's name carries a hash of the sources and flags, so editing a
-source rebuilds it; the ``_build/`` directory is not committed.  Nothing
+The library's name carries a hash of the flags and of every source and
+header (``csrc/*.cu``, ``csrc/*.cuh``), so editing either rebuilds it;
+the ``_build/`` directory is not committed.  ptxas's report (registers,
+shared memory, spills per kernel) is kept beside the library.  Nothing
 is ever fetched.  A failed build raises with nvcc's stderr.
 """
 
@@ -28,11 +32,16 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 
 def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -53,34 +62,57 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sources() + headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libpifft_cuda_{h.hexdigest()[:16]}.so")
 
 
+def build_log_path() -> str:
+    """Where ``build`` keeps ptxas's report for the current library."""
+    return library_path()[:-len(".so")] + ".ptxas.txt"
+
+
+def _run_all(cmds) -> list:
+    """Start every command at once and wait for all of them; returns
+    [(returncode, output)] in order, stdout and stderr merged."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    return [(p.returncode, out) for p, (out, _) in
+            ((p, p.communicate()) for p in procs)]
+
+
 def build() -> str:
     """Compile csrc/*.cu into the hashed library if it is missing;
-    returns its path.  The library is written under a temporary name and
-    renamed, so a concurrent loader never sees a partial file."""
+    returns its path.  Objects and the library are written in a
+    temporary directory and the library renamed into place, so a
+    concurrent loader never sees a partial file."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = nvcc_path()
+    srcs = sources()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        done = _run_all([[nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+                          obj, src] for obj, src in zip(objs, srcs)])
+        failed = [f"nvcc failed (exit {rc}) on {os.path.basename(src)}:"
+                  f"\n{out}" for src, (rc, out) in zip(srcs, done) if rc]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        [(rc, out)] = _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        if rc:
+            raise RuntimeError(f"nvcc link failed (exit {rc}):\n{out}")
+        log = os.path.join(tmp, "ptxas.txt")
+        with open(log, "w") as f:
+            f.writelines(f"== {os.path.basename(src)}\n{out}"
+                         for src, (_, out) in zip(srcs, done))
+        os.replace(log, build_log_path())
+        os.replace(lib, path)
     return path
 
 
@@ -103,6 +135,24 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr,             # ar, ai, br, bi
         c.c_longlong, c.c_int,          # batch, log2(R)
         c.c_int, c.c_int,               # C, log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fourstep.restype = c.c_int
+    lib.pifft_fourstep.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # ar, ai, br, bi
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_sixstep.restype = c.c_int
+    lib.pifft_sixstep.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # a1r, a1i, b1r, b1i (outer)
+        ptr, ptr, ptr, ptr,             # a2r, a2i, b2r, b2i (inner)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
+        c.c_int, c.c_int,               # log2(cb1), log2(cb2)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_cuda_error_string.restype = c.c_char_p

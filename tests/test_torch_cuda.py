@@ -74,6 +74,54 @@ def test_main_path_on_card_vs_numpy(cuda_device, shape):
     assert rel_err(yr, yi, ref.real, ref.imag) <= SPLIT3_TOL
 
 
+@pytest.mark.parametrize("R,tile,cb", [(1024, 1 << 14, 16), (64, 4096, 64),
+                                       (4, 512, 8), (2, 1 << 14, 4096)])
+def test_fourstep_kernel_vs_plain(cuda_device, R, tile, cb):
+    # (1024, 2^14, 16): 1024 column blocks and 1024 rows, both more than
+    # the persistent grid of one block per SM
+    xr, xi = _planes(35, (R, tile), cuda_device)
+    args = (xr, xi, *twiddle.device_factors(R, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.fourstep.launches
+    yk = cf.fourstep(*args, cb=cb)
+    torch.cuda.synchronize()
+    assert cf.fourstep.launches == before + 1
+    assert rel_err(*yk, *cf.fourstep_plain(*args)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("R1,R2,tile,cb1,cb2", [
+    (64, 32, 1 << 14, 256, 512),   # the n = 2^25 plan's blocking
+    (256, 4, 4096, 32, 256),       # R1 != R2, 2048 outer blocks
+    (2, 8, 1024, 8, 1024),         # R1 < R2
+    (4, 4, 512, 512, 8)])
+def test_sixstep_kernel_vs_plain(cuda_device, R1, R2, tile, cb1, cb2):
+    xr, xi = _planes(36, (R1, R2, tile), cuda_device)
+    args = (xr, xi, *twiddle.device_factors(R1, R2 * tile, cuda_device),
+            *twiddle.device_factors(R2, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.sixstep.launches
+    yk = cf.sixstep(*args, cb1=cb1, cb2=cb2)
+    torch.cuda.synchronize()
+    assert cf.sixstep.launches == before + 1
+    assert rel_err(*yk, *cf.sixstep_plain(*args)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("n,variant", [(1 << 21, "fourstep"),
+                                       (1 << 25, "sixstep")])
+def test_large_n_path_on_card_vs_numpy(cuda_device, n, variant):
+    rng = np.random.default_rng(37)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        .astype(np.complex64)
+    kernel = getattr(cf, variant)
+    before = (kernel.launches, cf.tile_fft.launches,
+              cf.long_range_sep.launches)
+    y = fft(x).cpu().numpy()
+    assert (kernel.launches, cf.tile_fft.launches,
+            cf.long_range_sep.launches) == (before[0] + 1, *before[1:])
+    ref = np.fft.fft(x.astype(np.complex128))
+    assert rel_err(y.real, y.imag, ref.real, ref.imag) <= SPLIT3_TOL
+
+
 def test_bad_launch_raises(cuda_device):
     # a tile kernel whose tables live on another device never launches
     xr, xi = _planes(34, (2, 256), cuda_device)

@@ -189,6 +189,49 @@ def test_library_path_tracks_source_hash(tmp_path, monkeypatch):
     assert os.path.dirname(first) == str(tmp_path / "_build")
 
 
+def test_library_path_tracks_header_hash(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "common.cuh"\n')
+    (src / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(buildlib, "CSRC_DIR", str(src))
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "_build"))
+    first = buildlib.library_path()
+    (src / "common.cuh").write_text("// v2\n")
+    assert buildlib.library_path() != first
+    assert buildlib.headers() == [str(src / "common.cuh")]
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    # a stand-in nvcc that logs its arguments and writes its -o file
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$*\" >> {log}\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then : > \"$2\"; fi; shift\n"
+        "done\n"
+        "echo 'ptxas info    : Used 30 registers'\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(buildlib, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(buildlib, "BUILD_DIR", str(tmp_path / "_build"))
+    path = buildlib.build()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == len(buildlib.sources()) >= 4
+    assert all(f"-I {buildlib.CSRC_DIR}" in c and "sm_90a" in c
+               for c in compiles)
+    assert calls[-1].startswith("-shared -o ")
+    assert os.path.exists(path)
+    with open(buildlib.build_log_path()) as f:
+        report = f.read()
+    assert report.count("Used 30 registers") == len(compiles)
+    assert "== fourstep.cu" in report and "== sixstep.cu" in report
+    assert buildlib.build() == path  # present: not rebuilt
+    assert len(log.read_text().splitlines()) == len(calls)
+
+
 def test_failed_build_raises_with_nvcc_stderr(tmp_path, monkeypatch):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\n"

@@ -278,7 +278,8 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.') if not m.name.endswith('__main__')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 21, mods\n"
+        "assert pkg.__name__ + '.utils.roofline' in mods, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cs87project_msolano2_tpu' or "
         "m.startswith('cs87project_msolano2_tpu.')]\n"
