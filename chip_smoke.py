@@ -10,10 +10,19 @@ against its plain PyTorch version at the main path's shapes, drives the
 main path through the user entry points — BASELINE config 2 (one
 N=2^20 complex64 fft, the ``rql`` plan), config 3 (4096 rows of 4096
 points, the ``rows`` plan), the paper's funnel/tube ``cuda`` backend
-at N=2^20, and the large-n 1-D path (``fft`` at n = 2^22 and 2^24 on
-the ``fourstep`` plan, 2^25 and 2^27 on ``sixstep``, one launch each) —
-checks the results against a complex128 oracle, and times every kernel
-and path with CUDA events.  The last line of standard output is
+at N=2^20, the large-n 1-D path (``fft`` at n = 2^22 and 2^24 on
+the ``fourstep`` plan, 2^25 and 2^27 on ``sixstep``, one launch each)
+and the tuned path (phase 8: the autotune race at N=2^20 over ``fused``,
+``fused-alias``, ``rql``, ``two-kernel`` and ``fourstep``, the stored
+winner serving ``fft``, a second process reading the store, and
+``plan sweep`` measuring the fourstep and sixstep crossovers) — checks
+the results against a complex128 oracle, and times every kernel and path
+with CUDA events.  Phase 3 also sets the card's persisting-L2 set-aside
+to 0, times rql at N=2^20, and times it again after the first ``fused``
+launch has raised that set-aside; the card's own value is put back at
+exit.  Phases 1-7 run with ``PIFFT_PLAN_CACHE`` pointed at a fresh
+temporary directory, so no plan stored on the machine changes their
+paths.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
 
@@ -25,9 +34,13 @@ H100 SXM).
 
 from __future__ import annotations
 
+import atexit
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,6 +55,16 @@ SEED = 0
 #: (log2 n, plan) of the large-n 1-D path
 LARGE = ((22, "fourstep"), (24, "fourstep"), (25, "sixstep"),
          (27, "sixstep"))
+#: plan lookups timed on the host clock in phase 7
+LOOKUPS = 10000
+#: log2 of the transform lengths phase 8's ``plan sweep`` races
+SWEEP = (20, 22, 24, 25)
+#: kernel launches of one call of each 1-D plan variant
+VARIANT_LAUNCHES = {
+    "fused": {"fused": 1}, "fused-alias": {"fused": 1},
+    "rql": {"long_range_sep": 1, "tile_fft": 1},
+    "two-kernel": {"long_range_dense": 1, "tile_fft": 1},
+    "fourstep": {"fourstep": 1}, "sixstep": {"sixstep": 1}}
 
 
 def log(msg):
@@ -83,6 +106,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    # a fresh plan store: no plan stored on this machine may change the
+    # static paths of phases 4-7, and phase 8 writes its winners here
+    store = tempfile.mkdtemp(prefix="pifft-plans-")
+    os.environ["PIFFT_PLAN_CACHE"] = store
+    os.environ.pop("PIFFT_PLAN_AUTOTUNE", None)
+    try:
+        return run(store)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def run(store) -> int:
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -97,11 +134,12 @@ def main() -> int:
     )
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
+        dense_long_range_tables,
         device_factors,
         flat_tables,
     )
     from cs87project_msolano2_tpu_torch.utils import buildlib, roofline, verify
-    from cs87project_msolano2_tpu_torch.utils.timing import time_ms
+    from cs87project_msolano2_tpu_torch.utils.timing import FLUSH_BYTES, time_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -170,17 +208,113 @@ def main() -> int:
     t4, R4, cb4 = cf.fourstep_blocking(1 << 24)
     xr4, xi4 = random_complex(rng, (R4, t4), dev, R4 * t4)
     label4 = f"fourstep({R4},{t4})"
-    check_kernel(label4, lambda *a: cf.fourstep(*a, cb4), cf.fourstep_plain,
+    check_kernel(label4, lambda *a: cf.fourstep(*a, cb=cb4), cf.fourstep_plain,
                  (xr4, xi4, *device_factors(R4, t4, dev), twr14, twi14))
     t6, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << 27)
     xr6, xi6 = random_complex(rng, (R1, R2, t6), dev, R1 * R2 * t6)
     label6 = f"sixstep({R1},{R2},{t6})"
-    check_kernel(label6, lambda *a: cf.sixstep(*a, cb1, cb2),
+    check_kernel(label6, lambda *a: cf.sixstep(*a, cb1=cb1, cb2=cb2),
                  cf.sixstep_plain,
                  (xr6, xi6, *device_factors(R1, R2 * t6, dev),
                   *device_factors(R2, t6, dev), twr14, twi14))
     log(f"# phase 3 blocking: fourstep R={R4} cb={cb4}; sixstep "
         f"R1={R1} R2={R2} cb1={cb1} cb2={cb2}")
+    # the tuned path's kernels: the dense long-range pass and the
+    # two-kernel composition at n = 2^20, fused in both alias modes at
+    # n = 2^20, and the dense modes of fourstep and sixstep at n = 2^22
+    dense = dense_long_range_tables(R, T, dev)
+    check_kernel("long_range_dense(1,64,16384)",
+                 lambda *a: cf.long_range_dense(*a, cf.DEFAULT_CB),
+                 cf.long_range_dense_plain, (xr3, xi3, *dense))
+    x2r, x2i = random_complex(rng, (R * T,), dev)
+
+    def two_kernel_plain(xr, xi):
+        yr, yi = cf.long_range_dense_plain(xr.reshape(1, R, T),
+                                           xi.reshape(1, R, T), *dense)
+        yr, yi = cf.tile_fft_plain(yr.reshape(R, T), yi.reshape(R, T),
+                                   twr14, twi14)
+        return yr.reshape(-1), yi.reshape(-1)
+
+    check_kernel("fft_pi_layout_cuda2(2^20)", cf.fft_pi_layout_cuda2,
+                 two_kernel_plain, (x2r, x2i))
+
+    # the first fused launch raises the card's persisting-L2 set-aside
+    # until process exit: rql at 2^20, read with no set-aside and after
+    # that launch, L2 flushed (cold, as phase 7 times) and not (the
+    # planes stay in L2 across reps, where a smaller usable L2 would
+    # show).  The reading is the kernels' device time per call from
+    # torch.profiler, which host launch gaps do not move.  The card's
+    # own value is put back at exit, after the fused wrapper's restore
+    # (atexit runs last what it registered first).
+    from torch.profiler import ProfilerActivity, profile
+
+    def rql_device_ms(flush):
+        scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+            if flush else None
+        for _ in range(3):
+            cf.fft_pi_layout_cuda_rql(x2r, x2i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                if scratch is not None:
+                    scratch.fill_(1)
+                cf.fft_pi_layout_cuda_rql(x2r, x2i)
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if "long_range" in ev.key or "tile_fft" in ev.key:
+                dt = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if dt is None else dt
+        if not us:
+            raise AssertionError("the profiler saw no rql kernel")
+        return us / 1e3 / REPS
+
+    def rql_reading():
+        reading = {"set_aside_bytes": cf.persisting_l2_set_aside(dev)}
+        for flush in (True, False):
+            reading[f"rql_device_ms_flush_{flush}"] = rql_device_ms(flush)
+        return reading
+
+    set_aside = {"at_start_bytes": cf.persisting_l2_set_aside(dev)}
+    atexit.register(cf.set_persisting_l2_set_aside, dev,
+                    set_aside["at_start_bytes"])
+    cf.set_persisting_l2_set_aside(dev, 0)
+    set_aside["before"] = rql_reading()
+    tf, Rf, qbf = cf.fused_blocking(R * T)
+    labelf = f"fused({Rf},{tf})"
+    fused_args = (x2r.reshape(Rf, tf), x2i.reshape(Rf, tf),
+                  *device_factors(Rf, tf, dev), twr14, twi14)
+    check_kernel(labelf, cf.fused, cf.fused_plain, fused_args)
+    check_kernel(f"fused-alias({Rf},{tf})",
+                 lambda xr, xi, *a: cf.fused(xr.clone(), xi.clone(), *a,
+                                             alias_io=True),
+                 cf.fused_plain, fused_args)
+    set_aside["after"] = rql_reading()
+    log(f"# phase 3 persisting-L2 set-aside at start "
+        f"{set_aside['at_start_bytes']} bytes; set-aside and rql N=2^20 "
+        f"device ms per call (profiler; flushed, warm L2) with it set to "
+        f"0: {set_aside['before']}; "
+        f"after the first fused launch: {set_aside['after']}")
+    if set_aside["before"]["set_aside_bytes"] != 0 or \
+            set_aside["after"]["set_aside_bytes"] < 8 * Rf * tf:
+        raise AssertionError(f"fused left the set-aside at {set_aside}")
+    t22, R22, cb22 = cf.fourstep_blocking(1 << 22)
+    xr22, xi22 = random_complex(rng, (R22, t22), dev, R22 * t22)
+    check_kernel(f"fourstep-dense({R22},{t22})",
+                 lambda *a: cf.fourstep(*a, cb=cb22, separable=False),
+                 lambda *a: cf.fourstep_plain(*a, separable=False),
+                 (xr22, xi22, *dense_long_range_tables(R22, t22, dev),
+                  twr14, twi14))
+    _, s1, s2, _, _ = cf.sixstep_blocking(1 << 22)
+    check_kernel(f"sixstep-dense({s1},{s2},{t22})",
+                 lambda *a: cf.sixstep(*a, separable=False),
+                 lambda *a: cf.sixstep_plain(*a, separable=False),
+                 (xr22.reshape(s1, s2, t22), xi22.reshape(s1, s2, t22),
+                  *dense_long_range_tables(s1, s2 * t22, dev),
+                  *dense_long_range_tables(s2, t22, dev), twr14, twi14))
+    log(f"# phase 3 blocking: fused R={Rf} qb={qbf}; dense fourstep "
+        f"R={R22} cb={cb22}; dense sixstep R1={s1} R2={s2}; fused carry "
+        f"limit {cf.fused_carry_limit(dev)} bytes of persisting L2")
 
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
@@ -272,6 +406,9 @@ def main() -> int:
                 "fourstep": cf.fourstep.launches,
                 "sixstep": cf.sixstep.launches}
 
+    def counts_all():
+        return {k.__name__: k.launches for k in cf.KERNELS}
+
     cf.reset_launch_counts()
     large = {}
     for k, want in LARGE:
@@ -319,8 +456,9 @@ def main() -> int:
                     sixstep=large_launches["sixstep"])
 
     # phase 7: times (CUDA events, median of REPS, L2 flushed)
-    def timed(fn, *args):
-        return time_ms(fn, *args, reps=REPS, warmup=3, flush_l2=True)[0]
+    def timed(fn, *args, before=None):
+        return time_ms(fn, *args, reps=REPS, warmup=3, flush_l2=True,
+                       before=before)[0]
 
     timings = {}
 
@@ -364,16 +502,35 @@ def main() -> int:
         # separable factors: A (rows - 1) and B (levels x cols), re + im
         return 8 * (rows - 1 + int(np.log2(rows)) * cols)
 
+    # long_range_dense: 5 flop per element per level, the planes once
+    # each way plus the (R - 1) x T dense tables
+    kernel_row("long_range_dense(1,64,16384)",
+               lambda *t: cf.long_range_dense(*t, cf.DEFAULT_CB),
+               cf.long_range_dense_plain,
+               cases["long_range_dense(1,64,16384)"]["args"],
+               16 * R * T + 8 * (R - 1) * T, 5 * R * T * lev,
+               5 * R * T * lev, None)
+    # fused at 2^20: 8 flop per element per long-range level (6 of them
+    # rebuilding the twiddle) and 5 per tile level; the planes once each
+    # way plus factors and tables (the carry stays in L2)
+    lev_f = int(np.log2(Rf))
+    nf = Rf * tf
+    xcf = torch.complex(x2r, x2i)
+    kernel_row(labelf, cf.fused, cf.fused_plain, fused_args,
+               16 * nf + fac_bytes(Rf, tf) + 8 * (tf - 1),
+               nf * (8 * lev_f + 5 * int(np.log2(tf))),
+               5 * nf * int(np.log2(nf)), (torch.fft.fft, xcf))
+
     # fourstep at 2^24 and sixstep at 2^27: each element passes 8 flop
     # per long-range level (6 of them rebuilding the twiddle) and 5 per
     # tile level; bytes are the planes once each way, factors, tables
     for label, rows, lib_tile, args, fn, plain, nbytes, lr_levels, reps in (
             (label4, [R4], t4, cases[label4]["args"],
-             lambda *a: cf.fourstep(*a, cb4), cf.fourstep_plain,
+             lambda *a: cf.fourstep(*a, cb=cb4), cf.fourstep_plain,
              16 * R4 * t4 + fac_bytes(R4, t4) + 8 * (t4 - 1),
              int(np.log2(R4)), REPS),
             (label6, [R1, R2], t6, cases[label6]["args"],
-             lambda *a: cf.sixstep(*a, cb1, cb2), cf.sixstep_plain,
+             lambda *a: cf.sixstep(*a, cb1=cb1, cb2=cb2), cf.sixstep_plain,
              16 * R1 * R2 * t6 + fac_bytes(R1, R2 * t6)
              + fac_bytes(R2, t6) + 8 * (t6 - 1),
              int(np.log2(R1 * R2)), PLAIN_REPS_2_27)):
@@ -387,8 +544,8 @@ def main() -> int:
     paths = {}
 
     def path_row(label, fn, args, n, count, launches_per_call, lib,
-                 plain=None, variant=None, plain_reps=REPS):
-        ms = timed(fn, *args)
+                 plain=None, variant=None, plain_reps=REPS, before=None):
+        ms = timed(fn, *args, before=before)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0] if plain is not None else None
         lib_ms = timed(*lib)
@@ -424,6 +581,38 @@ def main() -> int:
              n2, 1, 2, (torch.fft.fft, x2), rql_plain, "rql")
     path_row("fft natural N=2^20 (plan rql + gather)", fft, (x2,),
              n2, 1, 2, (torch.fft.fft, x2), variant="rql")
+    # the tuned path's candidates at N=2^20, pi layout, each through the
+    # ladder's executor as the race times it (fused-alias writes over
+    # its planes: each rep gets them back, untimed, as in the race)
+    from cs87project_msolano2_tpu_torch.plans import ladder
+
+    key_pi = plans.make_key(n2, layout="pi", device=dev)
+    for variant, params, launches_per_call, plain in (
+            ("fused", {"tile": T, "qb": qbf}, 1,
+             lambda a, b: cf.fused_plain(a.reshape(R, T), b.reshape(R, T),
+                                         *fac, twr14, twi14)),
+            ("fused-alias", {"tile": T, "qb": qbf}, 1, None),
+            ("two-kernel", {"tile": T, "cb": cf.DEFAULT_CB}, 2,
+             two_kernel_plain)):
+        run = ladder.build_executor(key_pi, variant, params)
+        args, before = (x2r, x2i), None
+        if run.consumes_input:
+            args = (x2r.clone(), x2i.clone())
+
+            def before(a=args):
+                a[0].copy_(x2r)
+                a[1].copy_(x2i)
+        path_row(f"{variant} pi N=2^20 {params}", run, args, n2, 1,
+                 launches_per_call, (torch.fft.fft, x2), plain, variant,
+                 before=before)
+
+    # the plan lookup every fft call makes, on the host clock
+    t0 = time.perf_counter()
+    for _ in range(LOOKUPS):
+        plans.plan_for((n2,), device=dev)
+    lookup_us = (time.perf_counter() - t0) / LOOKUPS * 1e6
+    log(f"# phase 7 plan_for((2^20,)) lookup: {lookup_us:.3f} us per call "
+        f"(host clock, {LOOKUPS} calls)")
     x3r, x3i = random_complex(rng, (4096, 4096), dev)
     x3 = torch.complex(x3r, x3i)
     path_row("rows pi (4096,4096)",
@@ -465,8 +654,6 @@ def main() -> int:
 
     # phase 7b: device time of one natural-order large-n fft by kernel,
     # from torch.profiler, and the card's idle share of that call
-    from torch.profiler import ProfilerActivity, profile
-
     profiles = {}
     for k, variant in LARGE:
         xl = large[k].pop("x")
@@ -498,6 +685,97 @@ def main() -> int:
             + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
         del xl
 
+    # phase 8: the tuned path, counted — the race at N=2^20 (pi layout),
+    # the opted-in race of the natural-order key that fft's plan lookup
+    # runs on a miss, then fft served by the stored winner
+    n8 = 1 << 20
+    cf.reset_launch_counts()
+    tuned_pi = plans.tune(plans.make_key(n8, layout="pi", device=dev),
+                          force=True)
+    race = {r.variant + " " + json.dumps(r.params, sort_keys=True):
+            {"status": r.status, "ms": r.ms, "reason": r.reason}
+            for r in tuned_pi.tuning}
+    for r in tuned_pi.tuning:
+        log(f"# phase 8 race N=2^20 pi: {r.variant} {r.params}: "
+            f"{r.status}" + (f" {r.ms:.4f} ms" if r.ms is not None else "")
+            + (f" ({r.reason})" if r.status == "rejected" else ""))
+    for variant in ("fused", "fused-alias", "two-kernel"):
+        if not any(r.variant == variant and r.status in ("won", "lost")
+                   for r in tuned_pi.tuning):
+            raise AssertionError(f"the race did not time {variant}")
+    os.environ["PIFFT_PLAN_AUTOTUNE"] = "1"
+    try:
+        tuned_nat = plans.plan_for((n8,), device=dev)
+    finally:
+        del os.environ["PIFFT_PLAN_AUTOTUNE"]
+    if tuned_nat.source != "tuned":
+        raise AssertionError(f"opted-in plan_for gave a {tuned_nat.source} "
+                             f"plan, not a tuned one")
+    log(f"# phase 8 winners N=2^20: pi {tuned_pi.variant} "
+        f"{tuned_pi.params} ({tuned_pi.ms:.4f} ms); natural "
+        f"{tuned_nat.variant} {tuned_nat.params} ({tuned_nat.ms:.4f} ms)")
+    x8 = torch.complex(*random_complex(rng, (n8,), dev))
+    before = counts_all()
+    y8 = fft(x8)
+    torch.cuda.synchronize()
+    delta8 = {k: c - before[k] for k, c in counts_all().items()}
+    want8 = {k: VARIANT_LAUNCHES[tuned_nat.variant].get(k, 0)
+             for k in delta8}
+    if delta8 != want8 or plans.plan_for((n8,), device=dev) is not tuned_nat:
+        raise AssertionError(f"the tuned fft launched {delta8}, expected "
+                             f"{want8} for {tuned_nat.variant}")
+    ref8 = torch.fft.fft(x8.to(torch.complex128))
+    e8, m8 = rel_l2(y8, ref8), max_abs(y8, ref8)
+    log(f"# phase 8 tuned fft N=2^20 plan={tuned_nat.variant} "
+        f"{tuned_nat.params} [{tuned_nat.source}]: rel L2 {e8:.3e} (budget "
+        f"{PATH_TOL}), max abs {m8:.3e} (bound {MAX_ABS_TOL}), launches "
+        f"{delta8}")
+    if not (e8 <= PATH_TOL and m8 < MAX_ABS_TOL and y8.shape == (n8,)
+            and torch.isfinite(y8).all()):
+        raise AssertionError("the tuned fft is out of tolerance")
+    tuned_launches = counts_all()
+    log(f"# tuned path launches (race, opted-in race, fft): "
+        f"{tuned_launches}")
+    for name in ("fused", "long_range_dense"):
+        if tuned_launches[name] < 1:
+            raise AssertionError(f"the tuned path never launched {name}")
+    launches.update(fused=tuned_launches["fused"],
+                    long_range_dense=tuned_launches["long_range_dense"])
+
+    # a second process finds both winners on disk
+    shown = subprocess.run(
+        [sys.executable, "-m", "cs87project_msolano2_tpu_torch", "plan",
+         "show"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ), cwd=os.path.dirname(os.path.abspath(__file__)))
+    log("\n".join(f"# phase 8 plan show: {line}"
+                   for line in shown.stdout.splitlines()))
+    for pl in (tuned_pi, tuned_nat):
+        if shown.returncode != 0 or not any(
+                f"n={n8} " in line and f" {pl.key.layout} " in line
+                and f": {pl.variant} " in line
+                for line in shown.stdout.splitlines()):
+            raise AssertionError(f"plan show in a second process did not "
+                                 f"list the {pl.key.layout} winner: "
+                                 f"{shown.stderr[-2000:]}")
+
+    # the sweep: races at each n, the crossovers this card measures
+    cf.reset_launch_counts()
+    if cli_main(["plan", "sweep", "--ns", *(f"2^{k}" for k in SWEEP)]) != 0:
+        raise AssertionError("plan sweep failed")
+    sweep_launches = counts_all()
+    swept, cross4 = plans.tune_sweep([1 << k for k in SWEEP], verbose=False)
+    cross6 = plans.sixstep_crossover(swept)
+    sweep = {p.key.n: {"variant": p.variant, "params": p.params,
+                       "ms": p.ms,
+                       "race": [r.to_record() for r in p.tuning]}
+             for p in swept}
+    log(f"# phase 8 sweep: fourstep crossover {cross4}, sixstep crossover "
+        f"{cross6} (the static ladder's, from the TPU: 2^21 and 2^25); "
+        f"launches {sweep_launches}")
+    if sweep_launches["sixstep"] < 1 or sweep_launches["fourstep"] < 1:
+        raise AssertionError(f"the sweep raced no carry kernel: "
+                             f"{sweep_launches}")
+
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
@@ -506,8 +784,11 @@ def main() -> int:
              ref_src + "299"),
             ("long_range_sep", "long_range_sep(1,64,16384)",
              src + "long_range.cu", ref_src + "519"),
+            ("long_range_dense", "long_range_dense(1,64,16384)",
+             src + "long_range.cu", ref_src + "483"),
             ("fourstep", label4, src + "fourstep.cu", ref_src + "1046"),
-            ("sixstep", label6, src + "sixstep.cu", ref_src + "1354")):
+            ("sixstep", label6, src + "sixstep.cu", ref_src + "1354"),
+            ("fused", labelf, src + "fused.cu", ref_src + "832")):
         t = timings[label]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -517,8 +798,20 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
+              for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
-                    "large_n": large, "profiles": profiles}))
+                    "large_n": large, "profiles": profiles,
+                    "set_aside": set_aside, "lookup_us": lookup_us,
+                    "kernel_checks": checks,
+                    "tuned": {"race_2^20_pi": race,
+                              "winner_pi": tuned_pi.describe(),
+                              "winner_natural": tuned_nat.describe(),
+                              "fft": {"rel_l2": e8, "max_abs": m8,
+                                      "launches": delta8},
+                              "sweep": sweep, "fourstep_crossover": cross4,
+                              "sixstep_crossover": cross6}}))
+    log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
-"""Command line: the reference-parity pi-FFT run.
+"""Command line: the reference-parity pi-FFT run and the plan store.
 
     python -m cs87project_msolano2_tpu_torch -n 1048576 -p 4 -b cuda --verify
     python -m cs87project_msolano2_tpu_torch -t -b cuda
+    python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
 
-prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
-tube_ms); ``-t`` runs the exact 8-point golden test for p in {1,2,4,8}.
-Runs on the card unless ``--device cpu`` is given.
+The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
+tube_ms); ``-t`` runs the exact 8-point golden test for p in {1,2,4,8};
+``plan`` manages the persistent plan store (``plans.cache``).  Runs on
+the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,9 +43,136 @@ def run_golden(backend_name: str, device=None) -> int:
     return 0 if ok_all else 1
 
 
+def _parse_n(s: str) -> int:
+    """Accept plain ints and the 2^k spelling the bench docs use."""
+    if "^" in s:
+        base, exp = s.split("^", 1)
+        return int(base) ** int(exp)
+    return int(s, 0)
+
+
+def plan_main(argv) -> int:
+    """`plan {show|warm|clear|sweep}` — manage the persistent FFT plan
+    store (`sweep` tunes a large-n trajectory and reports the measured
+    fourstep AND sixstep crossovers), as the reference's ``plan``."""
+    from .ops.precision import PRECISIONS
+
+    ap = argparse.ArgumentParser(
+        prog="cs87project_msolano2_tpu_torch plan",
+        description="show / warm / clear / sweep the FFT plan store "
+                    "(tune once per card, serve forever)",
+    )
+    ap.add_argument("action", choices=("show", "warm", "clear", "sweep"))
+    ap.add_argument("--shapes", default=None, metavar="FILE",
+                    help="warm a served shape set (not ported yet)")
+    ap.add_argument("-n", type=_parse_n, default=1 << 20,
+                    help="transform length for warm (int or 2^k)")
+    ap.add_argument("--ns", type=_parse_n, nargs="*",
+                    default=[1 << 20, 1 << 22, 1 << 24, 1 << 25, 1 << 26],
+                    help="sweep: transform lengths to tune (default: the "
+                         "bench trajectory through the fourstep AND "
+                         "sixstep crossovers)")
+    ap.add_argument("--batch", type=int, nargs="*", default=[],
+                    help="leading batch dims for warm (default: none)")
+    ap.add_argument("--layout", choices=("natural", "pi"), default="pi",
+                    help="output order the plan is tuned for")
+    ap.add_argument("--precision", choices=PRECISIONS, default=None,
+                    help="precision mode to tune for (bf16 storage is not "
+                         "ported yet)")
+    ap.add_argument("--force", action="store_true",
+                    help="warm/sweep: re-tune even on a cache hit")
+    args = ap.parse_args(argv)
+
+    from . import plans
+
+    if args.shapes:
+        print("error: --shapes (warming a served shape set) comes with "
+              "the serving slice of the port; warm one -n at a time",
+              file=sys.stderr)
+        return 2
+
+    if args.action == "clear":
+        removed = plans.cache.clear(memory=True, disk=True)
+        for path in removed:
+            print(f"removed {path}")
+        if not removed:
+            print("plan cache already empty "
+                  f"(dir: {plans.cache.cache_dir() or 'disabled'})")
+        return 0
+
+    kind = plans.current_device_kind("cuda")
+    if args.action == "show":
+        path = plans.cache.store_path(kind)
+        print(f"device kind:  {kind}")
+        print(f"cache dir:    {plans.cache.cache_dir() or 'DISABLED'} "
+              f"(PIFFT_PLAN_CACHE overrides)")
+        entries = plans.cache.disk_entries(kind)
+        if not entries:
+            print("store:        empty (plans will come from static "
+                  "defaults until warmed)")
+            return 0
+        print(f"store:        {path} ({len(entries)} plan(s))")
+        from .ops.precision import ERROR_BUDGETS, storage_dtype
+
+        for token, rec in sorted(entries.items()):
+            key = plans.PlanKey.from_token(token)
+            ms = rec.get("ms")
+            print(f"  n={key.n} domain={key.domain} batch={key.batch} "
+                  f"{key.layout} {key.precision} "
+                  f"[{storage_dtype(key.precision)}, budget "
+                  f"{ERROR_BUDGETS[key.precision]:.0e}]: "
+                  f"{rec['variant']} {rec['params']}"
+                  + (f" ({ms:.4f} ms)" if ms is not None else ""))
+        return 0
+
+    if args.action == "sweep":
+        try:
+            tuned, cross = plans.tune_sweep(
+                args.ns, layout=args.layout, precision=args.precision,
+                force=args.force)
+        except (plans.TuningUnavailable, plans.TuningError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        for p in tuned:
+            ms = f" ({p.ms:.4f} ms)" if p.ms is not None else ""
+            print(f"  n={p.key.n}: {p.variant} {p.params}{ms}")
+        print(f"measured fourstep crossover: "
+              f"{cross if cross is not None else 'none (never won)'}")
+        cross6 = plans.sixstep_crossover(tuned)
+        print(f"measured sixstep crossover: "
+              f"{cross6 if cross6 is not None else 'none (never won)'}")
+        return 0
+
+    # warm
+    try:
+        key = plans.make_key(args.n, tuple(args.batch), layout=args.layout,
+                             precision=args.precision)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        plan = plans.tune(key, force=args.force)
+    except plans.TuningUnavailable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except plans.TuningError as e:
+        print(f"error: {e}", file=sys.stderr)
+        for r in e.results:
+            print(f"  {r.variant} {r.params}: {r.reason}", file=sys.stderr)
+        return 1
+    except (ValueError, NotImplementedError) as e:
+        # a key the port does not serve yet (bf16, real domains)
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(f"warmed {key.token()}\n  -> {plan.describe()}")
+    return 0
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "plan":
+        return plan_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch",
         description="communication-free pi-FFT on PyTorch/CUDA",

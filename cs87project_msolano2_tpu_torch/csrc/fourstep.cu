@@ -8,9 +8,12 @@
 // What it computes.  The (R, tile) view of the input goes through the
 // first log2(R) DIF levels in R x cb column blocks (phase A, the
 // long-range levels, twiddles rebuilt from the separable factors of
-// long_range_factors(R, tile)), then every one of the R rows through
-// the tile-point DIF (phase B, twiddle_tables(tile)).  That is the rql
-// composition of long_range.cu and tile_fft.cu, in one launch.
+// long_range_factors(R, tile), or read from the dense per-level tables
+// of dense_long_range_tables(R, tile): the reference's separable=False,
+// a twiddle source of fft_common.cuh picked at compile time), then
+// every one of the R rows through the tile-point DIF (phase B,
+// twiddle_tables(tile)).  That is the rql composition of long_range.cu
+// (either twiddle source) and tile_fft.cu, in one launch.
 //
 // Design.  The TPU ran phase A then phase B as one sequential grid,
 // with an HBM carry written by double-buffered DMA; it relied on the
@@ -50,11 +53,11 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+template <class Twiddle>
 __global__ void __launch_bounds__(kThreads, 1)
 fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* yr, float* yi,  // output and carry: not restrict
-                const float* __restrict__ ar, const float* __restrict__ ai,
-                const float* __restrict__ br, const float* __restrict__ bi,
+                Twiddle tw,
                 const float* __restrict__ twr, const float* __restrict__ twi,
                 int log2_r, int log2_tile, int log2_cb) {
   extern __shared__ float smem[];
@@ -67,9 +70,9 @@ fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int col_blocks = 1 << (log2_tile - log2_cb);
   for (int b = blockIdx.x; b < col_blocks; b += gridDim.x) {
     const size_t c0 = static_cast<size_t>(b) << log2_cb;
-    pifft::load_block<false>(sr, si, xr, xi, c0, tile, log2_r, log2_cb);
-    pifft::long_range_levels(sr, si, log2_r, log2_cb, ar, ai, br, bi, tile,
-                             c0);
+    pifft::load_block<pifft::Load::kCached>(sr, si, xr, xi, c0, tile,
+                                            log2_r, log2_cb);
+    pifft::long_range_levels(sr, si, log2_r, log2_cb, tw, c0);
     pifft::store_block(yr, yi, sr, si, c0, tile, log2_r, log2_cb);
   }
 
@@ -79,10 +82,28 @@ fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const int rows = 1 << log2_r;
   for (int r = blockIdx.x; r < rows; r += gridDim.x) {
     const size_t base = static_cast<size_t>(r) << log2_tile;
-    pifft::load_block<true>(sr, si, yr, yi, base, 0, 0, log2_tile);
+    pifft::load_block<pifft::Load::kCoherent>(sr, si, yr, yi, base, 0, 0,
+                                              log2_tile);
     pifft::tile_levels(sr, si, log2_tile, twr, twi);
     pifft::store_block(yr, yi, sr, si, base, 0, 0, log2_tile);
   }
+}
+
+template <class Twiddle>
+int launch(const float* xr, const float* xi, float* yr, float* yi,
+           Twiddle tw, const float* twr, const float* twi, int log2_r,
+           int log2_tile, int log2_cb, int device, void* stream) {
+  const int lr = 1 << (log2_r + log2_cb);
+  const int tile = 1 << log2_tile;
+  const int half = lr > tile ? lr : tile;  // floats per plane
+  const int smem = 2 * half * static_cast<int>(sizeof(float));
+  const long long col_blocks = 1LL << (log2_tile - log2_cb);
+  const long long rows = 1LL << log2_r;
+  void* args[] = {&xr, &xi, &yr, &yi, &tw, &twr, &twi,
+                  &log2_r, &log2_tile, &log2_cb};
+  return static_cast<int>(pifft::launch_cooperative(
+      reinterpret_cast<const void*>(fourstep_kernel<Twiddle>), kThreads,
+      smem, col_blocks > rows ? col_blocks : rows, args, device, stream));
 }
 
 }  // namespace
@@ -98,15 +119,24 @@ extern "C" int pifft_fourstep(const float* xr, const float* xi, float* yr,
                               const float* twr, const float* twi, int log2_r,
                               int log2_tile, int log2_cb, int device,
                               void* stream) {
-  const int lr = 1 << (log2_r + log2_cb);
-  const int tile = 1 << log2_tile;
-  const int half = lr > tile ? lr : tile;  // floats per plane
-  const int smem = 2 * half * static_cast<int>(sizeof(float));
-  const long long col_blocks = 1LL << (log2_tile - log2_cb);
-  const long long rows = 1LL << log2_r;
-  void* args[] = {&xr, &xi, &yr, &yi, &ar, &ai, &br, &bi, &twr, &twi,
-                  &log2_r, &log2_tile, &log2_cb};
-  return static_cast<int>(pifft::launch_cooperative(
-      reinterpret_cast<const void*>(fourstep_kernel), kThreads, smem,
-      col_blocks > rows ? col_blocks : rows, args, device, stream));
+  const pifft::SeparableTwiddle tw{ar, ai, br, bi,
+                                   static_cast<size_t>(1) << log2_tile};
+  return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
+                device, stream);
+}
+
+// The same transform with phase A's twiddles read from the dense
+// (R - 1, tile) tables (wr, wi) of dense_long_range_tables(R, tile):
+// each entry is read by the one block that owns its column, so the
+// reads stream (evict-first).
+extern "C" int pifft_fourstep_dense(const float* xr, const float* xi,
+                                    float* yr, float* yi, const float* wr,
+                                    const float* wi, const float* twr,
+                                    const float* twi, int log2_r,
+                                    int log2_tile, int log2_cb, int device,
+                                    void* stream) {
+  const pifft::DenseTwiddle<true> tw{wr, wi,
+                                     static_cast<size_t>(1) << log2_tile};
+  return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
+                device, stream);
 }

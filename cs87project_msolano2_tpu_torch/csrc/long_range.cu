@@ -1,11 +1,15 @@
-// long_range_sep: the first log2(R) DIF levels of every n = R * C
-// transform in a batch, viewed as (batch, R, C) row-major, with twiddles
-// rebuilt from separable factors, on an NVIDIA Hopper card (sm_90a).
+// long_range_sep and long_range_dense: the first log2(R) DIF levels of
+// every n = R * C transform in a batch, viewed as (batch, R, C)
+// row-major, on an NVIDIA Hopper card (sm_90a).  One kernel template,
+// two twiddle sources: separable factors (pifft_long_range_sep) or
+// dense per-level tables (pifft_long_range_dense).
 //
-// Replaces the TPU kernel cs87project_msolano2_tpu/ops/pallas_fft.py:
+// Replaces the TPU kernels cs87project_msolano2_tpu/ops/pallas_fft.py:
 // _long_range_kernel_sep (l.519), launched there by
 // fft_pi_layout_pallas_rql (l.742, pallas_call l.813) as phase A of the
-// rql whole transform.
+// rql whole transform, and _long_range_kernel (l.483), launched by
+// long_range_grid (l.602, pallas_call l.664) as the first pass of the
+// two-kernel whole transform fft_pi_layout_pallas2 (l.678).
 //
 // Design.  Level l pairs rows (r, r + R/2^(l+1)) within each group of
 // R/2^l rows, so every level stays inside one column: a block owns `cb`
@@ -29,6 +33,19 @@
 // fp32 ridge, so bytes over HBM bandwidth is the floor.  The design
 // keeps all log2(R) levels in shared memory between one coalesced read
 // and one coalesced write.
+//
+// Dense tables.  The level-l twiddle of row offset j and column c is
+// read from table l at [j, c0 + c]: level l's (R >> (l + 1), C) table
+// is the n-point level-l table of twiddle_tables(n) reshaped, as the TPU
+// kernel reads it, and the levels are stacked into one (R - 1, C) array
+// a plane (dense_long_range_tables).  Each entry belongs to one block's
+// columns, so the reads stream through L2 evict-first (ld.global.cs).
+// The tables add (R - 1) * C floats a plane, about 8 bytes per element:
+// 24 bytes moved per element against the separable source's 16, for 5
+// flop per element per level instead of 11.  The TPU preferred the dense
+// tables (its pass was VPU-bound); on Hopper the pass is bound by bytes,
+// so the dense source is expected to lose, and the ladder's race
+// measures by how much.
 
 #include <cuda_runtime.h>
 
@@ -36,15 +53,12 @@
 
 namespace {
 
-__global__ void long_range_sep_kernel(const float* __restrict__ xr,
-                                      const float* __restrict__ xi,
-                                      float* __restrict__ yr,
-                                      float* __restrict__ yi,
-                                      const float* __restrict__ ar,
-                                      const float* __restrict__ ai,
-                                      const float* __restrict__ br,
-                                      const float* __restrict__ bi,
-                                      int log2_r, int C, int log2_cb) {
+template <class Twiddle>
+__global__ void long_range_kernel(const float* __restrict__ xr,
+                                  const float* __restrict__ xi,
+                                  float* __restrict__ yr,
+                                  float* __restrict__ yi, Twiddle tw,
+                                  int log2_r, int C, int log2_cb) {
   extern __shared__ float smem[];
   float* sr = smem;
   float* si = smem + (1 << (log2_r + log2_cb));
@@ -52,34 +66,57 @@ __global__ void long_range_sep_kernel(const float* __restrict__ xr,
   const long long t = blockIdx.x / col_blocks;  // transform in the batch
   const int c0 = (blockIdx.x - t * col_blocks) << log2_cb;
   const size_t base = (static_cast<size_t>(t) << log2_r) * C + c0;
-  pifft::load_block<false>(sr, si, xr, xi, base, C, log2_r, log2_cb);
-  pifft::long_range_levels(sr, si, log2_r, log2_cb, ar, ai, br, bi, C, c0);
+  pifft::load_block<pifft::Load::kCached>(sr, si, xr, xi, base, C, log2_r,
+                                         log2_cb);
+  pifft::long_range_levels(sr, si, log2_r, log2_cb, tw, c0);
   pifft::store_block(yr, yi, sr, si, base, C, log2_r, log2_cb);
+}
+
+template <class Twiddle>
+int launch(const float* xr, const float* xi, float* yr, float* yi,
+           Twiddle tw, long long batch, int log2_r, int C, int log2_cb,
+           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int total = (1 << log2_r) << log2_cb;
+  const int smem = 2 * total * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(long_range_kernel<Twiddle>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = (total >> 1) < 256 ? (total >> 1) : 256;
+  const long long blocks = batch * (C >> log2_cb);
+  long_range_kernel<Twiddle><<<static_cast<unsigned int>(blocks), threads,
+                               smem, static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, yr, yi, tw, log2_r, C, log2_cb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launch the long-range levels over `batch` transforms of (2^log2_r, C)
-// in column blocks of 2^log2_cb on `stream` (a cudaStream_t).  Returns
-// the cudaError_t of the launch: 0 = success.
+// in column blocks of 2^log2_cb on `stream` (a cudaStream_t), twiddles
+// rebuilt from the factors (ar, ai, br, bi) of long_range_factors(R, C).
+// Returns the cudaError_t of the launch: 0 = success.
 extern "C" int pifft_long_range_sep(const float* xr, const float* xi,
                                     float* yr, float* yi, const float* ar,
                                     const float* ai, const float* br,
                                     const float* bi, long long batch,
                                     int log2_r, int C, int log2_cb,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = (1 << log2_r) << log2_cb;
-  const int smem = 2 * total * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(long_range_sep_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (total >> 1) < 256 ? (total >> 1) : 256;
-  const long long blocks = batch * (C >> log2_cb);
-  long_range_sep_kernel<<<static_cast<unsigned int>(blocks), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, yr, yi, ar, ai, br, bi, log2_r, C, log2_cb);
-  return static_cast<int>(cudaGetLastError());
+  const pifft::SeparableTwiddle tw{ar, ai, br, bi, static_cast<size_t>(C)};
+  return launch(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                stream);
+}
+
+// The same levels with the twiddles read from the (R - 1, C) dense
+// tables (wr, wi) of dense_long_range_tables(R, C).
+extern "C" int pifft_long_range_dense(const float* xr, const float* xi,
+                                      float* yr, float* yi, const float* wr,
+                                      const float* wi, long long batch,
+                                      int log2_r, int C, int log2_cb,
+                                      int device, void* stream) {
+  const pifft::DenseTwiddle<true> tw{wr, wi, static_cast<size_t>(C)};
+  return launch(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                stream);
 }

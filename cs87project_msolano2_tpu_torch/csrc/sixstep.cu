@@ -7,10 +7,14 @@
 //
 // What it computes.  Three phases of DIF levels, m = R2 * tile:
 //   A   the outer log2(R1) levels on the (R1, m) view, in R1 x cb1
-//       column blocks, twiddles from long_range_factors(R1, m);
+//       column blocks, twiddles from long_range_factors(R1, m) (or the
+//       dense tables of dense_long_range_tables(R1, m): the
+//       reference's separable=False, a twiddle source of
+//       fft_common.cuh picked at compile time);
 //   B1  for each of the R1 groups (one m-point sub-transform each), the
 //       inner log2(R2) levels on its (R2, tile) view, in R2 x cb2 column
-//       blocks, twiddles from long_range_factors(R2, tile): level l of
+//       blocks, twiddles from long_range_factors(R2, tile) (or
+//       dense_long_range_tables(R2, tile)): level l of
 //       the n-point plan inside a group is level l - log2(R1) of the
 //       m-point plan;
 //   B2  the tile-point DIF of all R1 * R2 rows.
@@ -52,13 +56,11 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+template <class Outer, class Inner>
 __global__ void __launch_bounds__(kThreads, 1)
 sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                float* yr, float* yi,  // output and carry: not restrict
-               const float* __restrict__ a1r, const float* __restrict__ a1i,
-               const float* __restrict__ b1r, const float* __restrict__ b1i,
-               const float* __restrict__ a2r, const float* __restrict__ a2i,
-               const float* __restrict__ b2r, const float* __restrict__ b2i,
+               Outer tw1, Inner tw2,
                const float* __restrict__ twr, const float* __restrict__ twi,
                int log2_r1, int log2_r2, int log2_tile, int log2_cb1,
                int log2_cb2) {
@@ -77,9 +79,9 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long a_items = 1LL << (log2_m - log2_cb1);
   for (long long b = blockIdx.x; b < a_items; b += gridDim.x) {
     const size_t c0 = static_cast<size_t>(b) << log2_cb1;
-    pifft::load_block<false>(sr, si, xr, xi, c0, m, log2_r1, log2_cb1);
-    pifft::long_range_levels(sr, si, log2_r1, log2_cb1, a1r, a1i, b1r, b1i,
-                             m, c0);
+    pifft::load_block<pifft::Load::kCached>(sr, si, xr, xi, c0, m, log2_r1,
+                                            log2_cb1);
+    pifft::long_range_levels(sr, si, log2_r1, log2_cb1, tw1, c0);
     pifft::store_block(yr, yi, sr, si, c0, m, log2_r1, log2_cb1);
   }
 
@@ -93,9 +95,9 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const size_t c0 = static_cast<size_t>(it & ((1LL << log2_q2) - 1))
                       << log2_cb2;
     const size_t base = (group << log2_m) + c0;
-    pifft::load_block<true>(sr, si, yr, yi, base, tile, log2_r2, log2_cb2);
-    pifft::long_range_levels(sr, si, log2_r2, log2_cb2, a2r, a2i, b2r, b2i,
-                             tile, c0);
+    pifft::load_block<pifft::Load::kCoherent>(sr, si, yr, yi, base, tile,
+                                              log2_r2, log2_cb2);
+    pifft::long_range_levels(sr, si, log2_r2, log2_cb2, tw2, c0);
     pifft::store_block(yr, yi, sr, si, base, tile, log2_r2, log2_cb2);
   }
 
@@ -105,10 +107,33 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   const long long rows = 1LL << (log2_r1 + log2_r2);
   for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
     const size_t base = static_cast<size_t>(r) << log2_tile;
-    pifft::load_block<true>(sr, si, yr, yi, base, 0, 0, log2_tile);
+    pifft::load_block<pifft::Load::kCoherent>(sr, si, yr, yi, base, 0, 0,
+                                              log2_tile);
     pifft::tile_levels(sr, si, log2_tile, twr, twi);
     pifft::store_block(yr, yi, sr, si, base, 0, 0, log2_tile);
   }
+}
+
+template <class Outer, class Inner>
+int launch(const float* xr, const float* xi, float* yr, float* yi,
+           Outer tw1, Inner tw2, const float* twr, const float* twi,
+           int log2_r1, int log2_r2, int log2_tile, int log2_cb1,
+           int log2_cb2, int device, void* stream) {
+  int half = 1 << log2_tile;
+  if ((1 << (log2_r1 + log2_cb1)) > half) half = 1 << (log2_r1 + log2_cb1);
+  if ((1 << (log2_r2 + log2_cb2)) > half) half = 1 << (log2_r2 + log2_cb2);
+  const int smem = 2 * half * static_cast<int>(sizeof(float));
+  long long work = 1LL << (log2_r2 + log2_tile - log2_cb1);
+  const long long b1 = 1LL << (log2_r1 + log2_tile - log2_cb2);
+  const long long b2 = 1LL << (log2_r1 + log2_r2);
+  if (b1 > work) work = b1;
+  if (b2 > work) work = b2;
+  void* args[] = {&xr,      &xi,      &yr,        &yi,       &tw1,
+                  &tw2,     &twr,     &twi,       &log2_r1,  &log2_r2,
+                  &log2_tile, &log2_cb1, &log2_cb2};
+  return static_cast<int>(pifft::launch_cooperative(
+      reinterpret_cast<const void*>(sixstep_kernel<Outer, Inner>), kThreads,
+      smem, work, args, device, stream));
 }
 
 }  // namespace
@@ -127,20 +152,28 @@ extern "C" int pifft_sixstep(const float* xr, const float* xi, float* yr,
                              const float* twr, const float* twi, int log2_r1,
                              int log2_r2, int log2_tile, int log2_cb1,
                              int log2_cb2, int device, void* stream) {
-  int half = 1 << log2_tile;
-  if ((1 << (log2_r1 + log2_cb1)) > half) half = 1 << (log2_r1 + log2_cb1);
-  if ((1 << (log2_r2 + log2_cb2)) > half) half = 1 << (log2_r2 + log2_cb2);
-  const int smem = 2 * half * static_cast<int>(sizeof(float));
-  long long work = 1LL << (log2_r2 + log2_tile - log2_cb1);
-  const long long b1 = 1LL << (log2_r1 + log2_tile - log2_cb2);
-  const long long b2 = 1LL << (log2_r1 + log2_r2);
-  if (b1 > work) work = b1;
-  if (b2 > work) work = b2;
-  void* args[] = {&xr,  &xi,  &yr,      &yi,      &a1r,       &a1i,
-                  &b1r, &b1i, &a2r,     &a2i,     &b2r,       &b2i,
-                  &twr, &twi, &log2_r1, &log2_r2, &log2_tile, &log2_cb1,
-                  &log2_cb2};
-  return static_cast<int>(pifft::launch_cooperative(
-      reinterpret_cast<const void*>(sixstep_kernel), kThreads, smem, work,
-      args, device, stream));
+  const size_t tile = static_cast<size_t>(1) << log2_tile;
+  const pifft::SeparableTwiddle tw1{a1r, a1i, b1r, b1i, tile << log2_r2};
+  const pifft::SeparableTwiddle tw2{a2r, a2i, b2r, b2i, tile};
+  return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
+                log2_tile, log2_cb1, log2_cb2, device, stream);
+}
+
+// The same transform with dense long-range tables: (w1r, w1i) of
+// dense_long_range_tables(R1, R2 * tile) for phase A, each entry read by
+// one block, so streamed (evict-first); (w2r, w2i) of
+// dense_long_range_tables(R2, tile) for phase B1, shared by all R1
+// groups, so read through the read-only path.
+extern "C" int pifft_sixstep_dense(const float* xr, const float* xi,
+                                   float* yr, float* yi, const float* w1r,
+                                   const float* w1i, const float* w2r,
+                                   const float* w2i, const float* twr,
+                                   const float* twi, int log2_r1,
+                                   int log2_r2, int log2_tile, int log2_cb1,
+                                   int log2_cb2, int device, void* stream) {
+  const size_t tile = static_cast<size_t>(1) << log2_tile;
+  const pifft::DenseTwiddle<true> tw1{w1r, w1i, tile << log2_r2};
+  const pifft::DenseTwiddle<false> tw2{w2r, w2i, tile};
+  return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
+                log2_tile, log2_cb1, log2_cb2, device, stream);
 }

@@ -47,7 +47,8 @@ __global__ void tile_fft_kernel(const float* __restrict__ xr,
   float* sr = smem;
   float* si = smem + (1 << log2_tile);
   const size_t base = static_cast<size_t>(blockIdx.x) << log2_tile;
-  pifft::load_block<false>(sr, si, xr, xi, base, 0, 0, log2_tile);
+  pifft::load_block<pifft::Load::kCached>(sr, si, xr, xi, base, 0, 0,
+                                         log2_tile);
   pifft::tile_levels(sr, si, log2_tile, twr, twi);
   pifft::store_block(yr, yi, sr, si, base, 0, 0, log2_tile);
 }
@@ -77,4 +78,8 @@ extern "C" int pifft_tile_fft(const float* xr, const float* xi, float* yr,
 
 extern "C" const char* pifft_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" const char* pifft_cuda_error_name(int code) {
+  return cudaGetErrorName(static_cast<cudaError_t>(code));
 }

@@ -48,7 +48,9 @@ def fft(x, p: int = 1, tables=None, plan=None, precision: str | None = None,
         pl = plan if plan is not None else plans.plan_for(
             xr.shape, layout="natural", precision=precision,
             device=xr.device)
-        yr, yi = pl.execute(xr, xi)
+        # the planes are this call's own split of x: an executor that
+        # writes over its input may use them without a copy
+        yr, yi = pl.execute(xr, xi, source=x)
         return torch.complex(yr, yi)
     yr, yi = to_natural(*pi_fft_pi_layout(xr, xi, p, tables))
     return torch.complex(yr, yi)

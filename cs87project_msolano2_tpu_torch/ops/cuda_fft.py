@@ -1,20 +1,27 @@
 """The CUDA kernels of the FFT hot path, each beside its plain PyTorch
 version, and the whole-transform compositions built on them.
 
-The counterpart of the reference's ``ops/pallas_fft.py``.  Four kernels
-(``csrc/``, built by ``utils.buildlib``) carry the main path:
+The counterpart of the reference's ``ops/pallas_fft.py``.  Six kernels
+(``csrc/``, built by ``utils.buildlib``) carry the static and the tuned
+paths:
 
 * ``tile_fft`` — the tile-point DIF of independent rows in shared
   memory (replaces ``_tile_fft_kernel`` / ``_tile_fft_compute``);
 * ``long_range_sep`` — the first log2(R) DIF levels of (…, R, C) views,
   twiddles rebuilt from separable factors (replaces
   ``_long_range_kernel_sep``);
+* ``long_range_dense`` — the same levels with dense per-level twiddle
+  tables (replaces ``_long_range_kernel``), the ladder's
+  ``two-kernel`` with ``tile_fft``;
 * ``fourstep`` — a whole 1-D transform (long-range levels, then tile
   rows) in one cooperative launch (replaces ``_fourstep_kernel``), the
-  plan for 2^21 <= n < 2^25;
+  plan for 2^21 <= n < 2^25; separable or dense twiddles;
 * ``sixstep`` — a whole 1-D transform with the long-range levels split
   into outer and inner phases, in one cooperative launch (replaces
-  ``_sixstep_kernel``), the plan for n >= 2^25.
+  ``_sixstep_kernel``), the plan for n >= 2^25; separable or dense;
+* ``fused`` — a whole 1-D transform of n <= 2^20 in one cooperative
+  launch whose carry stays in L2 (replaces ``_fused_fft_kernel``), the
+  ladder's ``fused`` and ``fused-alias``, raced by the autotuner.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel for CUDA tensors (or raises) and counts the launch on its
@@ -30,11 +37,18 @@ with a ValueError naming the limiting pair.
 
 from __future__ import annotations
 
+import atexit
+
 import torch
 
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
-from .twiddle import device_factors, device_tables, flat_tables
+from .twiddle import (
+    dense_long_range_tables,
+    device_factors,
+    device_tables,
+    flat_tables,
+)
 
 LANE = 128
 #: largest row ``rows`` serves, as in the reference (pallas_fft.py:2067)
@@ -263,6 +277,53 @@ def sixstep_blocking(n: int, tile: int | None = None, r2: int | None = None,
     return tile, R1, R2, cb1, cb2
 
 
+#: largest n the fused kernel serves: its 2n-float carry (8 MB at 2^20)
+#: must stay in the card's L2, as the reference's stayed in VMEM
+FUSED_MAX_N = 1 << 20
+
+
+def fused_blocking(n: int, tile: int | None = None, qb: int | None = None):
+    """Validated (tile, R, qb) for an n-point fused transform: phase A
+    runs R x (qb * 128)-column blocks, phase B tile rows, both in one
+    block's shared memory.  tile defaults to min(n, MAX_SMEM_TILE), qb
+    to the widest power of two whose block fits; R = 1 gives qb None
+    (one tile row).  Raises ValueError naming the limiting pair before
+    any launch: n above FUSED_MAX_N, or R x qb past the shared-memory
+    budget."""
+    if not is_power_of_two(n) or n > FUSED_MAX_N:
+        raise ValueError(
+            f"fused serves power-of-two n <= FUSED_MAX_N={FUSED_MAX_N} "
+            f"(its 2n-float carry stays in L2), got n={n}; use fourstep")
+    if tile is None:
+        tile = min(n, MAX_SMEM_TILE)
+    check_tile(tile)
+    if n % tile:
+        raise ValueError(f"tile={tile} must divide n={n}")
+    R = n // tile
+    if R < 2:
+        return tile, R, None
+    if tile % LANE:
+        raise ValueError(f"fused: tile={tile} must be a multiple of {LANE} "
+                         f"(qb counts {LANE}-column groups)")
+    Q = tile // LANE
+    if qb is None:
+        qb = Q
+        while qb > 1 and fourstep_smem_bytes(R, qb * LANE, tile) \
+                > SMEM_LIMIT_BYTES:
+            qb //= 2
+    if qb < 1 or not is_power_of_two(qb) or Q % qb:
+        raise ValueError(f"qb={qb} must be a power of two dividing "
+                         f"tile/{LANE}={Q}")
+    need = fourstep_smem_bytes(R, qb * LANE, tile)
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"fused blocks R={R} x qb={qb} ({qb * LANE} columns, "
+            f"tile={tile}) need {need} bytes of shared memory (limit "
+            f"{SMEM_LIMIT_BYTES}); reduce qb or use a larger tile so R "
+            f"shrinks")
+    return tile, R, qb
+
+
 def rows_plan_feasible(nrows: int, n: int) -> bool:
     """Can ``fft_rows_cuda`` serve a (nrows, n)-row workload?  The same
     n range as the reference (power-of-two 128..2^16); the reference's
@@ -315,9 +376,9 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
             for a in args]
     err = getattr(lib, fn)(*ptrs, index, stream)
     if err != 0:
-        msg = lib.pifft_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({msg})")
+                           f"{lib.pifft_cuda_error_name(err).decode()} "
+                           f"({lib.pifft_cuda_error_string(err).decode()})")
 
 
 # --- kernel 1: tile_fft -----------------------------------------------------
@@ -364,10 +425,27 @@ tile_fft.launches = 0
 # --- kernel 2: long_range_sep ----------------------------------------------
 
 
+def _long_range_stage(xr, xi, half, wr, wi):
+    """One long-range DIF level of (batch, R, C) planes: rows r and
+    r + half of each group of 2 * half rows, the difference times the
+    (half, C) twiddle (wr, wi)."""
+    B_, R, C = xr.shape
+    x4r = xr.reshape(B_, -1, 2, half, C)
+    x4i = xi.reshape(B_, -1, 2, half, C)
+    tr = x4r[:, :, 0] + x4r[:, :, 1]
+    ti = x4i[:, :, 0] + x4i[:, :, 1]
+    dr = x4r[:, :, 0] - x4r[:, :, 1]
+    di = x4i[:, :, 0] - x4i[:, :, 1]
+    ur = dr * wr - di * wi
+    ui = dr * wi + di * wr
+    return (torch.stack((tr, ur), dim=2).reshape(B_, R, C),
+            torch.stack((ti, ui), dim=2).reshape(B_, R, C))
+
+
 def long_range_sep_plain(xr, xi, ar, ai, br, bi):
     """Plain version of ``long_range_sep``: the log2(R) levels as
     reshape/stack stages, twiddle = outer product A[o:o+half] x B[l]."""
-    B_, R, C = xr.shape
+    R = xr.shape[1]
     for l in range(ilog2(R)):
         half = R >> (l + 1)
         o = R - (R >> l)
@@ -376,16 +454,7 @@ def long_range_sep_plain(xr, xi, ar, ai, br, bi):
         b_r, b_i = br[l], bi[l]
         wr = a_r * b_r - a_i * b_i  # (half, C)
         wi = a_r * b_i + a_i * b_r
-        x4r = xr.reshape(B_, -1, 2, half, C)
-        x4i = xi.reshape(B_, -1, 2, half, C)
-        tr = x4r[:, :, 0] + x4r[:, :, 1]
-        ti = x4i[:, :, 0] + x4i[:, :, 1]
-        dr = x4r[:, :, 0] - x4r[:, :, 1]
-        di = x4i[:, :, 0] - x4i[:, :, 1]
-        ur = dr * wr - di * wi
-        ui = dr * wi + di * wr
-        xr = torch.stack((tr, ur), dim=2).reshape(B_, R, C)
-        xi = torch.stack((ti, ui), dim=2).reshape(B_, R, C)
+        xr, xi = _long_range_stage(xr, xi, half, wr, wi)
     return xr, xi
 
 
@@ -425,24 +494,110 @@ def long_range_sep(xr, xi, ar, ai, br, bi, cb: int = DEFAULT_CB):
 long_range_sep.launches = 0
 
 
-# --- kernel 3: fourstep -----------------------------------------------------
+# --- kernel 3: long_range_dense ---------------------------------------------
 
 
-def fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi):
-    """Plain version of ``fourstep``: ``long_range_sep_plain`` on the
+def long_range_dense_plain(xr, xi, wr, wi):
+    """Plain version of ``long_range_dense``: the log2(R) levels as
+    reshape/stack stages, twiddle = rows [o, o + half) of the dense
+    (R - 1, C) tables."""
+    R = xr.shape[1]
+    for l in range(ilog2(R)):
+        half = R >> (l + 1)
+        o = R - (R >> l)
+        xr, xi = _long_range_stage(xr, xi, half, wr[o:o + half],
+                                   wi[o:o + half])
+    return xr, xi
+
+
+def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
+    """First log2(R) DIF levels of each transform of (batch, R, C)
+    float32 planes (n = R*C each), twiddles read from the dense (R - 1,
+    C) tables of ``twiddle.dense_long_range_tables(R, C)``.  CUDA
+    tensors launch the kernel (csrc/long_range.cu, dense tables) in column
+    blocks of `cb`; CPU tensors take ``long_range_dense_plain``.
+    Returns new planes."""
+    _check_planes(xr, xi, 3, "long_range_dense")
+    batch, R, C = xr.shape
+    if R < 2 or not is_power_of_two(R):
+        raise ValueError(f"long_range_dense: R={R} must be a power of two "
+                         f">= 2")
+    check_long_range(R, cb)
+    if C % cb:
+        raise ValueError(f"cb={cb} must divide C={C}")
+    _check_operands("long_range_dense", xr.device,
+                    (wr, (R - 1, C)), (wi, (R - 1, C)))
+    if xr.device.type == "cpu":
+        return long_range_dense_plain(xr, xi, wr, wi)
+    if batch * (C // cb) > _MAX_BLOCKS:
+        raise ValueError("long_range_dense: batch x C/cb exceeds the grid "
+                         "limit")
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if batch:
+        _launch("long_range_dense", "pifft_long_range_dense", xr.device,
+                xr, xi, yr, yi, wr, wi, batch, ilog2(R), C, ilog2(cb))
+        long_range_dense.launches += 1
+    return yr, yi
+
+
+long_range_dense.launches = 0
+
+
+def _long_range_plain(xr, xi, operands, separable: bool):
+    """``long_range_sep_plain`` on the four separable factors, or
+    ``long_range_dense_plain`` on the two dense tables."""
+    if separable:
+        return long_range_sep_plain(xr, xi, *operands)
+    return long_range_dense_plain(xr, xi, *operands)
+
+
+def _long_range_shapes(R: int, C: int, separable: bool) -> list:
+    """The shapes of the long-range twiddle operands of an (R, C) view:
+    A (R-1,) twice and B (levels, C) twice for the separable factors,
+    (R-1, C) twice for the dense tables."""
+    if separable:
+        return [(R - 1,), (R - 1,), (ilog2(R), C), (ilog2(R), C)]
+    return [(R - 1, C), (R - 1, C)]
+
+
+def _split_operands(name: str, operands, groups: int, separable: bool):
+    """Split the flat twiddle operands of fourstep/sixstep into `groups`
+    long-range groups (4 separable factors or 2 dense tables each) and
+    the trailing (twr, twi) tile tables."""
+    per = 4 if separable else 2
+    want = groups * per + 2
+    if len(operands) != want:
+        kind = "separable factors" if separable else "dense tables"
+        raise ValueError(f"{name}: expected {want} twiddle operands "
+                         f"({groups} x {per} {kind}, then the 2 tile "
+                         f"tables), got {len(operands)}")
+    return ([operands[g * per:(g + 1) * per] for g in range(groups)],
+            operands[-2:])
+
+
+# --- kernel 4: fourstep -----------------------------------------------------
+
+
+def fourstep_plain(xr, xi, *operands, separable: bool = True):
+    """Plain version of ``fourstep``: the long-range plain version on the
     (1, R, tile) view, then ``tile_fft_plain`` on the R rows."""
     R, tile = xr.shape
-    yr, yi = long_range_sep_plain(xr.reshape(1, R, tile),
-                                  xi.reshape(1, R, tile), ar, ai, br, bi)
+    (lr,), (twr, twi) = _split_operands("fourstep", operands, 1, separable)
+    yr, yi = _long_range_plain(xr.reshape(1, R, tile),
+                               xi.reshape(1, R, tile), lr, separable)
     return tile_fft_plain(yr.reshape(R, tile), yi.reshape(R, tile), twr, twi)
 
 
-def fourstep(xr, xi, ar, ai, br, bi, twr, twi, cb: int | None = None):
+def fourstep(xr, xi, *operands, cb: int | None = None,
+             separable: bool = True):
     """The whole pi-layout DIF of one n = R * tile transform held as
     (R, tile) float32 planes: the log2(R) long-range levels in R x cb
-    column blocks (factors of ``twiddle.device_factors(R, tile)``), then
-    the tile DIF of every row (tables of ``twiddle.flat_tables(tile)``).
-    cb None takes ``fourstep_auto_cb``.  CUDA tensors launch the kernel
+    column blocks, then the tile DIF of every row.  `operands` are the
+    long-range twiddles, then the tile tables (twr, twi) of
+    ``twiddle.flat_tables(tile)``: with `separable` the factors (ar, ai,
+    br, bi) of ``twiddle.device_factors(R, tile)``, otherwise the dense
+    (wr, wi) of ``twiddle.dense_long_range_tables(R, tile)``.  cb None
+    takes ``fourstep_auto_cb``.  CUDA tensors launch the kernel
     (csrc/fourstep.cu) once, as one cooperative launch; CPU tensors
     take ``fourstep_plain``.  Returns new (R, tile) planes."""
     _check_planes(xr, xi, 2, "fourstep")
@@ -450,16 +605,16 @@ def fourstep(xr, xi, ar, ai, br, bi, twr, twi, cb: int | None = None):
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"fourstep: R={R} must be a power of two >= 2")
     _, _, cb = fourstep_blocking(R * tile, tile, cb)
-    levels = ilog2(R)
+    (lr,), tw = _split_operands("fourstep", operands, 1, separable)
     _check_operands("fourstep", xr.device,
-                    (ar, (R - 1,)), (ai, (R - 1,)),
-                    (br, (levels, tile)), (bi, (levels, tile)),
-                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+                    *zip(lr, _long_range_shapes(R, tile, separable)),
+                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)))
     if xr.device.type == "cpu":
-        return fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi)
+        return fourstep_plain(xr, xi, *operands, separable=separable)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch("fourstep", "pifft_fourstep", xr.device,
-            xr, xi, yr, yi, ar, ai, br, bi, twr, twi, levels, ilog2(tile),
+    _launch("fourstep",
+            "pifft_fourstep" if separable else "pifft_fourstep_dense",
+            xr.device, xr, xi, yr, yi, *lr, *tw, ilog2(R), ilog2(tile),
             ilog2(cb))
     fourstep.launches += 1
     return yr, yi
@@ -468,37 +623,40 @@ def fourstep(xr, xi, ar, ai, br, bi, twr, twi, cb: int | None = None):
 fourstep.launches = 0
 
 
-# --- kernel 4: sixstep ------------------------------------------------------
+# --- kernel 5: sixstep ------------------------------------------------------
 
 
-def sixstep_plain(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi):
-    """Plain version of ``sixstep``: ``long_range_sep_plain`` on the
-    (1, R1, m) view with the outer factors, then on the (R1, R2, tile)
+def sixstep_plain(xr, xi, *operands, separable: bool = True):
+    """Plain version of ``sixstep``: the long-range plain version on the
+    (1, R1, m) view with the outer twiddles, then on the (R1, R2, tile)
     view with the inner ones, then ``tile_fft_plain`` on the rows."""
     R1, R2, tile = xr.shape
     m = R2 * tile
-    yr, yi = long_range_sep_plain(xr.reshape(1, R1, m), xi.reshape(1, R1, m),
-                                  a1r, a1i, b1r, b1i)
-    yr, yi = long_range_sep_plain(yr.reshape(R1, R2, tile),
-                                  yi.reshape(R1, R2, tile),
-                                  a2r, a2i, b2r, b2i)
+    (outer, inner), (twr, twi) = _split_operands("sixstep", operands, 2,
+                                                 separable)
+    yr, yi = _long_range_plain(xr.reshape(1, R1, m), xi.reshape(1, R1, m),
+                               outer, separable)
+    yr, yi = _long_range_plain(yr.reshape(R1, R2, tile),
+                               yi.reshape(R1, R2, tile), inner, separable)
     yr, yi = tile_fft_plain(yr.reshape(R1 * R2, tile),
                             yi.reshape(R1 * R2, tile), twr, twi)
     return yr.reshape(R1, R2, tile), yi.reshape(R1, R2, tile)
 
 
-def sixstep(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
-            cb1: int | None = None, cb2: int | None = None):
+def sixstep(xr, xi, *operands, cb1: int | None = None,
+            cb2: int | None = None, separable: bool = True):
     """The whole pi-layout DIF of one n = R1 * R2 * tile transform held
     as (R1, R2, tile) float32 planes: the outer log2(R1) levels on the
-    (R1, m = R2 * tile) view in R1 x cb1 blocks (factors of
-    ``device_factors(R1, m)``), the inner log2(R2) levels of each group
-    on its (R2, tile) view in R2 x cb2 blocks (``device_factors(R2,
-    tile)``), then the tile DIF of every row (``flat_tables(tile)``);
-    cb1/cb2 None take ``sixstep_auto_cbs``.  CUDA tensors launch the
-    kernel (csrc/sixstep.cu) once, as one cooperative launch; CPU
-    tensors take ``sixstep_plain``.  Returns new (R1, R2, tile)
-    planes."""
+    (R1, m = R2 * tile) view in R1 x cb1 blocks, the inner log2(R2)
+    levels of each group on its (R2, tile) view in R2 x cb2 blocks, then
+    the tile DIF of every row.  `operands` are the outer long-range
+    twiddles, the inner ones, then (twr, twi) of ``flat_tables(tile)``:
+    with `separable` the factors of ``device_factors(R1, m)`` and
+    ``device_factors(R2, tile)``, otherwise the dense tables of
+    ``dense_long_range_tables(R1, m)`` and ``(R2, tile)``.  cb1/cb2 None
+    take ``sixstep_auto_cbs``.  CUDA tensors launch the kernel
+    (csrc/sixstep.cu) once, as one cooperative launch; CPU tensors take
+    ``sixstep_plain``.  Returns new (R1, R2, tile) planes."""
     _check_planes(xr, xi, 3, "sixstep")
     R1, R2, tile = xr.shape
     if min(R1, R2) < 2 or not (is_power_of_two(R1)
@@ -506,20 +664,19 @@ def sixstep(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
         raise ValueError(f"sixstep: R1={R1} and R2={R2} must be powers "
                          f"of two >= 2")
     _, _, _, cb1, cb2 = sixstep_blocking(R1 * R2 * tile, tile, R2, cb1, cb2)
-    l1, l2, m = ilog2(R1), ilog2(R2), R2 * tile
+    m = R2 * tile
+    (outer, inner), tw = _split_operands("sixstep", operands, 2, separable)
     _check_operands("sixstep", xr.device,
-                    (a1r, (R1 - 1,)), (a1i, (R1 - 1,)),
-                    (b1r, (l1, m)), (b1i, (l1, m)),
-                    (a2r, (R2 - 1,)), (a2i, (R2 - 1,)),
-                    (b2r, (l2, tile)), (b2i, (l2, tile)),
-                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+                    *zip(outer, _long_range_shapes(R1, m, separable)),
+                    *zip(inner, _long_range_shapes(R2, tile, separable)),
+                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)))
     if xr.device.type == "cpu":
-        return sixstep_plain(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i,
-                             twr, twi)
+        return sixstep_plain(xr, xi, *operands, separable=separable)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch("sixstep", "pifft_sixstep", xr.device,
-            xr, xi, yr, yi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
-            l1, l2, ilog2(tile), ilog2(cb1), ilog2(cb2))
+    _launch("sixstep",
+            "pifft_sixstep" if separable else "pifft_sixstep_dense",
+            xr.device, xr, xi, yr, yi, *outer, *inner, *tw, ilog2(R1),
+            ilog2(R2), ilog2(tile), ilog2(cb1), ilog2(cb2))
     sixstep.launches += 1
     return yr, yi
 
@@ -527,11 +684,143 @@ def sixstep(xr, xi, a1r, a1i, b1r, b1i, a2r, a2i, b2r, b2i, twr, twi,
 sixstep.launches = 0
 
 
+# --- kernel 6: fused --------------------------------------------------------
+
+
+def fused_plain(xr, xi, ar, ai, br, bi, twr, twi):
+    """Plain version of ``fused``: the levels of ``fourstep_plain``
+    (``long_range_sep_plain`` on the (1, R, tile) view, then
+    ``tile_fft_plain`` on the rows); where the carry lives is the
+    kernel's design, not its arithmetic."""
+    return fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi)
+
+
+def _card_index(name: str, device) -> int:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"{name}: {device} is not a card")
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _card_query(name: str, device) -> int:
+    from ..utils.buildlib import load_kernels
+
+    index = _card_index(name, device)
+    got = getattr(load_kernels(), f"pifft_{name}")(index)
+    if got < 0:
+        raise RuntimeError(f"{name}: CUDA error {-got}")
+    return got
+
+
+def fused_carry_limit(device) -> int:
+    """Bytes of carry the card at `device` can keep as persisting L2
+    lines in one access-policy window (0 where it has none)."""
+    return _card_query("fused_carry_limit", device)
+
+
+def persisting_l2_set_aside(device) -> int:
+    """Bytes of the L2 of the card at `device` set aside for persisting
+    lines now.  The first ``fused`` launch on the card raises it to the
+    carry's size where it is smaller; it stays so until process exit,
+    when the value read before that launch is put back."""
+    return _card_query("persisting_l2_set_aside", device)
+
+
+def set_persisting_l2_set_aside(device, nbytes: int) -> None:
+    """Set the persisting-L2 set-aside of the card at `device` to
+    `nbytes` (the runtime rounds it up to its granularity)."""
+    from ..utils.buildlib import load_kernels
+
+    index = _card_index("set_persisting_l2_set_aside", device)
+    lib = load_kernels()
+    err = lib.pifft_set_persisting_l2_set_aside(index, int(nbytes))
+    if err != 0:
+        raise RuntimeError(f"set_persisting_l2_set_aside: CUDA error {err} "
+                           f"{lib.pifft_cuda_error_name(err).decode()}")
+
+
+#: card index -> its persisting-L2 set-aside before this process's first
+#: fused launch there, put back at exit (``restore_persisting_l2``)
+_SET_ASIDE_BEFORE: dict = {}
+
+
+def restore_persisting_l2() -> None:
+    """Put back, on every card ``fused`` has launched on, the
+    persisting-L2 set-aside it had before the first launch.  Runs at
+    process exit; ``fused`` raises it again on its next launch."""
+    for index, nbytes in _SET_ASIDE_BEFORE.items():
+        torch.cuda.synchronize(index)
+        set_persisting_l2_set_aside(torch.device("cuda", index), nbytes)
+
+
+def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
+          alias_io: bool = False):
+    """The whole pi-layout DIF of one n = R * tile <= FUSED_MAX_N
+    transform held as (R, tile) float32 planes, in ONE launch whose
+    carry stays in the card's L2: the log2(R) long-range levels in
+    R x (qb * 128) column blocks (factors of
+    ``twiddle.device_factors(R, tile)``), then the tile DIF of every row
+    (``twiddle.flat_tables(tile)``).  qb None takes the widest block
+    that fits (``fused_blocking``).  `alias_io` writes the result into
+    (xr, xi) themselves and returns them: the input planes are consumed.
+    CUDA tensors launch the kernel (csrc/fused.cu) once, as one
+    cooperative launch, after checking that the 2n-float carry fits the
+    card's persisting L2 (``fused_carry_limit``); CPU tensors take
+    ``fused_plain``.  The launch raises the card's persisting-L2
+    set-aside to the carry's size where it is smaller: device state
+    that every later kernel on the card sees, until process exit puts
+    back the value read before the first launch
+    (``persisting_l2_set_aside``, ``restore_persisting_l2``)."""
+    _check_planes(xr, xi, 2, "fused")
+    R, tile = xr.shape
+    if R < 2 or not is_power_of_two(R):
+        raise ValueError(f"fused: R={R} must be a power of two >= 2")
+    _, _, qb = fused_blocking(R * tile, tile, qb)
+    _check_operands("fused", xr.device,
+                    (ar, (R - 1,)), (ai, (R - 1,)),
+                    (br, (ilog2(R), tile)), (bi, (ilog2(R), tile)),
+                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+    if xr.device.type == "cpu":
+        yr, yi = fused_plain(xr, xi, ar, ai, br, bi, twr, twi)
+        if alias_io:
+            xr.copy_(yr)
+            xi.copy_(yi)
+            return xr, xi
+        return yr, yi
+    carry_bytes = 2 * R * tile * 4
+    limit = fused_carry_limit(xr.device)
+    if carry_bytes > limit:
+        raise ValueError(
+            f"fused: the n={R * tile} carry needs {carry_bytes} bytes of "
+            f"persisting L2; this card holds at most {limit}")
+    index = xr.device.index
+    if index not in _SET_ASIDE_BEFORE:
+        if not _SET_ASIDE_BEFORE:
+            atexit.register(restore_persisting_l2)
+        _SET_ASIDE_BEFORE[index] = persisting_l2_set_aside(xr.device)
+    carry = torch.empty(2 * R * tile, dtype=torch.float32, device=xr.device)
+    if alias_io:
+        yr, yi = xr, xi
+    else:
+        yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("fused", "pifft_fused", xr.device, xr, xi, yr, yi, carry,
+            ar, ai, br, bi, twr, twi, ilog2(R), ilog2(tile),
+            ilog2(qb * LANE))
+    fused.launches += 1
+    return yr, yi
+
+
+fused.launches = 0
+
+#: every kernel wrapper of this module, each counting its launches
+KERNELS = (tile_fft, long_range_sep, long_range_dense, fourstep, sixstep,
+           fused)
+
+
 def reset_launch_counts() -> None:
-    tile_fft.launches = 0
-    long_range_sep.launches = 0
-    fourstep.launches = 0
-    sixstep.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
 
 
 # --- compositions -----------------------------------------------------------
@@ -560,6 +849,29 @@ def fft_pi_layout_cuda_rql(xr, xi, tile: int | None = None,
     return yr.reshape(*lead, n), yi.reshape(*lead, n)
 
 
+def fft_pi_layout_cuda2(xr, xi, tile: int | None = None,
+                        cb: int | None = None):
+    """The two-kernel whole transform of every length-n row of (..., n)
+    planes: ``long_range_dense`` on the (rows, R, tile) view (skipped
+    when R = 1), then ``tile_fft`` — the reference's
+    fft_pi_layout_pallas2 (pallas_fft.py:678), the ladder's
+    ``two-kernel``.  The blocking is rql's (``rql_blocking``), validated
+    before any launch."""
+    n = xr.shape[-1]
+    tile, R, cb = rql_blocking(n, tile, cb)
+    lead = xr.shape[:-1]
+    dev = xr.device
+    xr = xr.contiguous()
+    xi = xi.contiguous()
+    if R > 1:
+        xr, xi = long_range_dense(xr.reshape(-1, R, tile),
+                                  xi.reshape(-1, R, tile),
+                                  *dense_long_range_tables(R, tile, dev), cb)
+    twr, twi = flat_tables(tile, dev)
+    yr, yi = tile_fft(xr.reshape(-1, tile), xi.reshape(-1, tile), twr, twi)
+    return yr.reshape(*lead, n), yi.reshape(*lead, n)
+
+
 def _one_transform(xr, xi, name: str) -> int:
     if xr.dim() != 1 or xi.shape != xr.shape:
         raise ValueError(f"{name}: one 1-D transform of (n,) planes, got "
@@ -567,12 +879,37 @@ def _one_transform(xr, xi, name: str) -> int:
     return xr.shape[0]
 
 
+def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
+                             qb: int | None = None, alias_io: bool = False):
+    """pi-layout n-point DIF of (n,) float32 planes, n <= FUSED_MAX_N,
+    in ONE launch of the fused kernel, its carry in L2 (the reference's
+    fft_pi_layout_pallas_fused, pallas_fft.py:902).  `alias_io` writes
+    the result over the input planes (consumed, and returned reshaped).
+    R = n/tile < 2 takes the tile kernel, as the reference does.
+    Validates tile/qb before any launch."""
+    n = _one_transform(xr, xi, "fft_pi_layout_cuda_fused")
+    tile, R, qb = fused_blocking(n, tile, qb)
+    dev = xr.device
+    xr = xr.contiguous().reshape(R, tile)
+    xi = xi.contiguous().reshape(R, tile)
+    twr, twi = flat_tables(tile, dev)
+    if R < 2:
+        yr, yi = tile_fft(xr, xi, twr, twi)
+    else:
+        yr, yi = fused(xr, xi, *device_factors(R, tile, dev), twr, twi, qb,
+                       alias_io)
+    return yr.reshape(n), yi.reshape(n)
+
+
 def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,
-                                cb: int | None = None):
+                                cb: int | None = None,
+                                separable: bool = True):
     """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
     fourstep kernel (the reference's fft_pi_layout_pallas_fourstep,
-    pallas_fft.py:1228).  R = n/tile < 2 takes the tile kernel, as the
-    reference does.  Validates tile/cb before any launch."""
+    pallas_fft.py:1228), its long-range twiddles separable factors or
+    (``separable=False``) dense tables.  R = n/tile < 2 takes the tile
+    kernel, as the reference does.  Validates tile/cb before any
+    launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fourstep")
     tile, R, cb = fourstep_blocking(n, tile, cb)
     dev = xr.device
@@ -582,29 +919,33 @@ def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,
     if R < 2:
         yr, yi = tile_fft(xr, xi, twr, twi)
     else:
-        yr, yi = fourstep(xr, xi, *device_factors(R, tile, dev), twr, twi,
-                          cb)
+        lr = device_factors(R, tile, dev) if separable \
+            else dense_long_range_tables(R, tile, dev)
+        yr, yi = fourstep(xr, xi, *lr, twr, twi, cb=cb, separable=separable)
     return yr.reshape(n), yi.reshape(n)
 
 
 def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
                                r2: int | None = None,
                                cb1: int | None = None,
-                               cb2: int | None = None):
+                               cb2: int | None = None,
+                               separable: bool = True):
     """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
     sixstep kernel (the reference's fft_pi_layout_pallas_sixstep,
     pallas_fft.py:1664): n = R1 * R2 * tile, `r2` the inner radix (None
     = the balanced split), `cb1`/`cb2` the outer/inner column blocks
-    (None = the widest that fit).  Needs R = n/tile >= 4; validates every
-    parameter before any launch."""
+    (None = the widest that fit), `separable` the twiddle mode of both
+    long-range phases.  Needs R = n/tile >= 4; validates every parameter
+    before any launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_sixstep")
     tile, R1, R2, cb1, cb2 = sixstep_blocking(n, tile, r2, cb1, cb2)
     dev = xr.device
+    lr = device_factors if separable else dense_long_range_tables
     yr, yi = sixstep(xr.contiguous().reshape(R1, R2, tile),
                      xi.contiguous().reshape(R1, R2, tile),
-                     *device_factors(R1, R2 * tile, dev),
-                     *device_factors(R2, tile, dev),
-                     *flat_tables(tile, dev), cb1, cb2)
+                     *lr(R1, R2 * tile, dev), *lr(R2, tile, dev),
+                     *flat_tables(tile, dev), cb1=cb1, cb2=cb2,
+                     separable=separable)
     return yr.reshape(n), yi.reshape(n)
 
 

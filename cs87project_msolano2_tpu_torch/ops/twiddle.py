@@ -4,7 +4,9 @@ the device.
 One table per butterfly level: level l of an n-point transform has
 butterfly size L = n >> l and L/2 entries w[j] = exp(-2*pi*i*j/L),
 computed in float64 and rounded once to float32.  The long-range
-kernel takes separable factors instead (``long_range_factors``).
+kernels take separable factors (``long_range_factors``) or the same
+per-level tables reshaped to the (R, C) view
+(``dense_long_range_tables``).
 
 The host tables are bit-identical to the reference package's
 (``ops/twiddle.py:twiddle_tables`` and
@@ -110,3 +112,20 @@ def flat_tables(n: int, device: torch.device):
 def device_factors(R: int, C: int, device: torch.device) -> tuple:
     """``long_range_factors(R, C)`` as kernel operands on `device`."""
     return factors_from_reference(*long_range_factors(R, C), device)
+
+
+@lru_cache(maxsize=8)
+def dense_long_range_tables(R: int, C: int, device) -> tuple:
+    """The dense twiddle tables of the first log2(R) levels of an
+    n = R*C transform viewed as (R, C), as (wr, wi) float32 tensors of
+    shape (R - 1, C) on `device`: level l is the n-point level-l table
+    of ``twiddle_tables(n)`` reshaped to (R >> (l+1), C), as the
+    reference's ``long_range_grid(separable=False)`` builds it
+    (pallas_fft.py:651-657), bit for bit, stacked at rows
+    [R - (R >> l), R - (R >> (l+1))).  The operand of the dense
+    long-range kernel and of fourstep/sixstep with separable=False."""
+    levels = twiddle_tables(R * C)[:ilog2(R)]
+    return (_f32(np.concatenate([wr for wr, _ in levels]).reshape(R - 1, C),
+                 device),
+            _f32(np.concatenate([wi for _, wi in levels]).reshape(R - 1, C),
+                 device))

@@ -155,6 +155,48 @@ def load_kernels() -> ctypes.CDLL:
         c.c_int, c.c_int,               # log2(cb1), log2(cb2)
         c.c_int, ptr,                   # device, stream
     ]
+    lib.pifft_long_range_dense.restype = c.c_int
+    lib.pifft_long_range_dense.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr,                       # wr, wi (dense tables)
+        c.c_longlong, c.c_int,          # batch, log2(R)
+        c.c_int, c.c_int,               # C, log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fourstep_dense.restype = c.c_int
+    lib.pifft_fourstep_dense.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr,                       # wr, wi (dense tables)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_sixstep_dense.restype = c.c_int
+    lib.pifft_sixstep_dense.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # w1r, w1i (outer), w2r, w2i (inner)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
+        c.c_int, c.c_int,               # log2(cb1), log2(cb2)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fused.restype = c.c_int
+    lib.pifft_fused.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi (y may be x)
+        ptr,                            # carry (2 n floats)
+        ptr, ptr, ptr, ptr,             # ar, ai, br, bi
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fused_carry_limit.restype = c.c_longlong
+    lib.pifft_fused_carry_limit.argtypes = [c.c_int]
+    lib.pifft_persisting_l2_set_aside.restype = c.c_longlong
+    lib.pifft_persisting_l2_set_aside.argtypes = [c.c_int]
+    lib.pifft_set_persisting_l2_set_aside.restype = c.c_int
+    lib.pifft_set_persisting_l2_set_aside.argtypes = [c.c_int, c.c_longlong]
     lib.pifft_cuda_error_string.restype = c.c_char_p
     lib.pifft_cuda_error_string.argtypes = [c.c_int]
+    lib.pifft_cuda_error_name.restype = c.c_char_p
+    lib.pifft_cuda_error_name.argtypes = [c.c_int]
     return lib

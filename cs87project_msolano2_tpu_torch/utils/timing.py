@@ -29,17 +29,22 @@ def _device_of(args):
 
 
 def time_ms(fn: Callable, *args, reps: int = 20, warmup: int = 2,
-            flush_l2: bool = False):
+            flush_l2: bool = False, before: Callable | None = None):
     """(median ms per call, last result) of ``fn(*args)`` over `reps`
     timed calls after `warmup` untimed ones, on the device of the first
-    tensor argument."""
+    tensor argument.  `before`, when given, runs before every call,
+    outside the timing (and before the flush): it restores the inputs
+    of an `fn` that writes over them."""
     dev = _device_of(args)
     result = None
+    before = before or (lambda: None)
     if dev.type != "cuda":
         for _ in range(warmup):
+            before()
             result = fn(*args)
         times = []
         for _ in range(max(reps, 1)):
+            before()
             t0 = time.perf_counter()
             result = fn(*args)
             times.append((time.perf_counter() - t0) * 1e3)
@@ -48,9 +53,11 @@ def time_ms(fn: Callable, *args, reps: int = 20, warmup: int = 2,
     scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev) \
         if flush_l2 else None
     for _ in range(warmup):
+        before()
         result = fn(*args)
     times = []
     for _ in range(max(reps, 1)):
+        before()
         if scratch is not None:
             scratch.fill_(1)
         start = torch.cuda.Event(enable_timing=True)

@@ -13,6 +13,7 @@ import torch
 from cs87project_msolano2_tpu_torch.models.fft import fft, fft_planes_fast
 from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
 from cs87project_msolano2_tpu_torch.ops import twiddle
+from cs87project_msolano2_tpu_torch.ops.bits import bit_reverse_indices
 from cs87project_msolano2_tpu_torch.ops.precision import rel_err
 
 # kernel vs plain version: same float32 ops, except nvcc's FMA contraction
@@ -128,3 +129,134 @@ def test_bad_launch_raises(cuda_device):
     twr, twi = twiddle.flat_tables(256, torch.device("cpu"))
     with pytest.raises(ValueError, match="operand on cpu"):
         cf.tile_fft(xr, xi, twr, twi)
+
+
+@pytest.mark.parametrize("batch,R,C,cb", [(1, 64, 1 << 14, 32),
+                                         (3, 4, 1 << 14, 32),
+                                         (2, 8, 512, 8)])
+def test_long_range_dense_kernel_vs_plain(cuda_device, batch, R, C, cb):
+    xr, xi = _planes(38, (batch, R, C), cuda_device)
+    tables = twiddle.dense_long_range_tables(R, C, cuda_device)
+    before = cf.long_range_dense.launches
+    yk = cf.long_range_dense(xr, xi, *tables, cb=cb)
+    torch.cuda.synchronize()
+    assert cf.long_range_dense.launches == before + 1
+    yp = cf.long_range_dense_plain(xr, xi, *tables)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("R,tile,cb", [(256, 1 << 14, 64), (8, 1024, 8)])
+def test_dense_fourstep_kernel_vs_plain(cuda_device, R, tile, cb):
+    xr, xi = _planes(39, (R, tile), cuda_device)
+    args = (xr, xi, *twiddle.dense_long_range_tables(R, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.fourstep.launches
+    yk = cf.fourstep(*args, cb=cb, separable=False)
+    torch.cuda.synchronize()
+    assert cf.fourstep.launches == before + 1
+    yp = cf.fourstep_plain(*args, separable=False)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("R1,R2,tile", [(16, 16, 1 << 14), (4, 2, 512)])
+def test_dense_sixstep_kernel_vs_plain(cuda_device, R1, R2, tile):
+    xr, xi = _planes(40, (R1, R2, tile), cuda_device)
+    args = (xr, xi,
+            *twiddle.dense_long_range_tables(R1, R2 * tile, cuda_device),
+            *twiddle.dense_long_range_tables(R2, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.sixstep.launches
+    yk = cf.sixstep(*args, separable=False)
+    torch.cuda.synchronize()
+    assert cf.sixstep.launches == before + 1
+    yp = cf.sixstep_plain(*args, separable=False)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("alias_io", [False, True])
+@pytest.mark.parametrize("R,tile,qb", [(64, 1 << 14, 2), (64, 1 << 14, 1),
+                                       (8, 1 << 14, 16), (4, 256, 2)])
+def test_fused_kernel_vs_plain(cuda_device, R, tile, qb, alias_io):
+    xr, xi = _planes(41, (R, tile), cuda_device)
+    ops = (*twiddle.device_factors(R, tile, cuda_device),
+           *twiddle.flat_tables(tile, cuda_device))
+    yp = cf.fused_plain(xr, xi, *ops)
+    before = cf.fused.launches
+    yk = cf.fused(xr.clone(), xi.clone(), *ops, qb=qb, alias_io=alias_io)
+    torch.cuda.synchronize()
+    assert cf.fused.launches == before + 1
+    assert rel_err(*yk, *yp) <= FP32_TOL
+    # and again: a second launch meets the first one's carry lines gone
+    yk = cf.fused(xr.clone(), xi.clone(), *ops, qb=qb, alias_io=alias_io)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+def test_fused_alias_writes_over_its_input(cuda_device):
+    R, tile = 64, 1 << 14
+    xr, xi = _planes(42, (R, tile), cuda_device)
+    ops = (*twiddle.device_factors(R, tile, cuda_device),
+           *twiddle.flat_tables(tile, cuda_device))
+    yr, yi = cf.fused(xr, xi, *ops, alias_io=True)
+    assert yr.data_ptr() == xr.data_ptr() and yi.data_ptr() == xi.data_ptr()
+
+
+def test_fused_raises_the_persisting_set_aside(cuda_device):
+    # device state that outlives the launch: the set-aside stays raised
+    # until restore_persisting_l2 (run at exit) puts back the value it
+    # had before the process's first fused launch
+    R, tile = 64, 1 << 14
+    xr, xi = _planes(44, (R, tile), cuda_device)
+    cf.fused(xr, xi, *twiddle.device_factors(R, tile, cuda_device),
+             *twiddle.flat_tables(tile, cuda_device))
+    torch.cuda.synchronize()
+    assert cf.persisting_l2_set_aside(cuda_device) >= 2 * R * tile * 4
+    cf.restore_persisting_l2()
+    assert cf.persisting_l2_set_aside(cuda_device) == \
+        cf._SET_ASIDE_BEFORE[xr.device.index]
+
+
+def test_fused_alias_plan_serves_fft_and_keeps_x(cuda_device):
+    # fft hands fused-alias its own plane split, never x's memory
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.plans.core import Plan
+
+    n = 1 << 20
+    plan = Plan(key=plans.make_key(n), variant="fused-alias",
+                params={"tile": 1 << 14, "qb": 2}, source="tuned")
+    x = torch.complex(*_planes(45, (n,), cuda_device))
+    keep = x.clone()
+    before = cf.fused.launches
+    y = fft(x, plan=plan)
+    torch.cuda.synchronize()
+    assert cf.fused.launches == before + 1 and torch.equal(x, keep)
+    ref = np.fft.fft(keep.cpu().numpy().astype(np.complex128))
+    assert rel_err(y.real, y.imag, ref.real, ref.imag) <= SPLIT3_TOL
+
+
+def test_two_kernel_path_vs_numpy(cuda_device):
+    n = 1 << 20
+    xr, xi = _planes(43, (n,), cuda_device)
+    before = (cf.long_range_dense.launches, cf.tile_fft.launches)
+    yr, yi = cf.fft_pi_layout_cuda2(xr, xi)
+    torch.cuda.synchronize()
+    assert (cf.long_range_dense.launches, cf.tile_fft.launches) == \
+        (before[0] + 1, before[1] + 1)
+    x = xr.cpu().double().numpy() + 1j * xi.cpu().double().numpy()
+    ref = np.fft.fft(x)[bit_reverse_indices(n)]
+    assert rel_err(yr, yi, ref.real, ref.imag) <= SPLIT3_TOL
+
+
+def test_race_on_the_card_times_fused(cuda_device, tmp_path, monkeypatch):
+    from cs87project_msolano2_tpu_torch import plans
+
+    monkeypatch.setenv("PIFFT_PLAN_CACHE", str(tmp_path))
+    plans.cache.clear(memory=True, disk=False)
+    key = plans.make_key(1 << 20, layout="pi")
+    plan = plans.tune(key, verbose=False)
+    fates = {(r.variant, r.status) for r in plan.tuning}
+    for variant in ("fused", "fused-alias", "two-kernel"):
+        assert any(v == variant and s in ("won", "lost")
+                   for v, s in fates), (variant, plan.tuning)
+    assert plan.source == "tuned" and plan.ms > 0
+    assert plans.cache.disk_entries(key.device_kind)

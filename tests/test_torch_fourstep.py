@@ -174,10 +174,15 @@ def test_bad_cb_raises_at_build(cb):
 
 @pytest.mark.parametrize("variant", ["fourstep", "sixstep"])
 def test_dense_twiddles_not_ported(variant):
+    # dense long-range tables (separable=False) are ported now: the
+    # entry builds, and an over-budget block still fails before launch
     key = plans.make_key(1 << 25, device="cpu")
-    with pytest.raises(ValueError, match="separable=False.*not ported yet"):
+    assert callable(ladder.build_executor(key, variant, {
+        "tile": 1 << 14, "separable": False}))
+    big = {"cb": 2048} if variant == "fourstep" else {"cb1": 2048}
+    with pytest.raises(ValueError, match="limit 232448"):
         ladder.build_executor(key, variant, {"tile": 1 << 14,
-                                             "separable": False})
+                                             "separable": False, **big})
 
 
 def test_batched_key_refuses_whole_transform_variants():
