@@ -15,12 +15,17 @@ the ``fourstep`` plan, 2^25 and 2^27 on ``sixstep``, one launch each)
 and the tuned path (phase 8: the autotune race at N=2^20 over ``fused``,
 ``fused-alias``, ``rql``, ``two-kernel`` and ``fourstep``, the stored
 winner serving ``fft``, a second process reading the store, and
-``plan sweep`` measuring the fourstep and sixstep crossovers) — checks
-the results against a complex128 oracle, and times every kernel and path
-with CUDA events.  Phase 3 also sets the card's persisting-L2 set-aside
-to 0, times rql at N=2^20, and times it again after the first ``fused``
-launch has raised that set-aside; the card's own value is put back at
-exit.  Phases 1-7 run with ``PIFFT_PLAN_CACHE`` pointed at a fresh
+``plan sweep`` measuring the fourstep and sixstep crossovers), the matmul
+funnel (phase 9: ``Plan(key, "mf")`` at N=2^20 in pi and natural order
+in every fp32-storage precision mode, on the tensor cores) and the
+``gpu`` plan backend (phase 10: ``plan_for(..., backend="gpu")`` at
+4096 x 4096 and 64 x 2^18 on ``gpu-rows``, 2^20 on ``gpu-stages``, a
+race whose winner a second process reads back, and ``hw probe``) —
+checks the results against a complex128 oracle, and times every kernel
+and path with CUDA events.  Phase 3 also sets the card's persisting-L2
+set-aside to 0, times rql at N=2^20, and times it again after the first
+``fused`` launch has raised that set-aside; the card's own value is put
+back at exit.  Phases 1-7 run with ``PIFFT_PLAN_CACHE`` pointed at a fresh
 temporary directory, so no plan stored on the machine changes their
 paths.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
@@ -28,8 +33,8 @@ script exits non-zero without it.  It imports nothing of JAX.
 
 Bounds and carry ceilings come from the port's ``utils/roofline.py``:
 NVIDIA's data-sheet peaks for the card by name (3.35 TB/s of HBM
-bandwidth and 67 TFLOP/s of float32 outside the tensor cores for the
-H100 SXM).
+bandwidth, 67 TFLOP/s of float32 outside the tensor cores and 989
+TFLOP/s of dense bf16 on them for the H100 SXM).
 """
 
 from __future__ import annotations
@@ -59,6 +64,14 @@ LARGE = ((22, "fourstep"), (24, "fourstep"), (25, "sixstep"),
 LOOKUPS = 10000
 #: log2 of the transform lengths phase 8's ``plan sweep`` races
 SWEEP = (20, 22, 24, 25)
+#: the matmul funnel's precision modes and each one's whole-path budget
+#: against complex128 (ops/precision.py)
+MF_BUDGETS = {"split3": 1e-5, "highest": 5e-6, "fp32": 5e-6,
+              "default": 1e-2}
+#: (rows, n) of phase 3's gpu_rows checks: 2^24 points each, the
+#: configs' shapes 4096 x 4096 and 64 x 2^18 among them
+GPU_ROWS_CHECKS = ((1 << 20, 16), (4096, 4096), (1024, 1 << 14),
+                   (256, 1 << 16), (64, 1 << 18))
 #: kernel launches of one call of each 1-D plan variant
 VARIANT_LAUNCHES = {
     "fused": {"fused": 1}, "fused-alias": {"fused": 1},
@@ -133,11 +146,15 @@ def run(store) -> int:
         ifft,
     )
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.hw import lowering
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
         dense_long_range_tables,
         device_factors,
+        device_funnel_b,
+        device_funnel_factors,
         flat_tables,
     )
+    from cs87project_msolano2_tpu_torch.plans.core import Plan
     from cs87project_msolano2_tpu_torch.utils import buildlib, roofline, verify
     from cs87project_msolano2_tpu_torch.utils.timing import FLUSH_BYTES, time_ms
 
@@ -145,8 +162,8 @@ def run(store) -> int:
     rng = np.random.default_rng(SEED)
     kind = torch.cuda.get_device_name(0)
 
-    def bound_ms(nbytes, flops):
-        return roofline.bound_ms(nbytes, flops, kind)
+    def bound_ms(nbytes, flops, bf16_flops=0):
+        return roofline.bound_ms(nbytes, flops, kind, bf16_flops)
 
     # phase 1: the card
     smi = subprocess.run(
@@ -315,6 +332,37 @@ def run(store) -> int:
     log(f"# phase 3 blocking: fused R={Rf} qb={qbf}; dense fourstep "
         f"R={R22} cb={cb22}; dense sixstep R1={s1} R2={s2}; fused carry "
         f"limit {cf.fused_carry_limit(dev)} bytes of persisting L2")
+    # the matmul funnel at the mf path's shape (R = 128, n = 2^20) in each
+    # tensor-core mode: the same bf16 planes and products as the plain
+    # version, summed in another order
+    Rm, Cm, cbm = cf.mf_blocking(R * T)
+    xrm, xim = random_complex(rng, (Rm, Cm), dev, Rm * Cm)
+    mf_args = (xrm, xim, *device_funnel_b(Rm, dev),
+               *device_funnel_factors(Rm, Rm * Cm, dev))
+    for mode in ("split3", "default", "highest"):
+        check_kernel(f"matmul_funnel({Rm},{Cm}) {mode}",
+                     lambda *a, m=mode: cf.matmul_funnel(*a, precision=m),
+                     lambda *a, m=mode: cf.matmul_funnel_plain(
+                         *a, precision=m), mf_args)
+    # gpu_rows at every row regime: short rows many to a block, 2^14 in
+    # one block, 2^16 and 2^18 in two passes; automatic blocks and 8 rows
+    # a block where the block's shared memory holds them
+    for rows, n in GPU_ROWS_CHECKS:
+        xg = random_complex(rng, (rows, n), dev)
+        stack = lowering.device_twiddle_stack(n, dev)
+        for br in (None, 8):
+            try:
+                cf.gpu_rows_blocking(rows, n, br)
+            except ValueError:
+                continue
+            check_kernel(f"gpu_rows({rows},{n}) block_rows={br}",
+                         lambda a, b, *t, br=br: cf.gpu_rows(
+                             a, b, *t, block_rows=br),
+                         cf.gpu_rows_plain, (*xg, *stack))
+        del xg
+    log(f"# phase 3 blocking: mf R={Rm} C={Cm} cb={cbm}; gpu_rows "
+        f"automatic block_rows "
+        f"{[cf.gpu_rows_blocking(r, n) for r, n in GPU_ROWS_CHECKS]}")
 
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
@@ -463,14 +511,15 @@ def run(store) -> int:
     timings = {}
 
     def kernel_row(label, kernel, plain, args, nbytes, flops, fft_flops,
-                   lib, plain_reps=REPS):
-        # flops: the operations the kernel does (its bound); fft_flops:
-        # the repo's 5 n log2 n convention for its levels (GFLOP/s)
+                   lib, plain_reps=REPS, bf16_flops=0):
+        # flops: the fp32 operations the kernel does and bf16_flops its
+        # tensor-core ones (its bound); fft_flops: the repo's 5 n log2 n
+        # convention for its levels (GFLOP/s)
         ms = timed(kernel, *args)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0]
         lib_ms = timed(*lib) if lib is not None else None
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, bf16_flops)
         timings[label] = {"ms": ms, "plain_ms": plain_ms,
                           "plain_reps": plain_reps,
                           "library_ms": lib_ms, "bytes": nbytes,
@@ -478,7 +527,7 @@ def run(store) -> int:
                           "gflops": fft_flops / (ms * 1e-3) / 1e9}
         log(f"# phase 7 {label}: {ms:.4f} ms "
             f"({timings[label]['gflops']:.1f} GFLOP/s, plain "
-            f"{plain_ms:.4f}, torch.fft "
+            f"{plain_ms:.4f}, library "
             f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'}, "
             f"bound {bms:.4f} by {by}, {nbytes} bytes)")
 
@@ -652,6 +701,89 @@ def run(store) -> int:
                  (xl,), n, 1, 1, (torch.fft.fft, xl), variant=variant)
         del xl, xlr, xli
 
+    # the matmul funnel alone in each mode, beside the nearest library
+    # pair: torch.matmul of the complex64 DFT matrix and X, times the
+    # dense complex64 twiddle grid.  Bytes: the planes once each way, B,
+    # A and B2; operations: 8 R bf16 flop per element per pass on the
+    # tensor cores, 14 fp32 flop per element in the epilogue
+    from cs87project_msolano2_tpu_torch.ops.precision import dot_passes
+
+    nm = Rm * Cm
+    bm = torch.complex(*mf_args[2:4]).to(torch.complex64)
+    fa = [a.double() for a in mf_args[4:]]
+    tm = (torch.complex(fa[0], fa[1]).reshape(Rm, -1, 1)
+          * torch.complex(fa[2], fa[3]).reshape(Rm, 1, 128)) \
+        .reshape(Rm, Cm).to(torch.complex64)
+    xm = torch.complex(xrm, xim)
+    mf_bytes = 16 * nm + 8 * (Rm * Rm + Rm * (Cm // 128) + Rm * 128)
+    for mode in ("split3", "default", "highest"):
+        label = f"matmul_funnel({Rm},{Cm}) {mode}"
+        kernel_row(label,
+                   lambda *a, m=mode: cf.matmul_funnel(*a, precision=m),
+                   lambda *a, m=mode: cf.matmul_funnel_plain(*a,
+                                                             precision=m),
+                   mf_args, mf_bytes, 14 * nm, 5 * nm * int(np.log2(Rm)),
+                   (lambda b, x, t: torch.matmul(b, x) * t, bm, xm, tm),
+                   bf16_flops=dot_passes(mode) * 8 * Rm * nm)
+    del bm, tm, xm
+
+    def mf_plain(xr, xi, mode="split3"):
+        # the mf composition on the two kernels' plain versions
+        yr, yi = cf.matmul_funnel_plain(xr.reshape(Rm, Cm),
+                                        xi.reshape(Rm, Cm), *mf_args[2:],
+                                        precision=mode)
+        return cf.tile_fft_plain(yr, yi, *flat_tables(Cm, dev))
+
+    for mode in ("split3", "highest"):
+        path_row(f"mf pi N=2^20 {mode}",
+                 lambda a, b, m=mode: cf.fft_pi_layout_cuda_mf(
+                     a, b, precision=m), (x2r, x2i), n2, 1, 2,
+                 (torch.fft.fft, x2),
+                 lambda a, b, m=mode: mf_plain(a, b, m), "mf")
+    mf_nat = Plan(plans.make_key(n2, device=dev), "mf", {"R": Rm})
+    path_row("fft natural N=2^20 (Plan mf split3 + gather)",
+             lambda x: fft(x, plan=mf_nat), (x2,), n2, 1, 2,
+             (torch.fft.fft, x2), variant="mf")
+
+    # gpu_rows at the gpu backend's two shapes, beside the cuda family's
+    # rows kernel (4096 x 4096) and torch.fft.fft on the same rows; bytes
+    # count the stack's n - 1 distinct entries once (row s of the
+    # zero-padded stack is read only below (n >> s) / 2)
+    for rows, n in ((4096, 4096), (64, 1 << 18)):
+        label = f"gpu_rows({rows},{n}) block_rows=None"
+        a = cases[label]["args"]
+        xc = torch.complex(a[0], a[1])
+        flops = 5 * rows * n * int(np.log2(n))
+        kernel_row(label, cf.gpu_rows, cf.gpu_rows_plain, a,
+                   16 * rows * n + 8 * (n - 1), flops,
+                   flops, (torch.fft.fft, xc))
+        if n <= cf.MAX_ROW_TILE:
+            timings[label]["rows_ms"] = timed(
+                lambda p, q: cf.fft_rows_cuda(p, q, natural=False),
+                a[0], a[1])
+            log(f"# phase 7 {label}: the cuda family's rows (tile_fft) on "
+                f"the same rows {timings[label]['rows_ms']:.4f} ms")
+        del xc
+
+    # gpu_rows' automatic blocking (block_rows None) against 1 row a
+    # block, a block of 1024 threads and the most rows a block's shared
+    # memory holds, at 2^20 rows of 16 points and at 4096 x 4096
+    blocking = {}
+    for rows, n in ((1 << 20, 16), (4096, 4096)):
+        a = cases[f"gpu_rows({rows},{n}) block_rows=None"]["args"]
+        row = {}
+        for br in sorted({1, cf.gpu_rows_blocking(rows, n),
+                          min(2048 // n, rows) or 1,
+                          cf.MAX_SMEM_TILE // n}):
+            row[br] = timed(lambda *t, br=br: cf.gpu_rows(*t, block_rows=br),
+                            *a)
+        blocking[f"{rows}x{n}"] = {"auto": cf.gpu_rows_blocking(rows, n),
+                                   "ms_by_block_rows": row}
+        log(f"# phase 7 gpu_rows({rows},{n}) by block_rows (automatic "
+            f"{cf.gpu_rows_blocking(rows, n)}): "
+            + ", ".join(f"{br}: {ms:.4f} ms" for br, ms in row.items()))
+    timings["gpu_rows blocking"] = blocking
+
     # phase 7b: device time of one natural-order large-n fft by kernel,
     # from torch.profiler, and the card's idle share of that call
     profiles = {}
@@ -776,6 +908,131 @@ def run(store) -> int:
         raise AssertionError(f"the sweep raced no carry kernel: "
                              f"{sweep_launches}")
 
+    # phase 9: the matmul funnel, counted — fft through Plan(key, "mf")
+    # at N=2^20 in pi and natural order, in every fp32-storage mode, each
+    # call one launch of matmul_funnel and one of tile_fft
+    cf.reset_launch_counts()
+    x9 = torch.complex(*random_complex(rng, (n2,), dev))
+    ref9 = torch.fft.fft(x9.to(torch.complex128))
+    ref9_pi = ref9[torch.from_numpy(verify.bit_reverse_indices(n2))
+                   .to(dev)]
+    mf_path = {}
+    for mode, budget in MF_BUDGETS.items():
+        for layout in ("pi", "natural"):
+            pl9 = Plan(plans.make_key(n2, layout=layout, precision=mode,
+                                      device=dev), "mf", {"R": 128})
+            before = counts_all()
+            if layout == "natural":
+                y9 = fft(x9, plan=pl9)
+                ref = ref9
+            else:
+                y9 = torch.complex(*pl9.execute(x9.real.contiguous(),
+                                                x9.imag.contiguous()))
+                ref = ref9_pi
+            torch.cuda.synchronize()
+            delta = {k: c - before[k] for k, c in counts_all().items()
+                     if c != before[k]}
+            e, m = rel_l2(y9, ref), max_abs(y9, ref)
+            finite = bool(torch.isfinite(y9).all())
+            mf_path[f"{mode} {layout}"] = {"rel_l2": e, "max_abs": m,
+                                           "launches": delta}
+            log(f"# phase 9 mf N=2^20 {layout} {mode}: rel L2 {e:.3e} "
+                f"(budget {budget}), max abs {m:.3e}, finite {finite}, "
+                f"launches {delta}")
+            if not (e <= budget and finite and y9.shape == (n2,)
+                    and delta == {"matmul_funnel": 1, "tile_fft": 1}):
+                raise AssertionError(f"mf {layout} {mode} failed")
+    del x9, ref9, ref9_pi, y9
+    mf_launches = counts_all()
+    log(f"# mf path launches: {mf_launches}")
+    launches.update(matmul_funnel=mf_launches["matmul_funnel"])
+
+    # phase 10: the gpu backend, counted — plan_for(..., backend="gpu")
+    # at config 3 and at 64 rows of 2^18 (gpu-rows), 2^20 (gpu-stages),
+    # the refused pi-layout 2^20 key, then a race of the 4096 x 4096 key
+    # whose winner a second process reads back with `hw probe --json`
+    cf.reset_launch_counts()
+    gpu_backend = {}
+    for shape, want in (((4096, 4096), "gpu-rows"),
+                        ((64, 1 << 18), "gpu-rows"),
+                        ((1 << 20,), "gpu-stages")):
+        pl10 = plans.plan_for(shape, device=dev, backend="gpu")
+        xgr, xgi = random_complex(rng, shape, dev)
+        before = counts_all()
+        ygr, ygi = fft_planes_fast(xgr, xgi, plan=pl10)
+        torch.cuda.synchronize()
+        delta = {k: c - before[k] for k, c in counts_all().items()
+                 if c != before[k]}
+        yg = torch.complex(ygr, ygi)
+        ref = torch.fft.fft(torch.complex(xgr, xgi).to(torch.complex128))
+        e, m = rel_l2(yg, ref), max_abs(yg, ref)
+        finite = bool(torch.isfinite(yg).all())
+        gpu_backend[str(shape)] = {"variant": pl10.variant,
+                                   "params": pl10.params, "rel_l2": e,
+                                   "max_abs": m, "launches": delta}
+        log(f"# phase 10 gpu backend {shape}: plan {pl10.variant} "
+            f"{pl10.params}, rel L2 {e:.3e} (budget {PATH_TOL}), max abs "
+            f"{m:.3e}, finite {finite}, launches {delta}")
+        want_launches = {"gpu_rows": 1} if want == "gpu-rows" else {}
+        if not (pl10.variant == want and pl10.key.backend == "gpu"
+                and e <= PATH_TOL and finite and delta == want_launches):
+            raise AssertionError(f"gpu backend {shape} failed")
+        del xgr, xgi, ygr, ygi, yg, ref
+    try:
+        plans.plan_for((n2,), layout="pi", device=dev, backend="gpu")
+    except ValueError as err:
+        log(f"# phase 10 gpu backend pi N=2^20 refused: {err}")
+    else:
+        raise AssertionError("the pi-layout 2^20 gpu key was served")
+    gpu_launches = counts_all()
+    log(f"# gpu backend launches (plans): {gpu_launches}")
+    if gpu_launches["gpu_rows"] < 1:
+        raise AssertionError("the gpu backend never launched gpu_rows")
+    launches.update(gpu_rows=gpu_launches["gpu_rows"])
+    cf.reset_launch_counts()
+    key_gpu = plans.make_key(4096, (4096,), device=dev, backend="gpu")
+    key_cuda = plans.make_key(4096, (4096,), device=dev)
+    tuned_gpu = plans.tune(key_gpu, force=True)
+    tuned_cuda = plans.tune(key_cuda, force=True)
+    for r in tuned_gpu.tuning:
+        log(f"# phase 10 race (4096,4096) gpu: {r.variant} {r.params}: "
+            f"{r.status}" + (f" {r.ms:.4f} ms" if r.ms is not None else "")
+            + (f" ({r.reason[:120]})" if r.status == "rejected" else ""))
+    if key_gpu.token() == key_cuda.token() or \
+            tuned_cuda.variant != "rows":
+        raise AssertionError("the gpu and cuda keys share a winner")
+    probe_code = (
+        "from cs87project_msolano2_tpu_torch.cli import main\n"
+        "main(['plan', 'show', '--backend', 'gpu'])\n"
+        "print('--- hw probe')\n"
+        "main(['hw', 'probe', '--json'])\n")
+    second = subprocess.run(
+        [sys.executable, "-c", probe_code], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ),
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    shown, _, probed = second.stdout.partition("--- hw probe\n")
+    log("\n".join(f"# phase 10 plan show --backend gpu: {line}"
+                   for line in shown.splitlines()))
+    if second.returncode != 0 or not any(
+            "n=4096 " in line and "backend=gpu" in line
+            and f": {tuned_gpu.variant} " in line
+            for line in shown.splitlines()):
+        raise AssertionError(f"a second process did not read the gpu "
+                             f"winner back: {second.stderr[-2000:]}")
+    hw = json.loads(probed)
+    log(f"# phase 10 hw probe --json: {json.dumps(hw, sort_keys=True)}")
+    if hw["platform"] != "cuda" or hw["device_kind"] != kind or \
+            not hw["sm_count"] or not hw["l2_bytes"]:
+        raise AssertionError(f"hw probe on the card: {hw}")
+    race_launches = counts_all()
+    log(f"# gpu backend race launches (not counted in the kernels "
+        f"line): {race_launches}")
+    gpu_backend["race"] = {"winner": tuned_gpu.describe(),
+                           "cuda_winner": tuned_cuda.describe(),
+                           "launches": race_launches,
+                           "entries": [r.to_record()
+                                       for r in tuned_gpu.tuning]}
+
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
@@ -788,7 +1045,12 @@ def run(store) -> int:
              src + "long_range.cu", ref_src + "483"),
             ("fourstep", label4, src + "fourstep.cu", ref_src + "1046"),
             ("sixstep", label6, src + "sixstep.cu", ref_src + "1354"),
-            ("fused", labelf, src + "fused.cu", ref_src + "832")):
+            ("fused", labelf, src + "fused.cu", ref_src + "832"),
+            ("matmul_funnel", f"matmul_funnel({Rm},{Cm}) split3",
+             src + "mf.cu", ref_src + "1915"),
+            ("gpu_rows", "gpu_rows(4096,4096) block_rows=None",
+             src + "gpu_rows.cu",
+             "cs87project_msolano2_tpu/hw/lowering.py:82")):
         t = timings[label]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -803,7 +1065,8 @@ def run(store) -> int:
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
                     "large_n": large, "profiles": profiles,
                     "set_aside": set_aside, "lookup_us": lookup_us,
-                    "kernel_checks": checks,
+                    "kernel_checks": checks, "mf_path": mf_path,
+                    "gpu_backend": gpu_backend, "hw_probe": hw,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),
                               "winner_natural": tuned_nat.describe(),

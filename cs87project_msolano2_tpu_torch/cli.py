@@ -3,11 +3,14 @@
     python -m cs87project_msolano2_tpu_torch -n 1048576 -p 4 -b cuda --verify
     python -m cs87project_msolano2_tpu_torch -t -b cuda
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
+        [--backend {cuda,gpu}]
+    python -m cs87project_msolano2_tpu_torch hw probe [--json | -v | --cores]
 
 The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
 tube_ms); ``-t`` runs the exact 8-point golden test for p in {1,2,4,8};
-``plan`` manages the persistent plan store (``plans.cache``).  Runs on
-the card unless ``--device cpu`` is given.
+``plan`` manages the persistent plan store (``plans.cache``); ``hw
+probe`` prints the device inventory (``hw.inventory``).  Runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -81,9 +84,15 @@ def plan_main(argv) -> int:
                          "ported yet)")
     ap.add_argument("--force", action="store_true",
                     help="warm/sweep: re-tune even on a cache hit")
+    ap.add_argument("--backend", choices=("cuda", "gpu"), default=None,
+                    help="plan backend: cuda (the port's kernels, the "
+                         "default for warm/sweep) or gpu (hw.lowering); "
+                         "show lists every backend unless one is given")
     args = ap.parse_args(argv)
 
     from . import plans
+
+    backend = args.backend or "cuda"
 
     if args.shapes:
         print("error: --shapes (warming a served shape set) comes with "
@@ -114,22 +123,29 @@ def plan_main(argv) -> int:
         print(f"store:        {path} ({len(entries)} plan(s))")
         from .ops.precision import ERROR_BUDGETS, storage_dtype
 
+        shown = 0
         for token, rec in sorted(entries.items()):
             key = plans.PlanKey.from_token(token)
+            if args.backend is not None and key.backend != args.backend:
+                continue
+            shown += 1
             ms = rec.get("ms")
-            print(f"  n={key.n} domain={key.domain} batch={key.batch} "
+            print(f"  n={key.n} domain={key.domain} backend={key.backend} "
+                  f"batch={key.batch} "
                   f"{key.layout} {key.precision} "
                   f"[{storage_dtype(key.precision)}, budget "
                   f"{ERROR_BUDGETS[key.precision]:.0e}]: "
                   f"{rec['variant']} {rec['params']}"
                   + (f" ({ms:.4f} ms)" if ms is not None else ""))
+        if not shown:
+            print(f"  (no {args.backend} plans)")
         return 0
 
     if args.action == "sweep":
         try:
             tuned, cross = plans.tune_sweep(
                 args.ns, layout=args.layout, precision=args.precision,
-                force=args.force)
+                force=args.force, backend=backend)
         except (plans.TuningUnavailable, plans.TuningError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
@@ -146,7 +162,7 @@ def plan_main(argv) -> int:
     # warm
     try:
         key = plans.make_key(args.n, tuple(args.batch), layout=args.layout,
-                             precision=args.precision)
+                             precision=args.precision, backend=backend)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -168,11 +184,24 @@ def plan_main(argv) -> int:
     return 0
 
 
+def hw_main(argv) -> int:
+    """``hw probe`` — the device inventory (``hw.inventory.main``)."""
+    if not argv or argv[0] != "probe":
+        print("usage: cs87project_msolano2_tpu_torch hw probe "
+              "[--json | -v | --cores]", file=sys.stderr)
+        return 2
+    from .hw.inventory import main as inventory_main
+
+    return inventory_main(argv[1:])
+
+
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "plan":
         return plan_main(argv[1:])
+    if argv and argv[0] == "hw":
+        return hw_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch",
         description="communication-free pi-FFT on PyTorch/CUDA",

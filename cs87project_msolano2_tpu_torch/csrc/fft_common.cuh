@@ -3,8 +3,8 @@
 // the long-range levels, and the block copies between device memory and
 // shared memory.
 //
-// tile_fft.cu, long_range.cu, fourstep.cu, sixstep.cu and fused.cu
-// all include this header, so the kernels do the same float32
+// tile_fft.cu, long_range.cu, fourstep.cu, sixstep.cu, fused.cu and
+// gpu_rows.cu all include this header, so the kernels do the same float32
 // arithmetic in the same order and their compositions agree to float
 // rounding.
 //
@@ -141,6 +141,54 @@ struct DenseTwiddle {
   }
 };
 
+// The (stages, n / 2) twiddle stack of the gpu-rows family
+// (twiddle_stack(n)): stack row s holds W_m^j for m = n >> s and
+// j < m / 2, zero past it.  The levels run here are the stack rows from
+// level0 on.  As a long-range source of the (R, C) view of one n-point
+// row, level l's twiddle of row offset j and column col is
+// W_{n >> l}^{j * C + col}, entry j * C + col of stack row level0 + l;
+// as a row source (row_levels), level l's w[j] is entry j of stack row
+// level0 + l.  Read through the read-only path: every block of a
+// launch shares the stack.
+struct StackTwiddle {
+  const float* wr;
+  const float* wi;
+  size_t half_n;  // n / 2, the length of one stack row
+  size_t C;       // columns of the long-range (R, C) view
+  int level0;
+
+  __device__ __forceinline__ void at(int l, int, int j, size_t col,
+                                     float& w_r, float& w_i) const {
+    const size_t g = static_cast<size_t>(level0 + l) * half_n +
+                     static_cast<size_t>(j) * C + col;
+    w_r = __ldg(wr + g);
+    w_i = __ldg(wi + g);
+  }
+
+  __device__ __forceinline__ void row(int l, int j, float& w_r,
+                                      float& w_i) const {
+    const size_t g = static_cast<size_t>(level0 + l) * half_n + j;
+    w_r = __ldg(wr + g);
+    w_i = __ldg(wi + g);
+  }
+};
+
+// The per-level tables of twiddle_tables(tile) concatenated into one
+// array a plane (flat_tables): level l's w[j] at offset
+// tile - (tile >> l) + j.  The tile kernels' row source.
+struct FlatTwiddle {
+  const float* wr;
+  const float* wi;
+  int tile;
+
+  __device__ __forceinline__ void row(int l, int j, float& w_r,
+                                      float& w_i) const {
+    const int g = tile - (tile >> l) + j;
+    w_r = __ldg(wr + g);
+    w_i = __ldg(wi + g);
+  }
+};
+
 // The first log2_r DIF levels of an n = R * C transform viewed as
 // (R, C), on the R x cb column block staged in (sr, si) whose first
 // column is c0.  Level l pairs rows (r, r + R/2^(l+1)) inside each group
@@ -178,27 +226,30 @@ __device__ __forceinline__ void long_range_levels(float* sr, float* si,
   }
 }
 
-// All log2_tile DIF levels of one tile-point row staged in (sr, si),
-// leaving it in pi layout (bit-reversed order).  Level l pairs
-// (top, top + half), half = tile >> (l + 1), and multiplies the
-// difference by w_l[j] from the concatenated per-level tables of
-// twiddle_tables(tile) (level l at offset tile - (tile >> l)).
-__device__ __forceinline__ void tile_levels(float* sr, float* si,
-                                            int log2_tile, const float* twr,
-                                            const float* twi) {
-  const int tile = 1 << log2_tile;
-  for (int l = 0; l < log2_tile; ++l) {
-    const int lh = log2_tile - l - 1;  // log2(half)
+// The first log2_n DIF levels of every 2^log2_n-point row of the
+// 2^log2_total points staged in (sr, si) (rows back to back), leaving
+// each row in pi layout (bit-reversed order) once all log2_n levels of
+// the row have run.  Level l pairs (top, top + half), half = n >> (l + 1)
+// inside each group of 2 * half, and multiplies the difference by w_l[j]
+// from the row source tw.row(l, j): either source above, picked at
+// compile time.
+template <class Twiddle>
+__device__ __forceinline__ void row_levels(float* sr, float* si,
+                                           int log2_total, int log2_n,
+                                           const Twiddle& tw) {
+  const int pairs = 1 << (log2_total - 1);
+  for (int l = 0; l < log2_n; ++l) {
+    const int lh = log2_n - l - 1;  // log2(half)
     const int half = 1 << lh;
-    const int off = tile - (tile >> l);
-    for (int i = threadIdx.x; i < (tile >> 1); i += blockDim.x) {
+    for (int i = threadIdx.x; i < pairs; i += blockDim.x) {
       const int j = i & (half - 1);
       const int top = ((i >> lh) << (lh + 1)) + j;
       const int bot = top + half;
       const float ar = sr[top], ai = si[top];
       const float br = sr[bot], bi = si[bot];
       const float dr = ar - br, di = ai - bi;
-      const float wr = __ldg(twr + off + j), wi = __ldg(twi + off + j);
+      float wr, wi;
+      tw.row(l, j, wr, wi);
       sr[top] = ar + br;
       si[top] = ai + bi;
       sr[bot] = dr * wr - di * wi;
@@ -206,6 +257,16 @@ __device__ __forceinline__ void tile_levels(float* sr, float* si,
     }
     __syncthreads();
   }
+}
+
+// All log2_tile DIF levels of one tile-point row staged in (sr, si),
+// leaving it in pi layout, twiddles from the concatenated per-level
+// tables of twiddle_tables(tile) (level l at offset tile - (tile >> l)).
+__device__ __forceinline__ void tile_levels(float* sr, float* si,
+                                            int log2_tile, const float* twr,
+                                            const float* twi) {
+  row_levels(sr, si, log2_tile, log2_tile,
+             FlatTwiddle{twr, twi, 1 << log2_tile});
 }
 
 // Everything a persistent cooperative launch needs: opt the kernel into

@@ -1,9 +1,10 @@
 """The CUDA kernels of the FFT hot path, each beside its plain PyTorch
 version, and the whole-transform compositions built on them.
 
-The counterpart of the reference's ``ops/pallas_fft.py``.  Six kernels
-(``csrc/``, built by ``utils.buildlib``) carry the static and the tuned
-paths:
+The counterpart of the reference's ``ops/pallas_fft.py`` and of the
+kernel of its ``hw/lowering.py``.  Eight kernels (``csrc/``, built by
+``utils.buildlib``) carry the static and the tuned paths, the matmul
+funnel and the ``gpu`` backend:
 
 * ``tile_fft`` — the tile-point DIF of independent rows in shared
   memory (replaces ``_tile_fft_kernel`` / ``_tile_fft_compute``);
@@ -21,7 +22,14 @@ paths:
   ``_sixstep_kernel``), the plan for n >= 2^25; separable or dense;
 * ``fused`` — a whole 1-D transform of n <= 2^20 in one cooperative
   launch whose carry stays in L2 (replaces ``_fused_fft_kernel``), the
-  ladder's ``fused`` and ``fused-alias``, raced by the autotuner.
+  ladder's ``fused`` and ``fused-alias``, raced by the autotuner;
+* ``matmul_funnel`` — the first log2(R) levels as one R-point DFT matrix
+  product on the tensor cores (bf16 mma.sync, passes per precision
+  mode), times the twiddle grid (replaces ``_matmul_funnel_kernel``);
+  with ``tile_fft`` the ladder's ``mf``;
+* ``gpu_rows`` — the radix-2 DIF of every row of up to 2^18 points,
+  twiddles from the per-level stack (replaces ``hw/lowering.py``'s
+  ``_radix2_kernel``), the ``gpu`` backend's ``gpu-rows``.
 
 Each wrapper checks device, dtype, shape and contiguity, launches its
 kernel for CUDA tensors (or raises) and counts the launch on its
@@ -43,9 +51,12 @@ import torch
 
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
+from .precision import make_dot, split_levels, storage_dtype
 from .twiddle import (
     dense_long_range_tables,
     device_factors,
+    device_funnel_b,
+    device_funnel_factors,
     device_tables,
     flat_tables,
 )
@@ -813,9 +824,215 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
 
 fused.launches = 0
 
+
+# --- kernel 7: matmul_funnel ------------------------------------------------
+
+#: columns of one warp's work item in the funnel kernel: cb is a multiple
+MF_ITEM_COLS = 64
+#: rows of one mma.sync tile: R is a multiple
+MF_MIN_R = 16
+
+
+def check_mf_storage(precision: str) -> None:
+    """Raise ValueError for a precision mode whose storage is not
+    float32: the matmul funnel has no narrow-storage path (the
+    reference's rejection, its ladder.py:524-533)."""
+    storage = storage_dtype(precision)
+    if storage != "float32":
+        raise ValueError(f"variant 'mf' has no {storage} storage path — "
+                         f"fp32 storage only")
+
+
+def mf_smem_bytes(R: int, cb: int) -> int:
+    """Dynamic shared memory of one funnel block: its cb columns of Xr
+    and Xi staged column-major, 2R + 8 floats a column."""
+    return cb * (2 * R + 8) * 4
+
+
+def mf_blocking(n: int, R: int = LANE, cb: int | None = None):
+    """Validated (R, C, cb) for the matmul funnel of an n-point
+    transform viewed as (R, C = n/R).  R is a power of two of at least
+    16 (one mma.sync tile) dividing n; C must be a multiple of 128 (the
+    twiddle factors' lane split) and at most MAX_SMEM_TILE (the tile
+    kernel finishes each row of C points); cb, the columns a block owns,
+    a multiple of 64 dividing C whose block fits shared memory.  cb None
+    takes the widest block up to 64 * max(1, 128 / R) columns (8 work
+    items for the block's 8 warps) that divides C and fits.  With R = 128
+    that serves 2^14 <= n <= 2^21.  Raises ValueError naming the
+    limiting pair before any launch."""
+    if R < MF_MIN_R or not is_power_of_two(R):
+        raise ValueError(f"mf: R={R} must be a power of two >= {MF_MIN_R} "
+                         f"(one {MF_MIN_R}-row tensor-core tile)")
+    if n % R:
+        raise ValueError(f"mf: R={R} must divide n={n}")
+    C = n // R
+    if C % LANE:
+        raise ValueError(f"mf: n/R = {C} (n={n}, R={R}) must be a "
+                         f"multiple of {LANE}")
+    if C > MAX_SMEM_TILE:
+        raise ValueError(f"mf: n/R = {C} (n={n}, R={R}) exceeds "
+                         f"MAX_SMEM_TILE={MAX_SMEM_TILE}, the longest row "
+                         f"the tile kernel finishes; use a larger R")
+    if cb is None:
+        cb = MF_ITEM_COLS * max(1, LANE // R)
+        while cb > MF_ITEM_COLS and (C % cb or mf_smem_bytes(R, cb)
+                                     > SMEM_LIMIT_BYTES):
+            cb //= 2
+    if cb < MF_ITEM_COLS or cb % MF_ITEM_COLS or C % cb:
+        raise ValueError(f"mf: cb={cb} must be a multiple of "
+                         f"{MF_ITEM_COLS} dividing n/R = {C}")
+    if mf_smem_bytes(R, cb) > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"mf blocks R={R} x cb={cb} need {mf_smem_bytes(R, cb)} bytes "
+            f"of shared memory (limit {SMEM_LIMIT_BYTES}); reduce cb or R")
+    return R, C, cb
+
+
+def matmul_funnel_plain(xr, xi, br, bi, ar, ai, b2r, b2i,
+                        precision: str = "split3"):
+    """Plain version of ``matmul_funnel``: the four real products of
+    B @ X through ``precision.make_dot(precision)``, then the twiddle
+    grid rebuilt from A (R, Q) and B2 (R, 128) as a broadcast complex
+    product, in the TPU body's order of operations."""
+    dot = make_dot(precision)
+    R, C = xr.shape
+    yr = dot(br, xr) - dot(bi, xi)
+    yi = dot(br, xi) + dot(bi, xr)
+    a_r = ar.reshape(R, -1, 1)
+    a_i = ai.reshape(R, -1, 1)
+    w_r = b2r.reshape(R, 1, LANE)
+    w_i = b2i.reshape(R, 1, LANE)
+    tr = (a_r * w_r - a_i * w_i).reshape(R, C)
+    ti = (a_r * w_i + a_i * w_r).reshape(R, C)
+    return yr * tr - yi * ti, yr * ti + yi * tr
+
+
+def matmul_funnel(xr, xi, br, bi, ar, ai, b2r, b2i, cb: int | None = None,
+                  precision: str = "split3"):
+    """Y = (B @ X) * T on (R, C) float32 planes: the first log2(R) DIF
+    levels of an n = R * C transform.  (br, bi) is the (R, R) DFT matrix
+    of ``twiddle.dft_funnel_b(R)``; (ar, ai, b2r, b2i) the factors of
+    ``twiddle.dft_funnel_factors(R, n)``, A (R, C/128) and B2 (R, 128)
+    (``twiddle.device_funnel_b`` / ``device_funnel_factors``).
+    `precision` sets the bf16 tensor-core passes of the product
+    (``precision.dot_passes``).  cb None takes ``mf_blocking``'s block.
+    CUDA tensors launch the kernel (csrc/mf.cu) once; CPU tensors take
+    ``matmul_funnel_plain``.  Returns new (R, C) planes."""
+    _check_planes(xr, xi, 2, "matmul_funnel")
+    R, C = xr.shape
+    levels = split_levels(precision)
+    R, C, cb = mf_blocking(R * C, R, cb)
+    _check_operands("matmul_funnel", xr.device,
+                    (br, (R, R)), (bi, (R, R)),
+                    (ar, (R, C // LANE)), (ai, (R, C // LANE)),
+                    (b2r, (R, LANE)), (b2i, (R, LANE)))
+    if xr.device.type == "cpu":
+        return matmul_funnel_plain(xr, xi, br, bi, ar, ai, b2r, b2i,
+                                   precision)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    _launch("matmul_funnel", "pifft_matmul_funnel", xr.device, xr, xi, yr,
+            yi, br, bi, ar, ai, b2r, b2i, ilog2(R), C, ilog2(cb), levels)
+    matmul_funnel.launches += 1
+    return yr, yi
+
+
+matmul_funnel.launches = 0
+
+
+# --- kernel 8: gpu_rows -----------------------------------------------------
+
+#: longest row the gpu-rows kernel serves (the reference's bound,
+#: hw/lowering.py:44)
+GPU_ROWS_MAX_N = 1 << 18
+#: points of one automatic gpu-rows block of short rows (512 threads):
+#: the fastest of 1, 64, 128 and 1024 rows of 16 points and of 1 and 4
+#: rows of 4096 on an H100 SXM (chip_smoke.py phase 7, PERF.md)
+GPU_ROWS_AUTO_POINTS = 1 << 10
+
+
+def gpu_rows_blocking(rows: int, n: int, block_rows: int | None = None):
+    """Validated rows per block for the gpu-rows kernel on (rows, n)
+    planes.  n is a power of two in [2, GPU_ROWS_MAX_N]; block_rows a
+    power of two dividing rows.  Rows of up to MAX_SMEM_TILE points are
+    staged block_rows at a time, so block_rows * n must fit one block's
+    shared memory; a block runs longer rows one after the other.
+    block_rows None takes the largest power of two dividing rows whose
+    block holds at most GPU_ROWS_AUTO_POINTS points (1 for long rows).
+    Raises ValueError naming the limiting pair before any launch."""
+    if n < 2 or not is_power_of_two(n) or n > GPU_ROWS_MAX_N:
+        raise ValueError(f"gpu-rows requires a power-of-two 2 <= n <= "
+                         f"{GPU_ROWS_MAX_N}, got n={n}")
+    if rows < 1:
+        raise ValueError(f"gpu-rows: rows={rows} must be positive")
+    if block_rows is None:
+        block_rows = 1
+        while (rows % (2 * block_rows) == 0
+               and 2 * block_rows * n <= GPU_ROWS_AUTO_POINTS):
+            block_rows *= 2
+    if block_rows < 1 or not is_power_of_two(block_rows) or \
+            rows % block_rows:
+        raise ValueError(f"block_rows={block_rows} must be a power of two "
+                         f"dividing rows={rows}")
+    if n <= MAX_SMEM_TILE and \
+            tile_smem_bytes(block_rows * n) > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"gpu-rows blocks of block_rows={block_rows} x n={n} need "
+            f"{tile_smem_bytes(block_rows * n)} bytes of shared memory "
+            f"(limit {SMEM_LIMIT_BYTES}); block_rows * n may be at most "
+            f"{MAX_SMEM_TILE}")
+    if rows // block_rows > _MAX_BLOCKS:
+        raise ValueError(f"gpu-rows: {rows // block_rows} blocks exceed "
+                         f"the grid limit")
+    return block_rows
+
+
+def gpu_rows_plain(xr, xi, twr, twi):
+    """Plain version of ``gpu_rows``: the reference's stage loop — stage
+    s views each row as groups of m = n >> s points, butterflies their
+    halves and multiplies the difference by row s of the stack."""
+    rows, n = xr.shape
+    m = n
+    for s in range(ilog2(n)):
+        half = m // 2
+        ar = xr.reshape(rows, n // m, m)
+        ai = xi.reshape(rows, n // m, m)
+        er, eo = ar[:, :, :half], ar[:, :, half:]
+        fr, fo = ai[:, :, :half], ai[:, :, half:]
+        wr, wi = twr[s, :half], twi[s, :half]
+        dr, di = er - eo, fr - fo
+        xr = torch.cat([er + eo, dr * wr - di * wi], dim=-1).reshape(rows, n)
+        xi = torch.cat([fr + fo, dr * wi + di * wr], dim=-1).reshape(rows, n)
+        m = half
+    return xr, xi
+
+
+def gpu_rows(xr, xi, twr, twi, block_rows: int | None = None):
+    """pi-layout DIF of each row of (rows, n) float32 planes, 2 <= n <=
+    GPU_ROWS_MAX_N, twiddles from the (log2 n, n/2) stack (twr, twi) of
+    ``hw.lowering.twiddle_stack(n)``.  `block_rows` rows share a block
+    (``gpu_rows_blocking``).  CUDA tensors launch the kernel
+    (csrc/gpu_rows.cu) once; CPU tensors take ``gpu_rows_plain``.
+    Returns new (rows, n) planes."""
+    _check_planes(xr, xi, 2, "gpu_rows")
+    rows, n = xr.shape
+    block_rows = gpu_rows_blocking(max(rows, 1), n, block_rows)
+    stack = (ilog2(n), max(n // 2, 1))
+    _check_operands("gpu_rows", xr.device, (twr, stack), (twi, stack))
+    if xr.device.type == "cpu":
+        return gpu_rows_plain(xr, xi, twr, twi)
+    yr, yi = torch.empty_like(xr), torch.empty_like(xi)
+    if rows:
+        _launch("gpu_rows", "pifft_gpu_rows", xr.device, xr, xi, yr, yi,
+                twr, twi, rows, ilog2(n), ilog2(block_rows))
+        gpu_rows.launches += 1
+    return yr, yi
+
+
+gpu_rows.launches = 0
+
 #: every kernel wrapper of this module, each counting its launches
 KERNELS = (tile_fft, long_range_sep, long_range_dense, fourstep, sixstep,
-           fused)
+           fused, matmul_funnel, gpu_rows)
 
 
 def reset_launch_counts() -> None:
@@ -946,6 +1163,27 @@ def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
                      *lr(R1, R2 * tile, dev), *lr(R2, tile, dev),
                      *flat_tables(tile, dev), cb1=cb1, cb2=cb2,
                      separable=separable)
+    return yr.reshape(n), yi.reshape(n)
+
+
+def fft_pi_layout_cuda_mf(xr, xi, R: int = LANE, cb: int | None = None,
+                          precision: str = "split3"):
+    """pi-layout n-point DIF of (n,) float32 planes with a matmul funnel
+    (the reference's fft_pi_layout_pallas_mf, pallas_fft.py:1970): the
+    first log2(R) levels as one ``matmul_funnel`` launch on the (R, n/R)
+    view, its tensor-core passes set by `precision`, then ``tile_fft`` on
+    the R rows of n/R points — two launches.  fp32 storage only; every
+    parameter is validated before any launch (``mf_blocking``)."""
+    n = _one_transform(xr, xi, "fft_pi_layout_cuda_mf")
+    check_mf_storage(precision)
+    R, C, cb = mf_blocking(n, R, cb)
+    dev = xr.device
+    yr, yi = matmul_funnel(xr.contiguous().reshape(R, C),
+                           xi.contiguous().reshape(R, C),
+                           *device_funnel_b(R, dev),
+                           *device_funnel_factors(R, n, dev), cb=cb,
+                           precision=precision)
+    yr, yi = tile_fft(yr, yi, *flat_tables(C, dev))
     return yr.reshape(n), yi.reshape(n)
 
 

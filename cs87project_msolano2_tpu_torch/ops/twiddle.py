@@ -8,11 +8,17 @@ kernels take separable factors (``long_range_factors``) or the same
 per-level tables reshaped to the (R, C) view
 (``dense_long_range_tables``).
 
+The matmul funnel (``mf``) takes the bit-reversed R-point DFT matrix
+(``dft_funnel_b``) and the separable factors of its (R, n/R) twiddle
+grid (``dft_funnel_factors``).
+
 The host tables are bit-identical to the reference package's
-(``ops/twiddle.py:twiddle_tables`` and
-``ops/pallas_fft.py:_long_range_factors``); ``tables_from_reference``
-and ``factors_from_reference`` carry tables built there over to device
-tensors, so both packages can run on the same weights.
+(``ops/twiddle.py:twiddle_tables``,
+``ops/pallas_fft.py:_long_range_factors``, ``dft_funnel_b`` and
+``dft_funnel_factors``); ``tables_from_reference``,
+``factors_from_reference`` and the ``funnel_*_from_reference`` helpers
+carry tables built there over to device tensors, so both packages can
+run on the same weights.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .bits import ilog2
+from .bits import bit_reverse_indices, ilog2
+
+#: lane width of the funnel's (R, Q, LANE) column view
+LANE = 128
 
 
 def twiddle_tables(n: int) -> tuple[tuple[np.ndarray, np.ndarray], ...]:
@@ -129,3 +138,64 @@ def dense_long_range_tables(R: int, C: int, device) -> tuple:
                  device),
             _f32(np.concatenate([wi for _, wi in levels]).reshape(R - 1, C),
                  device))
+
+
+@lru_cache(maxsize=8)
+def dft_funnel_b(R: int) -> tuple[np.ndarray, np.ndarray]:
+    """The (R, R) bit-reversed DFT matrix B[r, r'] = W_R^{bitrev(r) r'}
+    of the matmul funnel, as (br, bi) float32 numpy: row r of B @ X is
+    the output row that the first log2(R) DIF levels of an n = R * C
+    transform viewed as (R, C) leave at r, before its twiddle."""
+    rev = bit_reverse_indices(R).astype(np.float64)
+    rp = np.arange(R, dtype=np.float64)
+    b = np.exp(-2j * np.pi * np.outer(rev, rp) / R)
+    return b.real.astype(np.float32), b.imag.astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def dft_funnel_factors(R: int, n: int):
+    """Separable factors of the matmul funnel's (R, n/R) twiddle grid
+    T[r, c] = W_n^{bitrev(r) c}.  With c = q * LANE + l,
+    T[r, q*LANE + l] = A[r, q] * B2[r, l], A[r, q] = W_n^{bitrev(r) q
+    LANE} and B2[r, l] = W_n^{bitrev(r) l} (angle indices reduced mod n
+    in int64, so both factors are exact roots of unity).  Returns (ar,
+    ai, b2r, b2i) float32 numpy: A (R, Q = n/R/LANE), B2 (R, LANE)."""
+    Q = n // R // LANE
+    rev = bit_reverse_indices(R).astype(np.int64)
+    q = np.arange(Q, dtype=np.int64)
+    l = np.arange(LANE, dtype=np.int64)
+    a_idx = (rev[:, None] * q[None, :] * LANE) % n
+    b_idx = (rev[:, None] * l[None, :]) % n
+    a = np.exp(-2j * np.pi * a_idx / n)
+    b2 = np.exp(-2j * np.pi * b_idx / n)
+    return (
+        a.real.astype(np.float32), a.imag.astype(np.float32),
+        b2.real.astype(np.float32), b2.imag.astype(np.float32),
+    )
+
+
+def funnel_b_from_reference(br, bi, device) -> tuple:
+    """The (br, bi) of the reference's ``dft_funnel_b(R)`` as the funnel
+    kernel's (R, R) float32 operands on `device`."""
+    return _f32(br, device), _f32(bi, device)
+
+
+def funnel_factors_from_reference(ar, ai, b2r, b2i, device) -> tuple:
+    """The (ar, ai, b2r, b2i) of the reference's
+    ``dft_funnel_factors(R, n)`` as the funnel kernel's operands on
+    `device`: A kept (R, Q) — the reference hands its kernel A
+    transposed only for the TPU's lane rule — and B2 (R, LANE)."""
+    return (_f32(ar, device), _f32(ai, device), _f32(b2r, device),
+            _f32(b2i, device))
+
+
+@lru_cache(maxsize=8)
+def device_funnel_b(R: int, device) -> tuple:
+    """``dft_funnel_b(R)`` as kernel operands on `device`."""
+    return funnel_b_from_reference(*dft_funnel_b(R), device)
+
+
+@lru_cache(maxsize=8)
+def device_funnel_factors(R: int, n: int, device) -> tuple:
+    """``dft_funnel_factors(R, n)`` as kernel operands on `device`."""
+    return funnel_factors_from_reference(*dft_funnel_factors(R, n), device)

@@ -18,6 +18,7 @@ Consumer entry points:
 
     plan(n).execute(xr, xi)            # 1-D transform
     plan_for(shape).execute(xr, xi)    # batched rows over the trailing axis
+    plan_for(shape, backend="gpu")     # the gpu backend (hw.lowering)
     tune(key)                          # explicit tuning race (card only)
 
 ``plan``/``plan_for``/``get_plan`` NEVER tune implicitly: they serve the
@@ -123,18 +124,20 @@ def tune_or_static(key: PlanKey, *, force: bool = False,
 
 def plan(n: int, batch: tuple = (), layout: str = "natural",
          precision: str | None = None, domain: str = "c2c",
-         device="cuda") -> Plan:
+         device="cuda", backend: str = "cuda") -> Plan:
     """The single dispatch point: ``plan(n).execute(xr, xi)``.  Numpy
-    input to ``execute`` goes to `device` — the card by default."""
+    input to ``execute`` goes to `device` — the card by default.
+    `backend` picks the lowering family: "cuda" (the port's kernels)
+    or "gpu" (``hw.lowering``)."""
     return get_plan(make_key(n, batch, layout, precision, domain=domain,
-                             device=device), str(device))
+                             backend=backend, device=device), str(device))
 
 
 def plan_for(shape, layout: str = "natural",
              precision: str | None = None, domain: str = "c2c",
-             device="cuda") -> Plan:
+             device="cuda", backend: str = "cuda") -> Plan:
     """Plan for float-plane arrays of `shape` (trailing axis = transform
     length, leading axes = batch)."""
     shape = tuple(shape)
     return plan(shape[-1], shape[:-1], layout, precision, domain=domain,
-                device=device)
+                device=device, backend=backend)

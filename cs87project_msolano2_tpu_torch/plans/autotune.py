@@ -194,19 +194,22 @@ def sixstep_crossover(plans: list) -> Optional[int]:
 def tune_sweep(ns, *, layout: str = "pi", precision: Optional[str] = None,
                force: bool = False, timer: Optional[Callable] = None,
                verbose: bool = True, allow_offline: bool = False,
-               persist: bool = True, device="cuda"):
+               persist: bool = True, device="cuda", backend: str = "cuda"):
     """Per-n crossover selection: race the ladder at each n (each n gets
     the candidates :func:`ladder.candidates` enumerates for ITS key) and
     report the measured fourstep crossover.  Returns
     ``(plans, crossover_n)``; cached winners short-circuit exactly as in
     :func:`tune`.  A single n whose race fails outright (every candidate
     rejected) is skipped with a logged reason; :class:`TuningUnavailable`
-    (offline — no n can tune) and sticky CUDA errors propagate."""
+    (offline — no n can tune) and sticky CUDA errors propagate.  Keys
+    carry `backend`, so each backend's winners are raced and stored
+    apart."""
     from . import make_key
 
     out = []
     for n in sorted(int(x) for x in ns):
-        key = make_key(n, layout=layout, precision=precision, device=device)
+        key = make_key(n, layout=layout, precision=precision,
+                       backend=backend, device=device)
         try:
             out.append(tune(key, force=force, timer=timer, verbose=verbose,
                             allow_offline=allow_offline, persist=persist,

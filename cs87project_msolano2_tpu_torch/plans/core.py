@@ -3,9 +3,12 @@ obtained (tuned, cached, or static default).
 
 A :class:`PlanKey` is everything the kernel choice may depend on, with
 the reference's field names (``plans/core.py``) and the port's backend
-tag ``"cuda"``.  A :class:`Plan` binds a key to one variant + parameter
-set from :mod:`.ladder` and runs it.  Keys serialize to a stable JSON
-token (the disk store's dictionary key), plans to a JSON record.
+tags: ``"cuda"``, the port's kernel family (where the reference's
+``"tpu"`` family stands, and the default), and ``"gpu"``, the
+reference's ``hw/lowering`` family (``hw.lowering``).  A :class:`Plan`
+binds a key to one variant + parameter set from :mod:`.ladder` and runs
+it.  Keys serialize to a stable JSON token (the disk store's dictionary
+key), plans to a JSON record.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from ..ops.precision import PRECISIONS
 
 LAYOUTS = ("natural", "pi")
 DOMAINS = ("c2c", "r2c", "c2r")
-#: the port's one lowering family
-BACKENDS = ("cuda",)
+#: the port's lowering families: "cuda" (the default; the reference's
+#: "tpu" kernel family on the card) and "gpu" (the reference's
+#: hw/lowering gpu family, ``hw.lowering``)
+BACKENDS = ("cuda", "gpu")
 
 # bump when PlanKey/Plan serialization or ladder parameter semantics
 # change incompatibly: stale disk stores are then ignored wholesale, and
@@ -72,7 +77,9 @@ class PlanKey:
     plan) or "pi" (per-transform bit-reversed, the kernel-native order).
     precision: the storage/accumulate mode and its error budget
     (ops.precision).  domain: "c2c", or the real domains "r2c"/"c2r".
-    backend: the lowering family — "cuda" for this package.
+    backend: the lowering family — "cuda" (the default) or "gpu"; keys
+    of the two differ in their tokens, so a winner raced under one never
+    serves the other.
     """
 
     device_kind: str
@@ -88,7 +95,9 @@ class PlanKey:
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout={self.layout!r} not in {LAYOUTS}")
         if self.backend not in BACKENDS:
-            raise ValueError(f"backend={self.backend!r} not in {BACKENDS}")
+            raise ValueError(f"backend={self.backend!r} not in {BACKENDS} "
+                             f"(the reference's 'cpu-native' is not ported "
+                             f"yet)")
         if self.precision not in PRECISIONS:
             raise ValueError(
                 f"precision={self.precision!r} not in {PRECISIONS}")

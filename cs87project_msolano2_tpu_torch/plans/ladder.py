@@ -29,8 +29,17 @@ Variants (the reference's names):
 * ``stages`` — the all-float32 stage path (models.fft.fft_planes); the
                reference calls this variant ``jnp``.  Natural order only;
                serves every shape no kernel covers.  Never raced.
+* ``mf``     — ops.cuda_fft.fft_pi_layout_cuda_mf: the first log2(R)
+               levels as one DFT matrix product on the tensor cores
+               (precision from the key), then the tile kernel; params
+               ``R`` (default 128) and ``cb``.  fp32 storage only.  Served
+               to a Plan built with it, as the reference's research
+               variant: never raced, never the static default.
 
-``mf`` is not ported yet and raises ValueError.  The crossovers follow
+Keys whose ``backend`` is "gpu" go to ``hw.lowering`` (``gpu-rows``,
+``gpu-stages``) in ``candidates``, ``static_default`` and
+``build_executor``, as the reference's ladder.py:235/327/439 do; the
+``cuda`` family below never sees them.  The crossovers follow
 the reference (``ladder.py:54-73``, ``353-386``) and depend only on the
 key, never on whether a card is present, so CPU tests exercise the same
 composition the card runs.  The plan parameter ``tail`` is gone: the
@@ -63,7 +72,9 @@ from ..ops.cuda_fft import (
 from ..ops.precision import ported_storage
 from .core import PlanKey
 
-UNPORTED = ("mf",)
+#: variants of the reference's ladder with no port yet: the any-length
+#: family (its ladder.py:267-345), which comes with the any-length slice
+UNPORTED = ("bluestein", "rader", "mixedradix")
 #: variants whose executor writes its result over its input planes
 CONSUMES_INPUT = ("fused-alias",)
 
@@ -196,7 +207,12 @@ def candidates(key: PlanKey) -> list:
     SIXSTEP_MIN_N the sixstep entries lead and the fused and fourstep
     entries drop out.  Keys the port does not serve yet (bf16 storage,
     real domains, any-length n) raise as ``static_default`` does: the
-    reference's precision race axis expands only for bf16."""
+    reference's precision race axis expands only for bf16.  gpu keys
+    take ``hw.lowering.candidates``."""
+    if key.backend == "gpu":
+        from ..hw import lowering
+
+        return lowering.candidates(key)
     _check_ported(key)
     return _base_candidates(key)
 
@@ -239,7 +255,12 @@ def static_default(key: PlanKey):
     from SIXSTEP_MIN_N, ``fourstep`` from FOURSTEP_MIN_N, and ``rql``
     below that or where neither is feasible; the stage path elsewhere
     (natural order only).  Never a raced-only variant (fused,
-    two-kernel): those serve a key only once a race chose them."""
+    two-kernel): those serve a key only once a race chose them.  gpu keys
+    take ``hw.lowering.static_default``."""
+    if key.backend == "gpu":
+        from ..hw import lowering
+
+        return lowering.static_default(key)
     _check_ported(key)
     if rows_plan_feasible(_nrows(key), key.n):
         return "rows", {}
@@ -262,11 +283,19 @@ def static_default(key: PlanKey):
 
 def build_executor(key: PlanKey, variant: str, params: dict):
     """The (xr, xi) -> (yr, yi) executor for one ladder entry.  Raises
-    ValueError for unported variants and for infeasible tile/cb/qb
-    before anything launches (the tuner records those as rejections)."""
+    ValueError for unported variants and for infeasible tile/cb/qb/R
+    before anything launches (the tuner records those as rejections).
+    gpu keys build through ``hw.lowering.build_executor``."""
     from ..ops import cuda_fft
     from ..ops.bits import to_natural
+    if key.backend == "gpu":
+        from ..hw import lowering
 
+        return lowering.build_executor(key, variant, params)
+    if variant == "mf":
+        # before the bf16 "not ported" refusal: a race entry records the
+        # reference's own rejection
+        cuda_fft.check_mf_storage(key.precision)
     _check_ported(key)
     natural = key.layout == "natural"
     if variant in UNPORTED:
@@ -283,7 +312,7 @@ def build_executor(key: PlanKey, variant: str, params: dict):
 
         return rows_run
     if variant not in ("rql", "two-kernel", "fourstep", "sixstep", "fused",
-                       "fused-alias"):
+                       "fused-alias", "mf"):
         raise ValueError(f"unknown plan variant {variant!r}")
     if key.batch != ():
         raise ValueError(f"variant {variant!r} is a 1-D whole-transform "
@@ -306,6 +335,14 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         def run(xr, xi):
             return cuda_fft.fft_pi_layout_cuda_fused(xr, xi, tile, qb,
                                                      alias_io)
+    elif variant == "mf":
+        R = params.get("R", cuda_fft.LANE)
+        cb = params.get("cb")
+        cuda_fft.mf_blocking(key.n, R, cb)
+        precision = key.precision
+
+        def run(xr, xi):
+            return cuda_fft.fft_pi_layout_cuda_mf(xr, xi, R, cb, precision)
     elif variant == "fourstep":
         cb = params.get("cb")
         fourstep_blocking(key.n, tile, cb)

@@ -189,6 +189,22 @@ def load_kernels() -> ctypes.CDLL:
         c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
         c.c_int, ptr,                   # device, stream
     ]
+    lib.pifft_matmul_funnel.restype = c.c_int
+    lib.pifft_matmul_funnel.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr,                       # br, bi (the DFT matrix)
+        ptr, ptr, ptr, ptr,             # ar, ai, b2r, b2i (factors)
+        c.c_int, c.c_int, c.c_int,      # log2(R), C, log2(cb)
+        c.c_int,                        # bf16 planes per operand
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_gpu_rows.restype = c.c_int
+    lib.pifft_gpu_rows.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,   # xr, xi, yr, yi, twr, twi (stack)
+        c.c_longlong, c.c_int,          # rows, log2(n)
+        c.c_int,                        # log2(block_rows)
+        c.c_int, ptr,                   # device, stream
+    ]
     lib.pifft_fused_carry_limit.restype = c.c_longlong
     lib.pifft_fused_carry_limit.argtypes = [c.c_int]
     lib.pifft_persisting_l2_set_aside.restype = c.c_longlong

@@ -10,8 +10,9 @@ sixstep's two, the rql intermediate) moves one more full round trip, so
 a path with ``p`` plan-declared carry passes can reach at most
 ``1/(1+p)`` of the bound:
 
-    carry-free (rows)                      ceiling 1.0
-    one carry  (fourstep, rql)             ceiling 0.5
+    carry-free (rows, gpu-rows n <= 2^14)  ceiling 1.0
+    one carry  (fourstep, rql, mf,         ceiling 0.5
+                gpu-rows n > 2^14)
     two carries (sixstep, n >= 2^25)       ceiling 1/3
 
 Peaks are keyed on the CUDA device name (``torch.cuda.get_device_name``)
@@ -31,6 +32,15 @@ GPU_PEAK_BYTES_PER_S = {
     "H100 80GB HBM3": 3.35e12,
     "H100 PCIe": 2.0e12,
     "H200": 4.8e12,
+}
+
+#: peak dense bf16 rate of the tensor cores, flop/s (NVIDIA data
+#: sheets), the matmul funnel's products
+GPU_PEAK_BF16_FLOPS = {
+    "H100 SXM": 989e12,
+    "H100 80GB HBM3": 989e12,
+    "H100 PCIe": 756e12,
+    "H200": 989e12,
 }
 
 #: peak float32 rate outside the tensor cores, flop/s (NVIDIA data
@@ -58,7 +68,6 @@ PLAN_CARRY_PASSES = {
     "mixedradix": 1,
 }
 
-
 def _lookup(table: dict, device_name: str) -> Optional[float]:
     """Longest-substring match of `device_name` against `table`'s keys
     (case-insensitive), or None."""
@@ -81,9 +90,25 @@ def peak_fp32_flops(device_name: str) -> Optional[float]:
     return _lookup(GPU_PEAK_FP32_FLOPS, device_name)
 
 
-def plan_carry_passes(variant: str) -> Optional[int]:
+def peak_bf16_flops(device_name: str) -> Optional[float]:
+    """Peak dense bf16 tensor-core flop/s of the card, or None."""
+    return _lookup(GPU_PEAK_BF16_FLOPS, device_name)
+
+
+def plan_carry_passes(variant: str, n: Optional[int] = None) -> Optional[int]:
     """Plan-declared carry passes for a ladder variant, or None for
-    paths this model does not cover (the stage path)."""
+    paths this model does not cover (the stage paths).  ``gpu-rows``
+    depends on the row length n: 0 for rows that fit one block's shared
+    memory (``cuda_fft.MAX_SMEM_TILE``), 1 above (its kernel writes a
+    long row's leading levels to device memory and reads it back for the
+    rest); None without n.  The reference leaves its gpu rows out of
+    PLAN_CARRY_PASSES."""
+    if variant == "gpu-rows":
+        if n is None:
+            return None
+        from ..ops.cuda_fft import MAX_SMEM_TILE
+
+        return int(n > MAX_SMEM_TILE)
     return PLAN_CARRY_PASSES.get(variant)
 
 
@@ -116,16 +141,20 @@ def roofline_ceiling(carry_passes: Optional[int]) -> Optional[float]:
     return 1.0 / (1 + carry_passes)
 
 
-def bound_ms(nbytes: int, flops: int, device_name: str):
+def bound_ms(nbytes: int, flops: int, device_name: str,
+             bf16_flops: int = 0):
     """(ms, "bytes" or "operations"): the least time the card named
-    `device_name` could take to move `nbytes` and do `flops` float32
-    operations — the larger of the two times at its data-sheet peaks.
-    Raises ValueError for a card the tables do not know."""
+    `device_name` could take to move `nbytes`, do `flops` float32
+    operations and `bf16_flops` bf16 tensor-core operations — the larger
+    of the bytes' time and the operations' (each type at its own
+    data-sheet peak, the two summed).  Raises ValueError for a card the
+    tables do not know."""
     bw = peak_bytes_per_s(device_name)
     fl = peak_fp32_flops(device_name)
-    if bw is None or fl is None:
+    tc = peak_bf16_flops(device_name)
+    if bw is None or fl is None or tc is None:
         raise ValueError(f"no data-sheet peaks for the card "
                          f"{device_name!r}; add it to utils/roofline.py")
-    t_bytes, t_ops = nbytes / bw, flops / fl
+    t_bytes, t_ops = nbytes / bw, flops / fl + bf16_flops / tc
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")

@@ -260,3 +260,81 @@ def test_race_on_the_card_times_fused(cuda_device, tmp_path, monkeypatch):
                    for v, s in fates), (variant, plan.tuning)
     assert plan.source == "tuned" and plan.ms > 0
     assert plans.cache.disk_entries(key.device_kind)
+
+
+# --- the matmul funnel and the gpu backend ----------------------------------
+
+# the whole-path budget of each fp32-storage mode (ops/precision.py)
+MODE_BUDGET = {"split3": 1e-5, "highest": 5e-6, "fp32": 5e-6,
+               "default": 1e-2}
+
+
+@pytest.mark.parametrize("mode", ["split3", "default", "highest", "fp32"])
+@pytest.mark.parametrize("R,n,cb", [(16, 1 << 12, None),   # one K step
+                                    (16, 1 << 14, 1024),
+                                    (128, 1 << 14, None),
+                                    (128, 1 << 20, None)])
+def test_matmul_funnel_kernel_vs_plain(cuda_device, mode, R, n, cb):
+    # the same bf16 planes and products in both, summed in another
+    # order: float32 rounding of the accumulation
+    xr, xi = _planes(40, (R, n // R), cuda_device)
+    args = (xr, xi, *twiddle.device_funnel_b(R, cuda_device),
+            *twiddle.device_funnel_factors(R, n, cuda_device))
+    before = cf.matmul_funnel.launches
+    yk = cf.matmul_funnel(*args, cb=cb, precision=mode)
+    torch.cuda.synchronize()
+    assert cf.matmul_funnel.launches == before + 1
+    yp = cf.matmul_funnel_plain(*args, precision=mode)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("mode", ["split3", "default", "highest"])
+def test_mf_path_on_card_vs_numpy(cuda_device, mode):
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.plans.core import Plan
+
+    n = 1 << 20
+    rng = np.random.default_rng(41)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) \
+        .astype(np.complex64)
+    plan = Plan(plans.make_key(n, precision=mode), "mf", {"R": 128})
+    before = (cf.matmul_funnel.launches, cf.tile_fft.launches)
+    yr, yi = plan.execute(x.real, x.imag)
+    torch.cuda.synchronize()
+    assert (cf.matmul_funnel.launches, cf.tile_fft.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = np.fft.fft(x.astype(np.complex128))
+    assert rel_err(yr, yi, ref.real, ref.imag) <= MODE_BUDGET[mode]
+
+
+@pytest.mark.parametrize("rows,n,block_rows", [
+    (8, 2, None), (8, 2, 8), (8, 1 << 10, None), (8, 1 << 10, 8),
+    (4, 1 << 14, None), (4, 1 << 15, None), (4, 1 << 15, 2),
+    (2, 1 << 18, None)])
+def test_gpu_rows_kernel_vs_plain(cuda_device, rows, n, block_rows):
+    from cs87project_msolano2_tpu_torch.hw import lowering
+
+    xr, xi = _planes(42, (rows, n), cuda_device)
+    stack = lowering.device_twiddle_stack(n, cuda_device)
+    before = cf.gpu_rows.launches
+    yk = cf.gpu_rows(xr, xi, *stack, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert cf.gpu_rows.launches == before + 1
+    assert rel_err(*yk, *cf.gpu_rows_plain(xr, xi, *stack)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("shape", [(64, 4096), (4, 1 << 18), (16, 8)])
+def test_gpu_backend_plan_on_card_vs_numpy(cuda_device, shape):
+    from cs87project_msolano2_tpu_torch import plans
+
+    plan = plans.plan_for(shape, backend="gpu")
+    assert plan.variant == "gpu-rows"
+    rng = np.random.default_rng(43)
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) \
+        .astype(np.complex64)
+    before = cf.gpu_rows.launches
+    yr, yi = plan.execute(x.real, x.imag)
+    torch.cuda.synchronize()
+    assert cf.gpu_rows.launches == before + 1
+    ref = np.fft.fft(x.astype(np.complex128), axis=-1)
+    assert rel_err(yr, yi, ref.real, ref.imag) <= SPLIT3_TOL

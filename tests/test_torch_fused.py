@@ -280,7 +280,7 @@ def test_dense_modes_count_their_operands():
 def test_launch_counts_cover_every_kernel():
     assert [k.__name__ for k in cf.KERNELS] == [
         "tile_fft", "long_range_sep", "long_range_dense", "fourstep",
-        "sixstep", "fused"]
+        "sixstep", "fused", "matmul_funnel", "gpu_rows"]
     for k in cf.KERNELS:
         k.launches = 5
     cf.reset_launch_counts()
@@ -288,17 +288,24 @@ def test_launch_counts_cover_every_kernel():
     # CPU tensors take the plain versions, which count nothing
     cf.fft_pi_layout_cuda_fused(*_t(*_planes(18, 1 << 12)), tile=256)
     cf.fft_pi_layout_cuda2(*_t(*_planes(19, 1 << 12)), tile=256)
+    cf.fft_pi_layout_cuda_mf(*_t(*_planes(20, 1 << 14)))
+    from cs87project_msolano2_tpu_torch.hw.lowering import fft_rows_gpu
+
+    fft_rows_gpu(*_t(*_planes(21, (8, 256))))
     assert all(k.launches == 0 for k in cf.KERNELS)
 
 
 def test_only_mf_is_unported():
-    assert ladder.UNPORTED == ("mf",)
+    # mf is served since the matmul funnel's kernel: what stays unported
+    # is the any-length family, which waits for its own slice
+    assert ladder.UNPORTED == ("bluestein", "rader", "mixedradix")
     key = plans.make_key(1 << 20, device="cpu")
     for variant, params in (("fused", {"tile": 1 << 14, "qb": 2}),
                             ("fused-alias", {"tile": 1 << 14, "qb": 1}),
                             ("two-kernel", {"tile": 1 << 14, "cb": 32}),
                             ("fourstep", {"tile": 1 << 14,
-                                          "separable": False})):
+                                          "separable": False}),
+                            ("mf", {"R": 128})):
         assert callable(ladder.build_executor(key, variant, params))
 
 
