@@ -22,12 +22,18 @@ in every fp32-storage precision mode, on the tensor cores) and the
 4096 x 4096 and 64 x 2^18 on ``gpu-rows``, 2^20 on ``gpu-stages``, a
 race whose winner a second process reads back, and ``hw probe``) —
 checks the results against a complex128 oracle, and times every kernel
-and path with CUDA events.  Phase 3 also sets the card's persisting-L2
-set-aside to 0, times rql at N=2^20, and times it again after the first
-``fused`` launch has raised that set-aside; the card's own value is put
-back at exit.  Phases 1-7 run with ``PIFFT_PLAN_CACHE`` pointed at a fresh
-temporary directory, so no plan stored on the machine changes their
-paths.  The last line of standard output is
+and path with CUDA events.  Phase 3 also holds gpu_rows at every
+row regime and cluster size (2..16 blocks) and fused at every phase-B
+cluster width in both alias modes against their plain versions, and
+phase 7 times both by blocking.  Phase 3 also sets the card's
+persisting-L2 set-aside to 0, times rql at N=2^20, and times it again
+after the first ``fused`` launch has raised that set-aside; the card's
+own value is put back at exit.  Phases 1-7 run with
+``PIFFT_PLAN_CACHE`` pointed at a fresh temporary directory, so no plan
+stored on the machine changes their paths.  Phase 7 reads each kernel's
+time twice: CUDA events around the call (the wrapper's host time
+included, as a caller sees it) and the card's busy time per call from
+``torch.profiler`` (``device_ms``, the kernels alone).  The last line of standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
 
@@ -69,9 +75,14 @@ SWEEP = (20, 22, 24, 25)
 MF_BUDGETS = {"split3": 1e-5, "highest": 5e-6, "fp32": 5e-6,
               "default": 1e-2}
 #: (rows, n) of phase 3's gpu_rows checks: 2^24 points each, the
-#: configs' shapes 4096 x 4096 and 64 x 2^18 among them
+#: configs' shapes 4096 x 4096 and 64 x 2^18 among them, and every
+#: cluster size of the long rows (2, 4, 8, 16 blocks at 2^15 .. 2^18)
 GPU_ROWS_CHECKS = ((1 << 20, 16), (4096, 4096), (1024, 1 << 14),
-                   (256, 1 << 16), (64, 1 << 18))
+                   (512, 1 << 15), (256, 1 << 16), (128, 1 << 17),
+                   (64, 1 << 18))
+#: the fused kernel's phase-B cluster widths held against the plain
+#: version in phase 3 and timed in phase 7 (with qb 1 and 2)
+FUSED_CWS = (1, 2, 4, 8)
 #: kernel launches of one call of each 1-D plan variant
 VARIANT_LAUNCHES = {
     "fused": {"fused": 1}, "fused-alias": {"fused": 1},
@@ -297,7 +308,7 @@ def run(store) -> int:
                     set_aside["at_start_bytes"])
     cf.set_persisting_l2_set_aside(dev, 0)
     set_aside["before"] = rql_reading()
-    tf, Rf, qbf = cf.fused_blocking(R * T)
+    tf, Rf, qbf, cwf = cf.fused_blocking(R * T)
     labelf = f"fused({Rf},{tf})"
     fused_args = (x2r.reshape(Rf, tf), x2i.reshape(Rf, tf),
                   *device_factors(Rf, tf, dev), twr14, twi14)
@@ -306,6 +317,14 @@ def run(store) -> int:
                  lambda xr, xi, *a: cf.fused(xr.clone(), xi.clone(), *a,
                                              alias_io=True),
                  cf.fused_plain, fused_args)
+    # every phase-B cluster width, in both alias modes
+    for cw in FUSED_CWS:
+        for alias in (False, True):
+            check_kernel(f"fused({Rf},{tf}) cw={cw} alias={alias}",
+                         lambda xr, xi, *a, cw=cw, al=alias: cf.fused(
+                             xr.clone(), xi.clone(), *a, alias_io=al,
+                             cw=cw),
+                         cf.fused_plain, fused_args)
     set_aside["after"] = rql_reading()
     log(f"# phase 3 persisting-L2 set-aside at start "
         f"{set_aside['at_start_bytes']} bytes; set-aside and rql N=2^20 "
@@ -329,7 +348,7 @@ def run(store) -> int:
                  (xr22.reshape(s1, s2, t22), xi22.reshape(s1, s2, t22),
                   *dense_long_range_tables(s1, s2 * t22, dev),
                   *dense_long_range_tables(s2, t22, dev), twr14, twi14))
-    log(f"# phase 3 blocking: fused R={Rf} qb={qbf}; dense fourstep "
+    log(f"# phase 3 blocking: fused R={Rf} qb={qbf} cw={cwf}; dense fourstep "
         f"R={R22} cb={cb22}; dense sixstep R1={s1} R2={s2}; fused carry "
         f"limit {cf.fused_carry_limit(dev)} bytes of persisting L2")
     # the matmul funnel at the mf path's shape (R = 128, n = 2^20) in each
@@ -345,8 +364,13 @@ def run(store) -> int:
                      lambda *a, m=mode: cf.matmul_funnel_plain(
                          *a, precision=m), mf_args)
     # gpu_rows at every row regime: short rows many to a block, 2^14 in
-    # one block, 2^16 and 2^18 in two passes; automatic blocks and 8 rows
-    # a block where the block's shared memory holds them
+    # one block, 2^15 .. 2^18 on clusters of 2 .. 16 blocks; automatic
+    # blocks and 8 rows a block (or a cluster) where shared memory
+    # holds them
+    clusters = {n: cf.gpu_rows_max_clusters(dev, n)
+                for _, n in GPU_ROWS_CHECKS if n > cf.GPU_ROWS_SEGMENT}
+    log(f"# phase 3 gpu_rows clusters the card holds at once, by n: "
+        f"{clusters}")
     for rows, n in GPU_ROWS_CHECKS:
         xg = random_complex(rng, (rows, n), dev)
         stack = lowering.device_twiddle_stack(n, dev)
@@ -509,6 +533,27 @@ def run(store) -> int:
                        before=before)[0]
 
     timings = {}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, *args):
+        # the card's busy time per call from torch.profiler, L2 flushed
+        # before each call (the flush's fill kernel is not counted): the
+        # kernels alone, which the host's launch gaps do not move
+        for _ in range(3):
+            fn(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                flush.fill_(1)
+                fn(*args)
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    "Fill" not in ev.key:
+                dt = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if dt is None else dt
+        return us / 1e3 / REPS if us else None
 
     def kernel_row(label, kernel, plain, args, nbytes, flops, fft_flops,
                    lib, plain_reps=REPS, bf16_flops=0):
@@ -516,17 +561,19 @@ def run(store) -> int:
         # tensor-core ones (its bound); fft_flops: the repo's 5 n log2 n
         # convention for its levels (GFLOP/s)
         ms = timed(kernel, *args)
+        dev_ms = device_ms(kernel, *args)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0]
         lib_ms = timed(*lib) if lib is not None else None
         bms, by = bound_ms(nbytes, flops, bf16_flops)
-        timings[label] = {"ms": ms, "plain_ms": plain_ms,
+        timings[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                           "plain_reps": plain_reps,
                           "library_ms": lib_ms, "bytes": nbytes,
                           "bound_ms": bms, "bound_by": by,
                           "gflops": fft_flops / (ms * 1e-3) / 1e9}
-        log(f"# phase 7 {label}: {ms:.4f} ms "
-            f"({timings[label]['gflops']:.1f} GFLOP/s, plain "
+        log(f"# phase 7 {label}: {ms:.4f} ms (device "
+            f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms, "
+            f"{timings[label]['gflops']:.1f} GFLOP/s, plain "
             f"{plain_ms:.4f}, library "
             f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'}, "
             f"bound {bms:.4f} by {by}, {nbytes} bytes)")
@@ -569,6 +616,20 @@ def run(store) -> int:
                16 * nf + fac_bytes(Rf, tf) + 8 * (tf - 1),
                nf * (8 * lev_f + 5 * int(np.log2(tf))),
                5 * nf * int(np.log2(nf)), (torch.fft.fft, xcf))
+    # fused by phase-A block (qb) and phase-B cluster width (cw)
+    fused_by = {}
+    for qb in (1, 2):
+        for cw in FUSED_CWS:
+            run_f = (lambda *a, qb=qb, cw=cw: cf.fused(*a, qb=qb, cw=cw))
+            fused_by[f"qb={qb} cw={cw}"] = {
+                "ms": timed(run_f, *fused_args),
+                "device_ms": device_ms(run_f, *fused_args)}
+    timings["fused blocking"] = {"auto": {"qb": qbf, "cw": cwf},
+                                 "ms": fused_by}
+    log(f"# phase 7 fused({Rf},{tf}) by blocking (automatic qb={qbf} "
+        f"cw={cwf}), CUDA events / device: "
+        + ", ".join(f"{k}: {v['ms']:.4f} / {v['device_ms']:.4f} ms"
+                    for k, v in fused_by.items()))
 
     # fourstep at 2^24 and sixstep at 2^27: each element passes 8 flop
     # per long-range level (6 of them rebuilding the twiddle) and 5 per
@@ -637,10 +698,10 @@ def run(store) -> int:
 
     key_pi = plans.make_key(n2, layout="pi", device=dev)
     for variant, params, launches_per_call, plain in (
-            ("fused", {"tile": T, "qb": qbf}, 1,
+            ("fused", {"tile": T, "qb": qbf, "cw": cwf}, 1,
              lambda a, b: cf.fused_plain(a.reshape(R, T), b.reshape(R, T),
                                          *fac, twr14, twi14)),
-            ("fused-alias", {"tile": T, "qb": qbf}, 1, None),
+            ("fused-alias", {"tile": T, "qb": qbf, "cw": cwf}, 1, None),
             ("two-kernel", {"tile": T, "cb": cf.DEFAULT_CB}, 2,
              two_kernel_plain)):
         run = ladder.build_executor(key_pi, variant, params)
@@ -775,13 +836,15 @@ def run(store) -> int:
         for br in sorted({1, cf.gpu_rows_blocking(rows, n),
                           min(2048 // n, rows) or 1,
                           cf.MAX_SMEM_TILE // n}):
-            row[br] = timed(lambda *t, br=br: cf.gpu_rows(*t, block_rows=br),
-                            *a)
+            run_g = (lambda *t, br=br: cf.gpu_rows(*t, block_rows=br))
+            row[br] = {"ms": timed(run_g, *a),
+                       "device_ms": device_ms(run_g, *a)}
         blocking[f"{rows}x{n}"] = {"auto": cf.gpu_rows_blocking(rows, n),
                                    "ms_by_block_rows": row}
         log(f"# phase 7 gpu_rows({rows},{n}) by block_rows (automatic "
-            f"{cf.gpu_rows_blocking(rows, n)}): "
-            + ", ".join(f"{br}: {ms:.4f} ms" for br, ms in row.items()))
+            f"{cf.gpu_rows_blocking(rows, n)}), CUDA events / device: "
+            + ", ".join(f"{br}: {v['ms']:.4f} / {v['device_ms']:.4f} ms"
+                        for br, v in row.items()))
     timings["gpu_rows blocking"] = blocking
 
     # phase 7b: device time of one natural-order large-n fft by kernel,
@@ -1036,6 +1099,9 @@ def run(store) -> int:
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
+    log(f"# phase 7 gpu_rows(64,{1 << 18}) block_rows=None (the second "
+        f"gpu_rows shape): "
+        f"{timings[f'gpu_rows(64,{1 << 18}) block_rows=None']}")
     for name, label, source, replaces in (
             ("tile_fft", "tile_fft(4096,4096)", src + "tile_fft.cu",
              ref_src + "299"),
@@ -1057,7 +1123,8 @@ def run(store) -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": cases[label]["max_abs_err"],
             "rel_l2": cases[label]["rel_l2"], "shape": label,
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}

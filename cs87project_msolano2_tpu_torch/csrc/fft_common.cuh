@@ -10,9 +10,17 @@
 //
 // Every function is called by all threads of a block and ends with a
 // __syncthreads(), so the caller may use the block right after it.
+//
+// The second half of the file (from "Hopper building blocks") holds the
+// redesigned loop of gpu_rows.cu and fused.cu: radix-8/16 butterfly
+// groups in registers over a padded shared-memory layout, float4 block
+// copies, and a row spread over a thread-block cluster.  The first half
+// is left as it is, so tile_fft, long_range, fourstep, sixstep and mf
+// compile to the code they always did.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace pifft {
@@ -324,6 +332,447 @@ inline cudaError_t launch_cooperative(
   }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// --- Hopper building blocks: the register radix loop ------------------
+//
+// The loops above do one radix-2 level per __syncthreads(), each
+// butterfly four shared-memory reads and four writes, between a block
+// copy in and a block copy out.  The passes below load the 2^K points
+// of one butterfly group (K <= 4: radix 16) into registers, run K DIF
+// levels there with the same butterflies and the same table twiddles,
+// and write them back: one shared-memory pass and one __syncthreads()
+// per K levels.  The first pass of a row reads its points straight from
+// device memory and the last writes them straight back, so a 2^12-point
+// row is three passes (device -> registers -> shared, shared -> shared,
+// shared -> device) where the loops above made fourteen.  A group's
+// 2^(K-q-1) distinct level-q twiddles are read once each (through the
+// twiddle source) and shared by its 2^q butterfly pairs.
+//
+// The shared planes are PADDED: point i lives at pad_index(i) = i + i /
+// 32, one float of padding after every 32.  A group whose smallest half
+// s is under 32 points reads 2^K points a thread at stride s, and the
+// padding spreads a warp's accesses over the 32 banks (conflict free
+// for s = 1 and s >= 32, at most two-way between).
+
+__host__ __device__ constexpr int pad_index(int i) {
+  return i + (i >> 5);
+}
+
+// floats one padded plane of m points takes
+__host__ __device__ constexpr int padded_floats(int m) {
+  return m + (m >> 5);
+}
+
+template <Load kLoad>
+__device__ __forceinline__ float4 load_four(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  if (kLoad == Load::kCoherent) return __ldcg(q);
+  if (kLoad == Load::kStreaming) return __ldcs(q);
+  return *q;
+}
+
+template <Store kStore>
+__device__ __forceinline__ void store_four(float* p, float4 v) {
+  float4* q = reinterpret_cast<float4*>(p);
+  if (kStore == Store::kGlobal) {
+    __stcg(q, v);
+  } else if (kStore == Store::kStreaming) {
+    __stcs(q, v);
+  } else {
+    *q = v;
+  }
+}
+
+// K radix-2 DIF levels on the 2^K points (re, im) held in registers:
+// level q pairs (t, t + h), h = 2^(K-q-1), inside each group of 2h
+// points and multiplies the difference by the twiddle of its offset
+// jj = t mod h, held at slot tw_slot<K>(q, jj) of (wr, wi) — the
+// arithmetic of row_levels, butterfly for butterfly.  The twiddles are
+// loaded by the caller (all 2^K - 1 of a group before any butterfly, so
+// their loads overlap), and every index here is a constant once the
+// loops are unrolled: the points stay in registers.
+template <int K>
+__host__ __device__ constexpr int tw_slot(int q, int jj) {
+  return (1 << K) - (2 << (K - q - 1)) + jj;
+}
+
+template <int K>
+__device__ __forceinline__ void dif_registers(float (&re)[1 << K],
+                                              float (&im)[1 << K],
+                                              const float (&wr)[1 << K],
+                                              const float (&wi)[1 << K]) {
+  // both loops have constant trip counts, so they unroll fully and every
+  // index below folds to a constant
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+#pragma unroll
+    for (int b = 0; b < (1 << (K - 1)); ++b) {
+      const int lh = K - q - 1;  // log2 of the half
+      const int jj = b & ((1 << lh) - 1);
+      const int t = ((b >> lh) << (lh + 1)) + jj;
+      const int u = t + (1 << lh);
+      const float w_r = wr[tw_slot<K>(q, jj)], w_i = wi[tw_slot<K>(q, jj)];
+      const float ar = re[t], ai = im[t];
+      const float br = re[u], bi = im[u];
+      const float dr = ar - br, di = ai - bi;
+      re[t] = ar + br;
+      im[t] = ai + bi;
+      re[u] = dr * w_r - di * w_i;
+      im[u] = dr * w_i + di * w_r;
+    }
+  }
+}
+
+// One pass of K levels (level .. level + K - 1) over the 2^log2_n-point
+// rows of a block's 2^log2_total points, rows back to back, whose
+// smallest half is 2^s_log points.  Thread item idx owns the points
+// base + t * 2^s_log, t < 2^K; twiddles tw.row(level + q, j).  kIn reads
+// them from device memory at x + g0 (else from the padded planes), kOut
+// writes them to y + g0 (else back to the planes); 2^K >= 4 points that
+// lie side by side move as float4s (g0 is then a multiple of 4 and the
+// planes 16-byte aligned: the wrappers check).  Ends in __syncthreads().
+template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
+          class Twiddle>
+__device__ __forceinline__ void row_pass(float* sr, float* si,
+                                         const float* xr, const float* xi,
+                                         float* yr, float* yi, size_t g0,
+                                         int log2_total, int s_log,
+                                         int level, const Twiddle& tw) {
+  constexpr int P = 1 << K;
+  const int items = 1 << (log2_total - K);
+  const int smask = (1 << s_log) - 1;
+  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+    const int j0 = idx & smask;
+    const int base = ((idx >> s_log) << (s_log + K)) + j0;
+    float re[P], im[P];
+    bool done = false;
+    if constexpr (kIn && K >= 2) {
+      if (s_log == 0) {
+#pragma unroll
+        for (int v = 0; v < P; v += 4) {
+          const float4 a = load_four<kLoad>(xr + g0 + base + v);
+          const float4 b = load_four<kLoad>(xi + g0 + base + v);
+          re[v] = a.x; re[v + 1] = a.y; re[v + 2] = a.z; re[v + 3] = a.w;
+          im[v] = b.x; im[v + 1] = b.y; im[v + 2] = b.z; im[v + 3] = b.w;
+        }
+        done = true;
+      }
+    }
+    if (!done) {
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const int i = base + (t << s_log);
+        if constexpr (kIn) {
+          re[t] = load_one<kLoad>(xr + g0 + i);
+          im[t] = load_one<kLoad>(xi + g0 + i);
+        } else {
+          re[t] = sr[pad_index(i)];
+          im[t] = si[pad_index(i)];
+        }
+      }
+    }
+    // the group's twiddles, all loaded before any butterfly (constant
+    // trip counts, as in dif_registers, so the slots stay registers)
+    float wr[P], wi[P];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+#pragma unroll
+      for (int jj = 0; jj < (1 << (K - 1)); ++jj) {
+        if (jj < (1 << (K - q - 1))) {
+          tw.row(level + q, (jj << s_log) + j0, wr[tw_slot<K>(q, jj)],
+                 wi[tw_slot<K>(q, jj)]);
+        }
+      }
+    }
+    dif_registers<K>(re, im, wr, wi);
+    done = false;
+    if constexpr (kOut && K >= 2) {
+      if (s_log == 0) {
+#pragma unroll
+        for (int v = 0; v < P; v += 4) {
+          store_four<kStore>(yr + g0 + base + v,
+                             make_float4(re[v], re[v + 1], re[v + 2],
+                                         re[v + 3]));
+          store_four<kStore>(yi + g0 + base + v,
+                             make_float4(im[v], im[v + 1], im[v + 2],
+                                         im[v + 3]));
+        }
+        done = true;
+      }
+    }
+    if (!done) {
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const int i = base + (t << s_log);
+        if constexpr (kOut) {
+          store_one<kStore>(yr + g0 + i, re[t]);
+          store_one<kStore>(yi + g0 + i, im[t]);
+        } else {
+          sr[pad_index(i)] = re[t];
+          si[pad_index(i)] = im[t];
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The first pass of row_levels_radix: K levels, from device memory
+// (kIn) or the planes, into the planes, or straight to device memory
+// (kOut) when they are all the row has.
+template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
+          class Twiddle>
+__device__ __forceinline__ void row_first_pass(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t g0, int log2_total, int log2_n, int level,
+    const Twiddle& tw) {
+  if (K == log2_n) {
+    row_pass<K, kIn, kOut, kLoad, kStore>(sr, si, xr, xi, yr, yi, g0,
+                                          log2_total, 0, level, tw);
+  } else {
+    row_pass<K, kIn, false, kLoad, kStore>(sr, si, xr, xi, yr, yi, g0,
+                                           log2_total, log2_n - K, level,
+                                           tw);
+  }
+}
+
+// All log2_n DIF levels of every 2^log2_n-point row of a block's
+// 2^log2_total points, rows back to back, leaving each row in pi layout:
+// row_levels' arithmetic in passes of 4 levels, the first pass taking
+// the 1..4 left over.  The rows come from x + g0 (kIn) or the padded
+// planes (sr, si), and go to y + g0 (kOut) or back to the planes.
+// Level l's twiddles are tw.row(level + l, j): `level` > 0 runs the
+// trailing levels of a longer row whose 2^log2_n-point segment this is.
+template <bool kIn, bool kOut, Load kLoad, Store kStore, class Twiddle>
+__device__ __forceinline__ void row_levels_radix(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t g0, int log2_total, int log2_n, int level,
+    const Twiddle& tw) {
+  const int k1 = ((log2_n - 1) & 3) + 1;
+  switch (k1) {
+    case 1:
+      row_first_pass<1, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, g0, log2_total, log2_n, level, tw);
+      break;
+    case 2:
+      row_first_pass<2, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, g0, log2_total, log2_n, level, tw);
+      break;
+    case 3:
+      row_first_pass<3, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, g0, log2_total, log2_n, level, tw);
+      break;
+    default:
+      row_first_pass<4, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, g0, log2_total, log2_n, level, tw);
+      break;
+  }
+  for (int l = k1; l < log2_n; l += 4) {
+    const int s_log = log2_n - l - 4;
+    if (s_log == 0) {
+      row_pass<4, false, kOut, kLoad, kStore>(sr, si, xr, xi, yr, yi, g0,
+                                              log2_total, 0, level + l, tw);
+    } else {
+      row_pass<4, false, false, kLoad, kStore>(sr, si, xr, xi, yr, yi, g0,
+                                               log2_total, s_log, level + l,
+                                               tw);
+    }
+  }
+}
+
+// One pass of K long-range levels (l0 .. l0 + K - 1) on the R x cb
+// column block whose row r, column c lies at c0 + r * stride + c in
+// device memory and at pad_index(r * cb + c) in the planes: thread item
+// idx owns column c and the rows row0 + t * 2^s_log, s_log = log2_r - l0
+// - K.  Twiddles tw.at(l, R - (R >> l), j, c0 + c), as long_range_levels
+// reads them.  kIn / kOut as in row_pass (scalar copies: a warp reads
+// or writes 32 neighbouring columns of one row).  Ends in
+// __syncthreads().
+template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
+          class Twiddle>
+__device__ __forceinline__ void long_range_pass(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb, int l0,
+    const Twiddle& tw) {
+  const int R = 1 << log2_r;
+  const int s_log = log2_r - l0 - K;
+  const int items = 1 << (log2_r - K + log2_cb);
+  const int cmask = (1 << log2_cb) - 1;
+  const int smask = (1 << s_log) - 1;
+  for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
+    const int c = idx & cmask;
+    const int q = idx >> log2_cb;
+    const int j0 = q & smask;
+    const int row0 = ((q >> s_log) << (s_log + K)) + j0;
+    float re[1 << K], im[1 << K];
+#pragma unroll
+    for (int t = 0; t < (1 << K); ++t) {
+      const int r = row0 + (t << s_log);
+      if constexpr (kIn) {
+        const size_t g = c0 + static_cast<size_t>(r) * stride + c;
+        re[t] = load_one<kLoad>(xr + g);
+        im[t] = load_one<kLoad>(xi + g);
+      } else {
+        re[t] = sr[pad_index((r << log2_cb) | c)];
+        im[t] = si[pad_index((r << log2_cb) | c)];
+      }
+    }
+    float wr[1 << K], wi[1 << K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+#pragma unroll
+      for (int jj = 0; jj < (1 << (K - 1)); ++jj) {
+        if (jj < (1 << (K - q - 1))) {
+          const int l = l0 + q;
+          tw.at(l, R - (R >> l), (jj << s_log) + j0, c0 + c,
+                wr[tw_slot<K>(q, jj)], wi[tw_slot<K>(q, jj)]);
+        }
+      }
+    }
+    dif_registers<K>(re, im, wr, wi);
+#pragma unroll
+    for (int t = 0; t < (1 << K); ++t) {
+      const int r = row0 + (t << s_log);
+      if constexpr (kOut) {
+        const size_t g = c0 + static_cast<size_t>(r) * stride + c;
+        store_one<kStore>(yr + g, re[t]);
+        store_one<kStore>(yi + g, im[t]);
+      } else {
+        sr[pad_index((r << log2_cb) | c)] = re[t];
+        si[pad_index((r << log2_cb) | c)] = im[t];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <int K, Load kLoad, Store kStore, class Twiddle>
+__device__ __forceinline__ void long_range_first_pass(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    const Twiddle& tw) {
+  if (K == log2_r) {
+    long_range_pass<K, true, true, kLoad, kStore>(
+        sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, 0, tw);
+  } else {
+    long_range_pass<K, true, false, kLoad, kStore>(
+        sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, 0, tw);
+  }
+}
+
+// The first log2_r DIF levels of an (R, C) view on its R x cb column
+// block at column c0 (row stride `stride`), from x to y in device
+// memory through the padded planes: long_range_levels' arithmetic in
+// passes of 3 levels (radix 8: an R = 64, cb = 32 block gives 256 thread
+// items a pass), the first pass taking the 1..3 left over.
+template <Load kLoad, Store kStore, class Twiddle>
+__device__ __forceinline__ void long_range_levels_radix(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    const Twiddle& tw) {
+  const int k1 = (log2_r - 1) % 3 + 1;
+  switch (k1) {
+    case 1:
+      long_range_first_pass<1, kLoad, kStore>(sr, si, xr, xi, yr, yi, c0,
+                                              stride, log2_r, log2_cb, tw);
+      break;
+    case 2:
+      long_range_first_pass<2, kLoad, kStore>(sr, si, xr, xi, yr, yi, c0,
+                                              stride, log2_r, log2_cb, tw);
+      break;
+    default:
+      long_range_first_pass<3, kLoad, kStore>(sr, si, xr, xi, yr, yi, c0,
+                                              stride, log2_r, log2_cb, tw);
+      break;
+  }
+  for (int l = k1; l < log2_r; l += 3) {
+    if (l + 3 == log2_r) {
+      long_range_pass<3, false, true, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l, tw);
+    } else {
+      long_range_pass<3, false, false, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l, tw);
+    }
+  }
+}
+
+// --- Hopper building blocks: a row spread over a thread-block cluster --
+//
+// The 2^LOG2K * S-point row at x + row (S = 2^log2_seg >= 2^LOG2K) on the
+// 2^LOG2K blocks of a cluster, block rank r ending up with points
+// [r S, (r + 1) S) in its padded planes (sr, si) and writing them, in pi
+// layout, to y + row + r S.  The row's first LOG2K levels pair points S
+// apart or more, so they run across the cluster: block r takes columns
+// [r S / K, (r + 1) S / K) of the (K, S) view, reads each column's K
+// points from device memory into registers (16 / K columns at a time,
+// so each thread keeps 16 loads in flight), runs the levels there
+// (twiddles tw.row(q, j * S + c)) and writes point k of the column into
+// block k's planes through distributed shared memory.  The remaining
+// log2_seg levels are local to each block (row_levels_radix, twiddles
+// from level LOG2K on, the last pass to device memory).  The first
+// cluster.sync() comes before any block writes a remote buffer (every
+// block of the cluster is running and done with its planes' previous
+// row); the second after every remote write and before the local
+// levels, so no block touches another's buffer after it and a block may
+// go on to its next row or exit.
+template <int LOG2K, Load kLoad, Store kStore, class Twiddle>
+__device__ __forceinline__ void cluster_row_levels(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t row, int log2_seg, const Twiddle& tw) {
+  namespace cg = cooperative_groups;
+  constexpr int K = 1 << LOG2K;
+  // columns a thread takes at once: 16 points in flight whatever K is
+  constexpr int M = K >= 16 ? 1 : 16 / K;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cols = 1 << (log2_seg - LOG2K);
+  const int c_begin = rank * cols;
+  const int step = static_cast<int>(blockDim.x);
+  cluster.sync();
+  for (int c0 = c_begin + threadIdx.x; c0 < c_begin + cols; c0 += M * step) {
+    float re[M][K], im[M][K];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = c0 + m * step;
+      if (c < c_begin + cols) {
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          const size_t g = row + (static_cast<size_t>(t) << log2_seg) + c;
+          re[m][t] = load_one<kLoad>(xr + g);
+          im[m][t] = load_one<kLoad>(xi + g);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int c = c0 + m * step;
+      if (c < c_begin + cols) {
+        float wr[K], wi[K];
+#pragma unroll
+        for (int q = 0; q < LOG2K; ++q) {
+#pragma unroll
+          for (int jj = 0; jj < K / 2; ++jj) {
+            if (jj < (1 << (LOG2K - q - 1))) {
+              tw.row(q, (jj << log2_seg) + c, wr[tw_slot<LOG2K>(q, jj)],
+                     wi[tw_slot<LOG2K>(q, jj)]);
+            }
+          }
+        }
+        dif_registers<LOG2K>(re[m], im[m], wr, wi);
+        const int p = pad_index(c);
+#pragma unroll
+        for (int t = 0; t < K; ++t) {
+          cluster.map_shared_rank(sr, t)[p] = re[m][t];
+          cluster.map_shared_rank(si, t)[p] = im[m][t];
+        }
+      }
+    }
+  }
+  cluster.sync();
+  row_levels_radix<false, true, kLoad, kStore>(
+      sr, si, xr, xi, yr, yi, row + (static_cast<size_t>(rank) << log2_seg),
+      log2_seg, log2_seg, LOG2K, tw);
 }
 
 }  // namespace pifft

@@ -291,16 +291,41 @@ def sixstep_blocking(n: int, tile: int | None = None, r2: int | None = None,
 #: largest n the fused kernel serves: its 2n-float carry (8 MB at 2^20)
 #: must stay in the card's L2, as the reference's stayed in VMEM
 FUSED_MAX_N = 1 << 20
+#: columns of one qb unit of the fused phase-A block: a warp's width (the
+#: TPU's unit was its 128 lanes)
+FUSED_QB_COLS = 32
+#: phase-B cluster widths (blocks sharing one tile row) the fused kernel
+#: takes: 1 (a whole row in one block) up to Hopper's portable 8
+FUSED_CLUSTER_WIDTHS = (1, 2, 4, 8)
+#: the cluster width fused_blocking picks when none is named: 64 tile
+#: rows of 2^14 on 256 blocks of 4096 points at n = 2^20
+FUSED_AUTO_CW = 4
 
 
-def fused_blocking(n: int, tile: int | None = None, qb: int | None = None):
-    """Validated (tile, R, qb) for an n-point fused transform: phase A
-    runs R x (qb * 128)-column blocks, phase B tile rows, both in one
-    block's shared memory.  tile defaults to min(n, MAX_SMEM_TILE), qb
-    to the widest power of two whose block fits; R = 1 gives qb None
-    (one tile row).  Raises ValueError naming the limiting pair before
-    any launch: n above FUSED_MAX_N, or R x qb past the shared-memory
-    budget."""
+def padded_floats(m: int) -> int:
+    """Floats of one padded shared-memory plane of m points (one float
+    of padding after every 32, fft_common.cuh: padded_floats)."""
+    return m + (m >> 5)
+
+
+def fused_smem_bytes(R: int, cb: int, tile: int, cw: int) -> int:
+    """Dynamic shared memory of one fused block: the larger of the
+    padded R x cb phase-A block and the padded tile/cw phase-B segment,
+    re + im float32."""
+    return 8 * max(padded_floats(R * cb), padded_floats(tile // cw))
+
+
+def fused_blocking(n: int, tile: int | None = None, qb: int | None = None,
+                   cw: int | None = None):
+    """Validated (tile, R, qb, cw) for an n-point fused transform: phase
+    A runs R x (qb * FUSED_QB_COLS)-column blocks, phase B each tile row
+    on a cluster of cw blocks holding tile/cw points each.  tile
+    defaults to min(n, MAX_SMEM_TILE), qb to 1 (the narrowest block, the
+    most work items), cw to FUSED_AUTO_CW, halved until a segment holds
+    at least one 128-byte line; R = 1 gives qb and cw None (one tile
+    row, the tile kernel).  Raises ValueError naming the limiting pair
+    before any launch: n above FUSED_MAX_N, a qb or cw the kernel does
+    not take, or a block past the shared-memory budget."""
     if not is_power_of_two(n) or n > FUSED_MAX_N:
         raise ValueError(
             f"fused serves power-of-two n <= FUSED_MAX_N={FUSED_MAX_N} "
@@ -312,27 +337,37 @@ def fused_blocking(n: int, tile: int | None = None, qb: int | None = None):
         raise ValueError(f"tile={tile} must divide n={n}")
     R = n // tile
     if R < 2:
-        return tile, R, None
-    if tile % LANE:
-        raise ValueError(f"fused: tile={tile} must be a multiple of {LANE} "
-                         f"(qb counts {LANE}-column groups)")
-    Q = tile // LANE
+        return tile, R, None, None
+    if tile % FUSED_QB_COLS:
+        raise ValueError(f"fused: tile={tile} must be a multiple of "
+                         f"{FUSED_QB_COLS} (qb counts {FUSED_QB_COLS}-column "
+                         f"groups)")
+    Q = tile // FUSED_QB_COLS
     if qb is None:
-        qb = Q
-        while qb > 1 and fourstep_smem_bytes(R, qb * LANE, tile) \
-                > SMEM_LIMIT_BYTES:
-            qb //= 2
+        qb = 1
     if qb < 1 or not is_power_of_two(qb) or Q % qb:
         raise ValueError(f"qb={qb} must be a power of two dividing "
-                         f"tile/{LANE}={Q}")
-    need = fourstep_smem_bytes(R, qb * LANE, tile)
+                         f"tile/{FUSED_QB_COLS}={Q}")
+    if cw is None:
+        cw = FUSED_AUTO_CW
+        while cw > 1 and tile // cw < FUSED_QB_COLS:
+            cw //= 2
+    if cw not in FUSED_CLUSTER_WIDTHS:
+        raise ValueError(f"fused: cluster width cw={cw} must be one of "
+                         f"{FUSED_CLUSTER_WIDTHS} (Hopper's portable "
+                         f"cluster sizes)")
+    if tile // cw < FUSED_QB_COLS:
+        raise ValueError(f"fused: tile={tile} / cw={cw} leaves segments of "
+                         f"{tile // cw} points; each needs at least "
+                         f"{FUSED_QB_COLS} (one 128-byte line)")
+    need = fused_smem_bytes(R, qb * FUSED_QB_COLS, tile, cw)
     if need > SMEM_LIMIT_BYTES:
         raise ValueError(
-            f"fused blocks R={R} x qb={qb} ({qb * LANE} columns, "
-            f"tile={tile}) need {need} bytes of shared memory (limit "
-            f"{SMEM_LIMIT_BYTES}); reduce qb or use a larger tile so R "
-            f"shrinks")
-    return tile, R, qb
+            f"fused blocks R={R} x qb={qb} ({qb * FUSED_QB_COLS} columns, "
+            f"tile={tile}, cw={cw}) need {need} bytes of shared memory "
+            f"(limit {SMEM_LIMIT_BYTES}); reduce qb, raise cw or use a "
+            f"larger tile so R shrinks")
+    return tile, R, qb, cw
 
 
 def rows_plan_feasible(nrows: int, n: int) -> bool:
@@ -390,6 +425,23 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"{lib.pifft_cuda_error_name(err).decode()} "
                            f"({lib.pifft_cuda_error_string(err).decode()})")
+
+
+#: the float4 copies of gpu_rows and fused need 16-byte-aligned planes
+_VEC_BYTES = 16
+
+
+def _aligned(t):
+    """`t`, or a copy of it in fresh (aligned) memory where a view leaves
+    it off a 16-byte boundary."""
+    return t if t.data_ptr() % _VEC_BYTES == 0 else t.clone()
+
+
+def _check_aligned(name: str, *planes) -> None:
+    for t in planes:
+        if t.data_ptr() % _VEC_BYTES:
+            raise ValueError(f"{name}: planes written in place must be "
+                             f"{_VEC_BYTES}-byte aligned (16-byte copies)")
 
 
 # --- kernel 1: tile_fft -----------------------------------------------------
@@ -724,10 +776,17 @@ def _card_query(name: str, device) -> int:
     return got
 
 
+#: card index -> fused_carry_limit there (a property of the card)
+_CARRY_LIMIT: dict = {}
+
+
 def fused_carry_limit(device) -> int:
     """Bytes of carry the card at `device` can keep as persisting L2
     lines in one access-policy window (0 where it has none)."""
-    return _card_query("fused_carry_limit", device)
+    index = _card_index("fused_carry_limit", device)
+    if index not in _CARRY_LIMIT:
+        _CARRY_LIMIT[index] = _card_query("fused_carry_limit", device)
+    return _CARRY_LIMIT[index]
 
 
 def persisting_l2_set_aside(device) -> int:
@@ -766,15 +825,16 @@ def restore_persisting_l2() -> None:
 
 
 def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
-          alias_io: bool = False):
+          alias_io: bool = False, cw: int | None = None):
     """The whole pi-layout DIF of one n = R * tile <= FUSED_MAX_N
     transform held as (R, tile) float32 planes, in ONE launch whose
     carry stays in the card's L2: the log2(R) long-range levels in
-    R x (qb * 128) column blocks (factors of
+    R x (qb * FUSED_QB_COLS) column blocks (factors of
     ``twiddle.device_factors(R, tile)``), then the tile DIF of every row
-    (``twiddle.flat_tables(tile)``).  qb None takes the widest block
-    that fits (``fused_blocking``).  `alias_io` writes the result into
-    (xr, xi) themselves and returns them: the input planes are consumed.
+    (``twiddle.flat_tables(tile)``), each row on a cluster of cw blocks.
+    qb and cw None take ``fused_blocking``'s defaults.  `alias_io`
+    writes the result into (xr, xi) themselves and returns them: the
+    input planes are consumed, and must be 16-byte aligned.
     CUDA tensors launch the kernel (csrc/fused.cu) once, as one
     cooperative launch, after checking that the 2n-float carry fits the
     card's persisting L2 (``fused_carry_limit``); CPU tensors take
@@ -787,7 +847,7 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
     R, tile = xr.shape
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"fused: R={R} must be a power of two >= 2")
-    _, _, qb = fused_blocking(R * tile, tile, qb)
+    _, _, qb, cw = fused_blocking(R * tile, tile, qb, cw)
     _check_operands("fused", xr.device,
                     (ar, (R - 1,)), (ai, (R - 1,)),
                     (br, (ilog2(R), tile)), (bi, (ilog2(R), tile)),
@@ -812,12 +872,14 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
         _SET_ASIDE_BEFORE[index] = persisting_l2_set_aside(xr.device)
     carry = torch.empty(2 * R * tile, dtype=torch.float32, device=xr.device)
     if alias_io:
+        # the kernel writes y with 16-byte stores
+        _check_aligned("fused", xr, xi)
         yr, yi = xr, xi
     else:
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("fused", "pifft_fused", xr.device, xr, xi, yr, yi, carry,
             ar, ai, br, bi, twr, twi, ilog2(R), ilog2(tile),
-            ilog2(qb * LANE))
+            ilog2(qb * FUSED_QB_COLS), ilog2(cw))
     fused.launches += 1
     return yr, yi
 
@@ -944,21 +1006,33 @@ matmul_funnel.launches = 0
 #: longest row the gpu-rows kernel serves (the reference's bound,
 #: hw/lowering.py:44)
 GPU_ROWS_MAX_N = 1 << 18
-#: points of one automatic gpu-rows block of short rows (512 threads):
-#: the fastest of 1, 64, 128 and 1024 rows of 16 points and of 1 and 4
-#: rows of 4096 on an H100 SXM (chip_smoke.py phase 7, PERF.md)
+#: points of one automatic gpu-rows block of short rows (64 threads of
+#: 16 points): the fastest of 1, 64, 128 and 1024 rows of 16 points and
+#: of 1 and 4 rows of 4096 on an H100 SXM (chip_smoke.py phase 7,
+#: PERF.md)
 GPU_ROWS_AUTO_POINTS = 1 << 10
+#: rows longer than this go on a thread-block cluster of n / 2^14 blocks
+GPU_ROWS_SEGMENT = MAX_SMEM_TILE
+
+
+def gpu_rows_cluster_size(n: int) -> int:
+    """Blocks of the cluster that holds one n-point gpu-rows row: 1 for
+    rows one block holds (n <= GPU_ROWS_SEGMENT), n / GPU_ROWS_SEGMENT
+    (2, 4, 8 or 16) above."""
+    return max(n // GPU_ROWS_SEGMENT, 1)
 
 
 def gpu_rows_blocking(rows: int, n: int, block_rows: int | None = None):
     """Validated rows per block for the gpu-rows kernel on (rows, n)
     planes.  n is a power of two in [2, GPU_ROWS_MAX_N]; block_rows a
-    power of two dividing rows.  Rows of up to MAX_SMEM_TILE points are
-    staged block_rows at a time, so block_rows * n must fit one block's
-    shared memory; a block runs longer rows one after the other.
-    block_rows None takes the largest power of two dividing rows whose
-    block holds at most GPU_ROWS_AUTO_POINTS points (1 for long rows).
-    Raises ValueError naming the limiting pair before any launch."""
+    power of two dividing rows.  Rows of up to GPU_ROWS_SEGMENT points
+    are staged block_rows at a time, so block_rows * n must fit one
+    block's shared memory; a longer row runs on a cluster of
+    ``gpu_rows_cluster_size(n)`` blocks, which walks block_rows rows one
+    after the other.  block_rows None takes the largest power of two
+    dividing rows whose block holds at most GPU_ROWS_AUTO_POINTS points
+    (1 for long rows).  Raises ValueError naming the limiting pair
+    before any launch."""
     if n < 2 or not is_power_of_two(n) or n > GPU_ROWS_MAX_N:
         raise ValueError(f"gpu-rows requires a power-of-two 2 <= n <= "
                          f"{GPU_ROWS_MAX_N}, got n={n}")
@@ -973,17 +1047,37 @@ def gpu_rows_blocking(rows: int, n: int, block_rows: int | None = None):
             rows % block_rows:
         raise ValueError(f"block_rows={block_rows} must be a power of two "
                          f"dividing rows={rows}")
-    if n <= MAX_SMEM_TILE and \
-            tile_smem_bytes(block_rows * n) > SMEM_LIMIT_BYTES:
+    if n <= GPU_ROWS_SEGMENT and \
+            8 * padded_floats(block_rows * n) > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"gpu-rows blocks of block_rows={block_rows} x n={n} need "
-            f"{tile_smem_bytes(block_rows * n)} bytes of shared memory "
+            f"{8 * padded_floats(block_rows * n)} bytes of shared memory "
             f"(limit {SMEM_LIMIT_BYTES}); block_rows * n may be at most "
             f"{MAX_SMEM_TILE}")
-    if rows // block_rows > _MAX_BLOCKS:
-        raise ValueError(f"gpu-rows: {rows // block_rows} blocks exceed "
-                         f"the grid limit")
+    blocks = rows // block_rows * gpu_rows_cluster_size(n)
+    if blocks > _MAX_BLOCKS:
+        raise ValueError(f"gpu-rows: {blocks} blocks exceed the grid "
+                         f"limit")
     return block_rows
+
+
+#: (card index, n) -> clusters of n's long-row kernel the card holds
+_GPU_ROWS_CLUSTERS: dict = {}
+
+
+def gpu_rows_max_clusters(device, n: int) -> int:
+    """How many clusters of the long-row gpu-rows kernel for n-point rows
+    (GPU_ROWS_SEGMENT < n <= GPU_ROWS_MAX_N) the card at `device` holds
+    at once (cudaOccupancyMaxActiveClusters); 0 where it holds none."""
+    index = _card_index("gpu_rows_max_clusters", device)
+    if (index, n) not in _GPU_ROWS_CLUSTERS:
+        from ..utils.buildlib import load_kernels
+
+        got = load_kernels().pifft_gpu_rows_max_clusters(ilog2(n), index)
+        if got < 0:
+            raise RuntimeError(f"gpu_rows_max_clusters: CUDA error {-got}")
+        _GPU_ROWS_CLUSTERS[index, n] = got
+    return _GPU_ROWS_CLUSTERS[index, n]
 
 
 def gpu_rows_plain(xr, xi, twr, twi):
@@ -1009,9 +1103,12 @@ def gpu_rows_plain(xr, xi, twr, twi):
 def gpu_rows(xr, xi, twr, twi, block_rows: int | None = None):
     """pi-layout DIF of each row of (rows, n) float32 planes, 2 <= n <=
     GPU_ROWS_MAX_N, twiddles from the (log2 n, n/2) stack (twr, twi) of
-    ``hw.lowering.twiddle_stack(n)``.  `block_rows` rows share a block
-    (``gpu_rows_blocking``).  CUDA tensors launch the kernel
-    (csrc/gpu_rows.cu) once; CPU tensors take ``gpu_rows_plain``.
+    ``hw.lowering.twiddle_stack(n)``.  `block_rows` rows share a block,
+    or a cluster for rows past GPU_ROWS_SEGMENT (``gpu_rows_blocking``).
+    CUDA tensors launch the kernel (csrc/gpu_rows.cu) once, after
+    checking that the card holds a cluster where the rows need one
+    (``gpu_rows_max_clusters``; ValueError naming n and K if not); CPU
+    tensors take ``gpu_rows_plain``.
     Returns new (rows, n) planes."""
     _check_planes(xr, xi, 2, "gpu_rows")
     rows, n = xr.shape
@@ -1020,6 +1117,13 @@ def gpu_rows(xr, xi, twr, twi, block_rows: int | None = None):
     _check_operands("gpu_rows", xr.device, (twr, stack), (twi, stack))
     if xr.device.type == "cpu":
         return gpu_rows_plain(xr, xi, twr, twi)
+    K = gpu_rows_cluster_size(n)
+    if K > 1 and gpu_rows_max_clusters(xr.device, n) < 1:
+        raise ValueError(
+            f"gpu-rows: this card cannot hold a cluster of K={K} blocks of "
+            f"{8 * padded_floats(GPU_ROWS_SEGMENT)} bytes of shared memory, "
+            f"which an n={n} row needs")
+    xr, xi = _aligned(xr), _aligned(xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if rows:
         _launch("gpu_rows", "pifft_gpu_rows", xr.device, xr, xi, yr, yi,
@@ -1097,15 +1201,16 @@ def _one_transform(xr, xi, name: str) -> int:
 
 
 def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
-                             qb: int | None = None, alias_io: bool = False):
+                             qb: int | None = None, alias_io: bool = False,
+                             cw: int | None = None):
     """pi-layout n-point DIF of (n,) float32 planes, n <= FUSED_MAX_N,
     in ONE launch of the fused kernel, its carry in L2 (the reference's
     fft_pi_layout_pallas_fused, pallas_fft.py:902).  `alias_io` writes
     the result over the input planes (consumed, and returned reshaped).
     R = n/tile < 2 takes the tile kernel, as the reference does.
-    Validates tile/qb before any launch."""
+    Validates tile/qb/cw before any launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fused")
-    tile, R, qb = fused_blocking(n, tile, qb)
+    tile, R, qb, cw = fused_blocking(n, tile, qb, cw)
     dev = xr.device
     xr = xr.contiguous().reshape(R, tile)
     xi = xi.contiguous().reshape(R, tile)
@@ -1114,7 +1219,7 @@ def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
         yr, yi = tile_fft(xr, xi, twr, twi)
     else:
         yr, yi = fused(xr, xi, *device_factors(R, tile, dev), twr, twi, qb,
-                       alias_io)
+                       alias_io, cw)
     return yr.reshape(n), yi.reshape(n)
 
 

@@ -48,7 +48,10 @@ matmul tail, so every race entry the reference doubled along its tail
 axis is raced once here.  Parameters keep the reference's names and
 take Hopper-legal values: tile at most MAX_SMEM_TILE = 2^14 (the
 reference's 2^16 halves to 2^14, its 2^15 to 2^13), ``qb`` counts
-128-column groups of the fused kernel's phase-A block, ``cb`` columns.
+32-column groups of the fused kernel's phase-A block (the reference's
+counted 128-lane groups), ``cb`` columns; the fused kernel's ``cw``
+(blocks of the cluster sharing one tile row, 1 to 8) has no reference
+counterpart and defaults to ``cuda_fft.FUSED_AUTO_CW``.
 """
 
 from __future__ import annotations
@@ -91,10 +94,11 @@ _HALF_TILE = MAX_SMEM_TILE >> 1
 
 # The flagship race below FOURSTEP_MIN_N, in the reference's order
 # (ladder.py:77-86): fused, fused-alias twice, rql three times,
-# two-kernel.  The fused entries take qb = 2 (a 64 x 256 phase-A block
-# at n = 2^20, 128 KB like the 2^14 tile row) and qb = 1; the
-# reference's third entry doubles qb, which at n = 2^20 would overflow
-# a block's shared memory, so here it halves it.  The rql entries are
+# two-kernel.  The fused entries take qb = 2 (a 64 x 64 phase-A block at
+# n = 2^20) and qb = 1 (64 x 32, 512 work items), each tile row on the
+# default cluster (fused_blocking); the reference's third entry doubles
+# qb, here it halves it, as it had to when qb counted 128 columns and
+# a doubled block overflowed shared memory.  The rql entries are
 # the reference's tile/cb pattern at Hopper sizes (cb halved, then the
 # tile halved); its fourth rql entry differed from the first only in
 # tail and is raced once.  two-kernel takes the rql column block.
@@ -329,12 +333,13 @@ def build_executor(key: PlanKey, variant: str, params: dict):
             return compose(xr, xi, tile, cb)
     elif variant in ("fused", "fused-alias"):
         qb = params.get("qb")
-        fused_blocking(key.n, tile, qb)
+        cw = params.get("cw")
+        fused_blocking(key.n, tile, qb, cw)
         alias_io = variant == "fused-alias"
 
         def run(xr, xi):
             return cuda_fft.fft_pi_layout_cuda_fused(xr, xi, tile, qb,
-                                                     alias_io)
+                                                     alias_io, cw)
     elif variant == "mf":
         R = params.get("R", cuda_fft.LANE)
         cb = params.get("cb")

@@ -187,6 +187,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr,             # ar, ai, br, bi
         ptr, ptr,                       # twr, twi
         c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(cluster width)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_matmul_funnel.restype = c.c_int
@@ -205,6 +206,8 @@ def load_kernels() -> ctypes.CDLL:
         c.c_int,                        # log2(block_rows)
         c.c_int, ptr,                   # device, stream
     ]
+    lib.pifft_gpu_rows_max_clusters.restype = c.c_longlong
+    lib.pifft_gpu_rows_max_clusters.argtypes = [c.c_int, c.c_int]
     lib.pifft_fused_carry_limit.restype = c.c_longlong
     lib.pifft_fused_carry_limit.argtypes = [c.c_int]
     lib.pifft_persisting_l2_set_aside.restype = c.c_longlong

@@ -10,9 +10,10 @@ sixstep's two, the rql intermediate) moves one more full round trip, so
 a path with ``p`` plan-declared carry passes can reach at most
 ``1/(1+p)`` of the bound:
 
-    carry-free (rows, gpu-rows n <= 2^14)  ceiling 1.0
-    one carry  (fourstep, rql, mf,         ceiling 0.5
-                gpu-rows n > 2^14)
+    carry-free (rows, fused, gpu-rows      ceiling 1.0
+                to 2^18: long rows on a
+                cluster never leave the chip)
+    one carry  (fourstep, rql, mf)         ceiling 0.5
     two carries (sixstep, n >= 2^25)       ceiling 1/3
 
 Peaks are keyed on the CUDA device name (``torch.cuda.get_device_name``)
@@ -98,17 +99,17 @@ def peak_bf16_flops(device_name: str) -> Optional[float]:
 def plan_carry_passes(variant: str, n: Optional[int] = None) -> Optional[int]:
     """Plan-declared carry passes for a ladder variant, or None for
     paths this model does not cover (the stage paths).  ``gpu-rows``
-    depends on the row length n: 0 for rows that fit one block's shared
-    memory (``cuda_fft.MAX_SMEM_TILE``), 1 above (its kernel writes a
-    long row's leading levels to device memory and reads it back for the
-    rest); None without n.  The reference leaves its gpu rows out of
-    PLAN_CARRY_PASSES."""
+    charges 0 for every row it serves (up to GPU_ROWS_MAX_N points): a
+    row one block cannot hold runs on a thread-block cluster that keeps
+    it in distributed shared memory, so it moves through device memory
+    once each way; None without n, or past GPU_ROWS_MAX_N.  The
+    reference leaves its gpu rows out of PLAN_CARRY_PASSES."""
     if variant == "gpu-rows":
-        if n is None:
-            return None
-        from ..ops.cuda_fft import MAX_SMEM_TILE
+        from ..ops.cuda_fft import GPU_ROWS_MAX_N
 
-        return int(n > MAX_SMEM_TILE)
+        if n is None or n > GPU_ROWS_MAX_N:
+            return None
+        return 0
     return PLAN_CARRY_PASSES.get(variant)
 
 

@@ -175,7 +175,9 @@ def test_dense_sixstep_kernel_vs_plain(cuda_device, R1, R2, tile):
 
 @pytest.mark.parametrize("alias_io", [False, True])
 @pytest.mark.parametrize("R,tile,qb", [(64, 1 << 14, 2), (64, 1 << 14, 1),
-                                       (8, 1 << 14, 16), (4, 256, 2)])
+                                       (8, 1 << 14, 16), (4, 256, 2),
+                                       (2, 1 << 14, None),
+                                       (256, 1 << 12, None)])
 def test_fused_kernel_vs_plain(cuda_device, R, tile, qb, alias_io):
     xr, xi = _planes(41, (R, tile), cuda_device)
     ops = (*twiddle.device_factors(R, tile, cuda_device),
@@ -308,9 +310,12 @@ def test_mf_path_on_card_vs_numpy(cuda_device, mode):
 
 
 @pytest.mark.parametrize("rows,n,block_rows", [
-    (8, 2, None), (8, 2, 8), (8, 1 << 10, None), (8, 1 << 10, 8),
-    (4, 1 << 14, None), (4, 1 << 15, None), (4, 1 << 15, 2),
-    (2, 1 << 18, None)])
+    (8, 2, None), (8, 2, 8), (8, 1 << 4, None), (8, 1 << 4, 2),
+    (8, 1 << 10, None), (8, 1 << 10, 8),
+    (4, 1 << 14, None), (4, 1 << 14, 1), (4, 1 << 15, None),
+    (4, 1 << 15, 2), (4, 1 << 16, None), (4, 1 << 16, 4),
+    (2, 1 << 17, None), (2, 1 << 17, 2), (2, 1 << 18, None),
+    (4, 1 << 18, 2)])
 def test_gpu_rows_kernel_vs_plain(cuda_device, rows, n, block_rows):
     from cs87project_msolano2_tpu_torch.hw import lowering
 
@@ -338,3 +343,29 @@ def test_gpu_backend_plan_on_card_vs_numpy(cuda_device, shape):
     assert cf.gpu_rows.launches == before + 1
     ref = np.fft.fft(x.astype(np.complex128), axis=-1)
     assert rel_err(yr, yi, ref.real, ref.imag) <= SPLIT3_TOL
+
+
+@pytest.mark.parametrize("alias_io", [False, True])
+@pytest.mark.parametrize("R,tile,qb,cw", [
+    (64, 1 << 14, 1, 1), (64, 1 << 14, 1, 2), (64, 1 << 14, 2, 4),
+    (64, 1 << 14, 4, 8), (16, 1 << 10, 1, 8), (2, 1 << 12, 2, 4),
+    (128, 1 << 13, 1, 2)])
+def test_fused_cluster_widths_vs_plain(cuda_device, R, tile, qb, cw,
+                                       alias_io):
+    xr, xi = _planes(44, (R, tile), cuda_device)
+    ops = (*twiddle.device_factors(R, tile, cuda_device),
+           *twiddle.flat_tables(tile, cuda_device))
+    yp = cf.fused_plain(xr, xi, *ops)
+    before = cf.fused.launches
+    yk = cf.fused(xr.clone(), xi.clone(), *ops, qb=qb, alias_io=alias_io,
+                  cw=cw)
+    torch.cuda.synchronize()
+    assert cf.fused.launches == before + 1
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17, 1 << 18])
+def test_gpu_rows_card_holds_every_cluster(cuda_device, n):
+    # the long-row design needs a cluster of n / 2^14 blocks of 132 KB;
+    # the wrapper raises where the card holds none
+    assert cf.gpu_rows_max_clusters(cuda_device, n) >= 1

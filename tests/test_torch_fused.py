@@ -172,28 +172,59 @@ def test_fused_alias_writes_over_the_input_planes():
 def test_fused_single_row_takes_the_tile_kernel():
     n = 1 << 10
     xr, xi = _planes(16, n)
-    assert cf.fused_blocking(n) == (n, 1, None)
+    assert cf.fused_blocking(n) == (n, 1, None, None)
     yr, yi = cf.fft_pi_layout_cuda_fused(*_t(xr, xi))
     exact = _numpy_pi(xr, xi)
     assert rel_err(yr, yi, exact.real, exact.imag) <= SPLIT3_TOL
 
 
 def test_fused_blocking_on_hopper():
-    # the headline n: 64 rows of 2^14; qb = 2 is a 64 x 256 block
-    # (128 KB, like the tile row), qb = 4 would need 256 KB
-    assert cf.fused_blocking(1 << 20) == (1 << 14, 64, 2)
-    assert cf.fused_blocking(1 << 17) == (1 << 14, 8, 16)
-    assert cf.fused_blocking(1 << 20, 1 << 13) == (1 << 13, 128, 1)
-    with pytest.raises(ValueError, match=r"R=64 x qb=4 .*limit 232448"):
-        cf.fused_blocking(1 << 20, qb=4)
+    # the headline n: 64 rows of 2^14; qb counts 32-column groups, so the
+    # default phase-A block is 64 x 32 (512 work items), and each tile
+    # row goes on a cluster of 4 blocks of 4096 points (256 blocks)
+    assert cf.fused_blocking(1 << 20) == (1 << 14, 64, 1, 4)
+    assert cf.fused_blocking(1 << 20, qb=2) == (1 << 14, 64, 2, 4)
+    assert cf.fused_blocking(1 << 17) == (1 << 14, 8, 1, 4)
+    assert cf.fused_blocking(1 << 20, 1 << 13) == (1 << 13, 128, 1, 4)
+    assert cf.fused_blocking(1 << 20, 1 << 12, cw=1) == (1 << 12, 256, 1, 1)
+    # a 64 x 8192 block needs 4.3 MB, past the block's 227 KB
+    with pytest.raises(ValueError, match=r"R=64 x qb=256 .*limit 232448"):
+        cf.fused_blocking(1 << 20, qb=256)
     with pytest.raises(ValueError, match="FUSED_MAX_N"):
         cf.fused_blocking(1 << 21)
     with pytest.raises(ValueError, match="qb=3 must be a power of two"):
         cf.fused_blocking(1 << 20, qb=3)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        cf.fused_blocking(1 << 10, tile=64)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cf.fused_blocking(1 << 10, tile=16)
     with pytest.raises(ValueError, match="limit 232448"):
         cf.fused_blocking(1 << 20, tile=1 << 15)
+
+
+@pytest.mark.parametrize("n,tile,cw,want", [
+    (1 << 20, 1 << 14, None, 4),   # the default cluster width
+    (1 << 20, 1 << 14, 1, 1),      # a whole tile row in one block
+    (1 << 20, 1 << 14, 8, 8),      # Hopper's portable cluster size
+    (1 << 12, 1 << 7, None, 4),    # 128-point rows: 32-point segments
+    (1 << 11, 1 << 6, None, 2),    # 64-point rows: halved to keep 32
+    (1 << 10, 1 << 5, None, 1)])   # 32-point rows: one block a row
+def test_fused_cluster_width_choice(n, tile, cw, want):
+    assert cf.fused_blocking(n, tile, cw=cw)[3] == want
+    # the plain version ignores where rows live: equal for every cw
+    xr, xi = _t(*_planes(n + 7, n))
+    got = cf.fft_pi_layout_cuda_fused(xr, xi, tile=tile, cw=cw)
+    base = cf.fft_pi_layout_cuda_fused(xr, xi, tile=tile, cw=1)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"cw": 16}, r"cw=16 must be one of \(1, 2, 4, 8\)"),
+    ({"cw": 3}, r"cw=3 must be one of"),
+    ({"tile": 1 << 7, "cw": 8}, r"tile=128 / cw=8 leaves segments of 16 "
+                                r"points"),
+    ({"qb": 1024}, r"qb=1024 must be a power of two dividing tile/32=512")])
+def test_fused_blocking_names_the_limiting_pair(kw, match):
+    with pytest.raises(ValueError, match=match):
+        cf.fused_blocking(1 << 20, **kw)
 
 
 def test_fused_rejects_bad_operands():

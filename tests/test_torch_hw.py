@@ -98,9 +98,9 @@ def test_fft_rows_gpu_plain_vs_reference(n, rows, block_rows):
     assert torch.equal(kr, yr) and torch.equal(ki, yi)
 
 
-def test_fft_rows_gpu_plain_vs_numpy_long_rows():
-    # 2^17: a row the kernel runs in two passes over device memory
-    n = 1 << 17
+@pytest.mark.parametrize("n", [1 << 15, 1 << 17])
+def test_fft_rows_gpu_plain_vs_numpy_long_rows(n):
+    # rows the kernel runs on a cluster of 2 and 8 blocks
     xr, xi = _planes(61, (2, n))
     yr, yi = lowering.fft_rows_gpu_plain(*_t(xr, xi))
     exact = np.fft.fft(xr.astype(np.complex128) + 1j * xi, axis=-1)
@@ -136,6 +136,35 @@ def test_gpu_rows_blocking():
     for n in (1, 3, 1 << 19):
         with pytest.raises(ValueError, match="power-of-two 2 <= n"):
             cf.gpu_rows_blocking(1, n)
+
+
+@pytest.mark.parametrize("n,K", [(2, 1), (1 << 14, 1), (1 << 15, 2),
+                                 (1 << 16, 4), (1 << 17, 8), (1 << 18, 16)])
+def test_gpu_rows_cluster_choice(n, K):
+    # rows one block holds run alone; a longer row goes on a cluster of
+    # one 2^14-point segment a block, which walks block_rows rows
+    assert cf.gpu_rows_cluster_size(n) == K
+    assert cf.gpu_rows_blocking(64, n) == (1 if K > 1 else
+                                           min(64, max(1024 // n, 1)))
+    if K > 1:
+        assert cf.gpu_rows_blocking(64, n, 4) == 4
+        with pytest.raises(ValueError, match="dividing rows=6"):
+            cf.gpu_rows_blocking(6, n, 4)
+
+
+def test_gpu_rows_refuses_a_card_without_the_cluster(monkeypatch):
+    # a card that holds no cluster of K blocks refuses before launch,
+    # naming n and K; nothing else runs in the kernel's place ("meta"
+    # tensors stand for planes on a card: no data, no CPU fallback)
+    n = 1 << 18
+    monkeypatch.setattr(cf, "gpu_rows_max_clusters", lambda device, n: 0)
+    meta = torch.device("meta")
+    xr, xi = torch.empty(2, n, device=meta), torch.empty(2, n, device=meta)
+    stack = [torch.empty(18, n // 2, device=meta) for _ in range(2)]
+    before = cf.gpu_rows.launches
+    with pytest.raises(ValueError, match=r"cluster of K=16 .*n=262144"):
+        cf.gpu_rows(xr, xi, *stack)
+    assert cf.gpu_rows.launches == before
 
 
 def test_gpu_rows_checks_its_stack():
@@ -374,10 +403,15 @@ def test_cli_hw_probe(capsys):
 
 
 def test_roofline_charges_gpu_rows_by_row_length():
+    # rows one block holds, and long rows on a cluster (2^15..2^18),
+    # cross device memory once each way: no carry pass, ceiling 1
     assert roofline.plan_carry_passes("gpu-rows", 1 << 14) == 0
     assert roofline.plan_carry_passes("gpu-rows", 4096) == 0
-    assert roofline.plan_carry_passes("gpu-rows", 1 << 15) == 1
-    assert roofline.plan_carry_passes("gpu-rows", 1 << 18) == 1
+    assert roofline.plan_carry_passes("gpu-rows", 1 << 15) == 0
+    assert roofline.plan_carry_passes("gpu-rows", 1 << 18) == 0
+    assert roofline.roofline_ceiling(
+        roofline.plan_carry_passes("gpu-rows", 1 << 18)) == 1.0
+    assert roofline.plan_carry_passes("gpu-rows", 1 << 19) is None
     assert roofline.plan_carry_passes("gpu-rows") is None
     assert roofline.plan_carry_passes("mf") == 1
     assert roofline.plan_carry_passes("gpu-stages") is None
