@@ -12,11 +12,11 @@
 // __syncthreads(), so the caller may use the block right after it.
 //
 // The second half of the file (from "Hopper building blocks") holds the
-// redesigned loop of gpu_rows.cu and fused.cu: radix-8/16 butterfly
-// groups in registers over a padded shared-memory layout, float4 block
-// copies, and a row spread over a thread-block cluster.  The first half
-// is left as it is, so tile_fft, long_range, fourstep, sixstep and mf
-// compile to the code they always did.
+// redesigned loop of gpu_rows.cu, fused.cu, tile_fft.cu and sixstep.cu:
+// radix-8/16 butterfly groups in registers over a padded shared-memory
+// layout, float4 block copies, and a row spread over a thread-block
+// cluster.  The first half is left as it is, so long_range, fourstep
+// and mf compile to the code they always did.
 
 #pragma once
 
@@ -773,6 +773,34 @@ __device__ __forceinline__ void cluster_row_levels(
   row_levels_radix<false, true, kLoad, kStore>(
       sr, si, xr, xi, yr, yi, row + (static_cast<size_t>(rank) << log2_seg),
       log2_seg, log2_seg, LOG2K, tw);
+}
+
+// --- Host set-up done once per card -----------------------------------
+//
+// Opting a kernel into more than the default 48 KB of dynamic shared
+// memory is a host call that every launch used to repeat.  The kernels
+// redesigned for Hopper keep what they have set per card, so a launch
+// does it once per card and size, and a launch captured into a CUDA
+// graph is the launch alone.
+
+constexpr int kMaxCards = 64;
+constexpr int kDefaultSmemBytes = 48 * 1024;
+
+// The largest dynamic shared memory each card has opted a kernel into
+// (0: none yet); one per kernel, held in a static by its launcher.
+struct SmemOptIn {
+  int bytes[kMaxCards] = {};
+};
+
+inline cudaError_t opt_in_smem(const void* kernel, int smem, int device,
+                               SmemOptIn& done) {
+  if (smem <= kDefaultSmemBytes) return cudaSuccess;
+  const bool tracked = device >= 0 && device < kMaxCards;
+  if (tracked && done.bytes[device] >= smem) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && tracked) done.bytes[device] = smem;
+  return err;
 }
 
 }  // namespace pifft

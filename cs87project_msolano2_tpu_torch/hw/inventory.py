@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -90,6 +91,40 @@ def _card_count() -> int:
         return 0
 
 
+@functools.lru_cache(maxsize=None)
+def _card_properties(index: int):
+    import torch
+
+    return torch.cuda.get_device_properties(index)
+
+
+def _card_index(device) -> Optional[int]:
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+def l2_bytes(device) -> Optional[int]:
+    """The L2 size in bytes of the card at `device` (read once per
+    card); None for a CPU device.  The race's timer sizes its cold-L2
+    rotation by it (``utils.timing.rotation_copies``)."""
+    index = _card_index(device)
+    return None if index is None else _card_properties(index).L2_cache_size
+
+
+def sm_count(device) -> Optional[int]:
+    """The SM count of the card at `device` (read once per card); None
+    for a CPU device.  The tile kernel picks its cluster width by it
+    (``ops.cuda_fft.tile_blocking``)."""
+    index = _card_index(device)
+    return None if index is None \
+        else _card_properties(index).multi_processor_count
+
+
 def _persisting_l2_max(index: int) -> Optional[int]:
     """The card's persisting-L2 window limit from the kernel library
     (built at first use), or None where it cannot be built or asked."""
@@ -116,7 +151,7 @@ def probe(index: int = 0) -> DeviceInventory:
         import torch
 
         try:
-            props = torch.cuda.get_device_properties(index)
+            props = _card_properties(index)
             kind = current_device_kind(torch.device("cuda", index))
         except (RuntimeError, AssertionError):
             props = None

@@ -46,9 +46,11 @@ with a ValueError naming the limiting pair.
 from __future__ import annotations
 
 import atexit
+import functools
 
 import torch
 
+from ..hw.inventory import sm_count
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
 from .precision import make_dot, split_levels, storage_dtype
@@ -79,6 +81,31 @@ def tile_smem_bytes(tile: int) -> int:
 
 def long_range_smem_bytes(R: int, cb: int) -> int:
     return 2 * R * cb * 4
+
+
+def padded_floats(m: int) -> int:
+    """Floats of one padded shared-memory plane of m points (one float
+    of padding after every 32, fft_common.cuh: padded_floats)."""
+    return m + (m >> 5)
+
+
+#: the cluster widths of the cluster kernels (fused, tile_fft): 1, a
+#: whole row in one block, up to Hopper's portable 8
+CLUSTER_WIDTHS = (1, 2, 4, 8)
+#: points of an automatic block of short rows (gpu_rows, tile_fft): the
+#: fastest of 1, 64, 128 and 1024 rows of 16 points and of 1 and 4 rows
+#: of 4096 for gpu_rows on an H100 SXM (chip_smoke.py phase 7, PERF.md)
+AUTO_BLOCK_POINTS = 1 << 10
+
+
+def auto_block_rows(rows: int, n: int) -> int:
+    """The largest power of two dividing `rows` whose block of n-point
+    rows holds at most AUTO_BLOCK_POINTS points (1 for longer rows)."""
+    block_rows = 1
+    while rows % (2 * block_rows) == 0 and \
+            2 * block_rows * n <= AUTO_BLOCK_POINTS:
+        block_rows *= 2
+    return block_rows
 
 
 def check_tile(tile: int) -> None:
@@ -202,13 +229,27 @@ def fourstep_blocking(n: int, tile: int | None = None,
     return tile, R, cb
 
 
+#: points of an automatic sixstep long-range block (R x cb) and of one
+#: phase-B2 row segment: about 34 KB of padded planes, so that two or
+#: more blocks stay resident on each SM
+SIXSTEP_BLOCK_POINTS = 1 << 12
+
+
+def sixstep_cluster_width(tile: int) -> int:
+    """Blocks of the cluster that holds one tile row in sixstep's phase
+    B2: tile / SIXSTEP_BLOCK_POINTS (4 at tile 2^14), at least 1."""
+    return max(tile // SIXSTEP_BLOCK_POINTS, 1)
+
+
 def sixstep_smem_bytes(R1: int, cb1: int, R2: int, cb2: int,
                        tile: int) -> int:
     """Dynamic shared memory of one sixstep block: the largest of the
-    outer R1 x cb1 block, the inner R2 x cb2 block and the tile row —
-    the persistent block holds one phase at a time."""
-    return max(long_range_smem_bytes(R1, cb1),
-               long_range_smem_bytes(R2, cb2), tile_smem_bytes(tile))
+    padded outer R1 x cb1 block, the padded inner R2 x cb2 block and the
+    padded phase-B2 segment of tile / ``sixstep_cluster_width(tile)``
+    points (re + im float32) — the persistent block holds one phase at a
+    time."""
+    return 8 * max(padded_floats(R1 * cb1), padded_floats(R2 * cb2),
+                   padded_floats(tile // sixstep_cluster_width(tile)))
 
 
 def sixstep_auto_split(n: int, tile: int) -> tuple[int, int]:
@@ -240,24 +281,27 @@ def _sixstep_split(n: int, tile: int, r2: int | None) -> tuple[int, int]:
 def sixstep_auto_cbs(n: int, tile: int,
                      r2: int | None = None) -> tuple[int, int]:
     """The (cb1, cb2) column blocks of an n = R1 * R2 * tile sixstep
-    transform: each the widest power of two dividing `tile` whose block
-    fits shared memory, never below MIN_AUTO_CB (the counterpart of the
-    reference's ``sixstep_auto_cbs``, pallas_fft.py:1621; the phases
-    share one block's memory in turn, so each is chosen on its own).
-    Raises ValueError naming the limiting (R, cb) pair."""
+    transform (the counterpart of the reference's ``sixstep_auto_cbs``,
+    pallas_fft.py:1621, for Hopper): each R x cb block holds about
+    SIXSTEP_BLOCK_POINTS points, cb = SIXSTEP_BLOCK_POINTS / R but at
+    least DEFAULT_CB (one warp reads a 128-byte row segment) and at most
+    `tile`, halved while the padded block overflows shared memory, never
+    below MIN_AUTO_CB.  So (cb1, cb2) is (64, 128) at n = 2^25, (32, 64)
+    at 2^27.  Raises ValueError naming the limiting (R, cb) pair."""
     check_tile(tile)
     R1, R2 = _sixstep_split(n, tile, r2)
+    lo = min(MIN_AUTO_CB, tile)
     cbs = []
     for name, rr in (("R1", R1), ("R2", R2)):
-        cb = _auto_cb(tile, lambda c, rr=rr: long_range_smem_bytes(rr, c)
-                      <= SMEM_LIMIT_BYTES)
-        if cb is None:
-            lo = min(MIN_AUTO_CB, tile)
+        cb = min(tile, max(DEFAULT_CB, SIXSTEP_BLOCK_POINTS // rr))
+        while cb >= lo and 8 * padded_floats(rr * cb) > SMEM_LIMIT_BYTES:
+            cb //= 2
+        if cb < lo:
             raise ValueError(
                 f"sixstep is infeasible at n={n} (tile={tile}): {name}="
-                f"{rr} x cb={lo} needs {long_range_smem_bytes(rr, lo)} "
-                f"bytes of shared memory (limit {SMEM_LIMIT_BYTES}); use "
-                f"a larger tile or another r2")
+                f"{rr} x cb={lo} needs {8 * padded_floats(rr * lo)} bytes "
+                f"of shared memory (limit {SMEM_LIMIT_BYTES}); use a "
+                f"larger tile or another r2")
         cbs.append(cb)
     return cbs[0], cbs[1]
 
@@ -266,7 +310,8 @@ def sixstep_blocking(n: int, tile: int | None = None, r2: int | None = None,
                      cb1: int | None = None, cb2: int | None = None):
     """Validated (tile, R1, R2, cb1, cb2) for an n-point sixstep
     transform.  tile defaults to min(n, MAX_SMEM_TILE), the split to
-    ``sixstep_auto_split``, the column blocks to ``sixstep_auto_cbs``."""
+    ``sixstep_auto_split``, the column blocks to ``sixstep_auto_cbs``;
+    phase B2 runs each row on ``sixstep_cluster_width(tile)`` blocks."""
     if tile is None:
         tile = min(n, MAX_SMEM_TILE)
     check_tile(tile)
@@ -294,18 +339,9 @@ FUSED_MAX_N = 1 << 20
 #: columns of one qb unit of the fused phase-A block: a warp's width (the
 #: TPU's unit was its 128 lanes)
 FUSED_QB_COLS = 32
-#: phase-B cluster widths (blocks sharing one tile row) the fused kernel
-#: takes: 1 (a whole row in one block) up to Hopper's portable 8
-FUSED_CLUSTER_WIDTHS = (1, 2, 4, 8)
 #: the cluster width fused_blocking picks when none is named: 64 tile
 #: rows of 2^14 on 256 blocks of 4096 points at n = 2^20
 FUSED_AUTO_CW = 4
-
-
-def padded_floats(m: int) -> int:
-    """Floats of one padded shared-memory plane of m points (one float
-    of padding after every 32, fft_common.cuh: padded_floats)."""
-    return m + (m >> 5)
 
 
 def fused_smem_bytes(R: int, cb: int, tile: int, cw: int) -> int:
@@ -352,9 +388,9 @@ def fused_blocking(n: int, tile: int | None = None, qb: int | None = None,
         cw = FUSED_AUTO_CW
         while cw > 1 and tile // cw < FUSED_QB_COLS:
             cw //= 2
-    if cw not in FUSED_CLUSTER_WIDTHS:
+    if cw not in CLUSTER_WIDTHS:
         raise ValueError(f"fused: cluster width cw={cw} must be one of "
-                         f"{FUSED_CLUSTER_WIDTHS} (Hopper's portable "
+                         f"{CLUSTER_WIDTHS} (Hopper's portable "
                          f"cluster sizes)")
     if tile // cw < FUSED_QB_COLS:
         raise ValueError(f"fused: tile={tile} / cw={cw} leaves segments of "
@@ -440,11 +476,48 @@ def _aligned(t):
 def _check_aligned(name: str, *planes) -> None:
     for t in planes:
         if t.data_ptr() % _VEC_BYTES:
-            raise ValueError(f"{name}: planes written in place must be "
-                             f"{_VEC_BYTES}-byte aligned (16-byte copies)")
+            raise ValueError(f"{name}: planes must be {_VEC_BYTES}-byte "
+                             f"aligned (the kernel copies 16 bytes at a "
+                             f"time); got a view at address "
+                             f"{t.data_ptr():#x}")
 
 
 # --- kernel 1: tile_fft -----------------------------------------------------
+
+#: the shortest rows tile_fft spreads over a thread-block cluster
+TILE_CLUSTER_MIN = 1 << 13
+
+
+def tile_fft_smem_bytes(tile: int, block_rows: int = 1, cw: int = 1) -> int:
+    """Dynamic shared memory of one tile_fft block: `block_rows` padded
+    rows of `tile` points, or one padded tile/cw segment of a row on a
+    cluster of cw blocks (re + im float32, one float of padding every
+    32)."""
+    return 8 * padded_floats(block_rows * tile // cw)
+
+
+def tile_blocking(rows: int, tile: int,
+                  sms: int | None = None) -> tuple[int, int]:
+    """(block_rows, cw) of tile_fft on (rows, tile) planes, for a card
+    of `sms` SMs.  Short rows share a block (``auto_block_rows``).  Rows
+    of TILE_CLUSTER_MIN points and more take the widest cluster in
+    CLUSTER_WIDTHS that keeps the launch to one wave, rows * cw <= sms
+    (on 132 SMs: 64 rows of 2^14 take cw = 2, 32 rows cw = 4, 16 rows
+    cw = 8, 128 rows cw = 1): one block a SM, each row on as many SMs as
+    that allows.  `sms` None (no card) gives cw = 1.  Raises ValueError
+    for a tile ``check_tile`` refuses."""
+    check_tile(tile)
+    cw = 1
+    if sms and tile >= TILE_CLUSTER_MIN:
+        while cw < CLUSTER_WIDTHS[-1] and rows * cw * 2 <= sms:
+            cw *= 2
+    return (auto_block_rows(rows, tile) if cw == 1 else 1), cw
+
+
+@functools.lru_cache(maxsize=None)
+def _card_tile_blocking(rows: int, tile: int, device: torch.device):
+    # tile_blocking on the card at `device`, worked out once per shape
+    return tile_blocking(rows, tile, sm_count(device))
 
 
 def tile_fft_plain(xr, xi, twr, twi):
@@ -463,7 +536,9 @@ def tile_fft(xr, xi, twr, twi):
 
     twr/twi: the (tile - 1,) concatenated per-level tables of
     ``twiddle_tables(tile)`` (``twiddle.flat_tables``).  CUDA tensors
-    launch the kernel (csrc/tile_fft.cu); CPU tensors take
+    launch the kernel (csrc/tile_fft.cu) once, blocked by
+    ``tile_blocking`` for the card's SM count; the planes must be
+    16-byte aligned (ValueError otherwise).  CPU tensors take
     ``tile_fft_plain``.  Returns new (rows, tile) planes."""
     _check_planes(xr, xi, 2, "tile_fft")
     rows, tile = xr.shape
@@ -472,12 +547,13 @@ def tile_fft(xr, xi, twr, twi):
                     (twr, (tile - 1,)), (twi, (tile - 1,)))
     if xr.device.type == "cpu":
         return tile_fft_plain(xr, xi, twr, twi)
-    if rows > _MAX_BLOCKS:
-        raise ValueError(f"tile_fft: {rows} rows exceed the grid limit")
+    block_rows, cw = _card_tile_blocking(rows, tile, xr.device)
+    _check_aligned("tile_fft", xr, xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if rows:
         _launch("tile_fft", "pifft_tile_fft", xr.device,
-                xr, xi, yr, yi, twr, twi, rows, ilog2(tile))
+                xr, xi, yr, yi, twr, twi, rows, ilog2(tile),
+                ilog2(block_rows), ilog2(cw))
         tile_fft.launches += 1
     return yr, yi
 
@@ -712,7 +788,8 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
     as (R1, R2, tile) float32 planes: the outer log2(R1) levels on the
     (R1, m = R2 * tile) view in R1 x cb1 blocks, the inner log2(R2)
     levels of each group on its (R2, tile) view in R2 x cb2 blocks, then
-    the tile DIF of every row.  `operands` are the outer long-range
+    the tile DIF of every row, each on a cluster of
+    ``sixstep_cluster_width(tile)`` blocks.  `operands` are the outer long-range
     twiddles, the inner ones, then (twr, twi) of ``flat_tables(tile)``:
     with `separable` the factors of ``device_factors(R1, m)`` and
     ``device_factors(R2, tile)``, otherwise the dense tables of
@@ -739,7 +816,8 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
     _launch("sixstep",
             "pifft_sixstep" if separable else "pifft_sixstep_dense",
             xr.device, xr, xi, yr, yi, *outer, *inner, *tw, ilog2(R1),
-            ilog2(R2), ilog2(tile), ilog2(cb1), ilog2(cb2))
+            ilog2(R2), ilog2(tile), ilog2(cb1), ilog2(cb2),
+            ilog2(sixstep_cluster_width(tile)))
     sixstep.launches += 1
     return yr, yi
 
@@ -1006,11 +1084,6 @@ matmul_funnel.launches = 0
 #: longest row the gpu-rows kernel serves (the reference's bound,
 #: hw/lowering.py:44)
 GPU_ROWS_MAX_N = 1 << 18
-#: points of one automatic gpu-rows block of short rows (64 threads of
-#: 16 points): the fastest of 1, 64, 128 and 1024 rows of 16 points and
-#: of 1 and 4 rows of 4096 on an H100 SXM (chip_smoke.py phase 7,
-#: PERF.md)
-GPU_ROWS_AUTO_POINTS = 1 << 10
 #: rows longer than this go on a thread-block cluster of n / 2^14 blocks
 GPU_ROWS_SEGMENT = MAX_SMEM_TILE
 
@@ -1029,20 +1102,16 @@ def gpu_rows_blocking(rows: int, n: int, block_rows: int | None = None):
     are staged block_rows at a time, so block_rows * n must fit one
     block's shared memory; a longer row runs on a cluster of
     ``gpu_rows_cluster_size(n)`` blocks, which walks block_rows rows one
-    after the other.  block_rows None takes the largest power of two
-    dividing rows whose block holds at most GPU_ROWS_AUTO_POINTS points
-    (1 for long rows).  Raises ValueError naming the limiting pair
-    before any launch."""
+    after the other.  block_rows None takes ``auto_block_rows`` (1 for
+    long rows).  Raises ValueError naming the limiting pair before any
+    launch."""
     if n < 2 or not is_power_of_two(n) or n > GPU_ROWS_MAX_N:
         raise ValueError(f"gpu-rows requires a power-of-two 2 <= n <= "
                          f"{GPU_ROWS_MAX_N}, got n={n}")
     if rows < 1:
         raise ValueError(f"gpu-rows: rows={rows} must be positive")
     if block_rows is None:
-        block_rows = 1
-        while (rows % (2 * block_rows) == 0
-               and 2 * block_rows * n <= GPU_ROWS_AUTO_POINTS):
-            block_rows *= 2
+        block_rows = auto_block_rows(rows, n)
     if block_rows < 1 or not is_power_of_two(block_rows) or \
             rows % block_rows:
         raise ValueError(f"block_rows={block_rows} must be a power of two "

@@ -127,6 +127,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.pifft_tile_fft.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,   # xr, xi, yr, yi, twr, twi
         c.c_longlong, c.c_int,          # rows, log2(tile)
+        c.c_int, c.c_int,               # log2(block_rows), log2(cw)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_long_range_sep.restype = c.c_int
@@ -153,6 +154,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr,                       # twr, twi
         c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
         c.c_int, c.c_int,               # log2(cb1), log2(cb2)
+        c.c_int,                        # log2(phase-B2 cluster width)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_long_range_dense.restype = c.c_int
@@ -178,6 +180,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr,                       # twr, twi
         c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
         c.c_int, c.c_int,               # log2(cb1), log2(cb2)
+        c.c_int,                        # log2(phase-B2 cluster width)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_fused.restype = c.c_int

@@ -369,3 +369,90 @@ def test_gpu_rows_card_holds_every_cluster(cuda_device, n):
     # the long-row design needs a cluster of n / 2^14 blocks of 132 KB;
     # the wrapper raises where the card holds none
     assert cf.gpu_rows_max_clusters(cuda_device, n) >= 1
+
+
+# --- the Hopper tile_fft and sixstep, and the race's slope timer ------------
+
+
+@pytest.mark.parametrize("rows", [3, 64])
+@pytest.mark.parametrize("log2_tile", range(1, 15))
+def test_tile_fft_every_tile_vs_plain(cuda_device, log2_tile, rows):
+    # every first-pass radix (1..4 levels), blocks of one row (3 rows)
+    # and of several (64 short rows), and the automatic cluster of the
+    # 2^13 / 2^14 rows at 64 rows
+    tile = 1 << log2_tile
+    xr, xi = _planes(45, (rows, tile), cuda_device)
+    tw = twiddle.flat_tables(tile, cuda_device)
+    before = cf.tile_fft.launches
+    yk = cf.tile_fft(xr, xi, *tw)
+    torch.cuda.synchronize()
+    assert cf.tile_fft.launches == before + 1
+    assert rel_err(*yk, *cf.tile_fft_plain(xr, xi, *tw)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("rows", [1, 5, 17, 33, 64, 100, 131, 256])
+@pytest.mark.parametrize("tile", [1 << 13, 1 << 14])
+def test_tile_fft_cluster_widths_vs_plain(cuda_device, rows, tile):
+    # the row count picks the cluster width (tile_blocking): on 132 SMs
+    # these rows of 2^14 take every width, 8 down to 1
+    xr, xi = _planes(46, (rows, tile), cuda_device)
+    tw = twiddle.flat_tables(tile, cuda_device)
+    yk = cf.tile_fft(xr, xi, *tw)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *cf.tile_fft_plain(xr, xi, *tw)) <= FP32_TOL
+
+
+def test_tile_fft_refuses_a_misaligned_view(cuda_device):
+    flat = torch.zeros(4 * 1024 + 1, device=cuda_device)
+    view = flat[1:].reshape(4, 1024)  # 4 bytes past a 16-byte boundary
+    tw = twiddle.flat_tables(1024, cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cf.tile_fft(view, view, *tw)
+
+
+@pytest.mark.parametrize("separable", [True, False])
+@pytest.mark.parametrize("R1,R2,tile,cb1,cb2", [
+    (64, 32, 1 << 14, None, None),   # n = 2^25, automatic (64, 128)
+    (64, 32, 1 << 14, 32, 64),       # the race's halvings
+    (16, 16, 1 << 13, None, None),   # phase B2 on clusters of 2
+    (4, 4, 4096, None, 8),           # one block a row
+    (8, 2, 256, None, None)])
+def test_sixstep_hopper_blocking_vs_plain(cuda_device, R1, R2, tile, cb1,
+                                          cb2, separable):
+    xr, xi = _planes(47, (R1, R2, tile), cuda_device)
+    lr = twiddle.device_factors if separable \
+        else twiddle.dense_long_range_tables
+    args = (xr, xi, *lr(R1, R2 * tile, cuda_device),
+            *lr(R2, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.sixstep.launches
+    yk = cf.sixstep(*args, cb1=cb1, cb2=cb2, separable=separable)
+    torch.cuda.synchronize()
+    assert cf.sixstep.launches == before + 1
+    yp = cf.sixstep_plain(*args, separable=separable)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+def test_default_timer_leaves_a_wrappers_host_time_out(cuda_device):
+    # a wrapper that sleeps 1 ms on the host before each launch times
+    # within noise of the bare one: the slope replays captured launches,
+    # and the host work ran once, at capture (CUDA events around each
+    # call would add the 1 ms to every call)
+    import time
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.plans import autotune
+
+    key = plans.make_key(1 << 20, layout="pi")
+
+    def bare(xr, xi):
+        return cf.fft_pi_layout_cuda_rql(xr, xi)
+
+    def slow(xr, xi):
+        time.sleep(1e-3)
+        return cf.fft_pi_layout_cuda_rql(xr, xi)
+
+    t_bare = autotune.default_timer(bare, key)
+    t_slow = autotune.default_timer(slow, key)
+    assert 0 < t_bare < 1.0
+    assert abs(t_slow - t_bare) <= 0.15 * t_bare + 0.003, (t_bare, t_slow)

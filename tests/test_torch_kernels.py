@@ -113,6 +113,69 @@ def test_over_budget_tile_raises_before_launch(tile):
         cf.tile_fft(xr, xi, twr, twi)
 
 
+@pytest.mark.parametrize("tile,block_rows,cw,want", [
+    (4096, 1, 1, 8 * (4096 + 128)),        # 33,792: several per SM
+    (1 << 14, 1, 1, 8 * (16384 + 512)),    # 135,168: one per SM
+    (1 << 14, 1, 4, 8 * (4096 + 128)),     # a quarter row on a cluster
+    (1 << 13, 1, 2, 8 * (4096 + 128)),
+    (16, 64, 1, 8 * (1024 + 32))])         # 64 short rows in one block
+def test_tile_fft_smem_is_padded(tile, block_rows, cw, want):
+    assert cf.tile_fft_smem_bytes(tile, block_rows, cw) == want
+    assert want <= cf.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("rows,tile,sms,want", [
+    (4096, 4096, 132, (1, 1)),       # config 3: one row a block
+    (64, 1 << 14, 132, (1, 2)),      # rql at 2^20: 128 blocks of 8192
+    (32, 1 << 14, 132, (1, 4)),      # rql at 2^19: 128 blocks of 4096
+    (64, 1 << 13, 132, (1, 2)),
+    (128, 1 << 13, 132, (1, 1)),     # mf at 2^20: one row a block
+    (100, 1 << 14, 132, (1, 1)),     # two rows would share an SM
+    (1024, 1 << 14, 132, (1, 1)),    # enough rows for every SM
+    (2, 1 << 14, 132, (1, 8)),       # widest portable cluster
+    (64, 1 << 14, None, (1, 1)),     # no card: no cluster
+    (64, 4096, 132, (1, 1)),         # short of TILE_CLUSTER_MIN
+    (1 << 20, 16, 132, (64, 1)),     # short rows share a block
+    (6, 256, 132, (2, 1)),           # block_rows divides rows
+    (3, 256, 132, (1, 1)),
+    (8, 2, 132, (8, 1))])
+def test_tile_blocking_automatic(rows, tile, sms, want):
+    got = cf.tile_blocking(rows, tile, sms)
+    assert got == want
+    block_rows, cw = got
+    assert rows % block_rows == 0
+    assert block_rows * tile <= max(cf.AUTO_BLOCK_POINTS, tile)
+    assert cf.tile_fft_smem_bytes(tile, block_rows, cw) \
+        <= cf.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("tile,match", [
+    (1 << 15, "tile=32768 needs 262144 bytes.*limit 232448"),
+    (1 << 16, "tile=65536 needs 524288 bytes.*limit 232448"),
+    (3, "tile=3 must be a power of two"),
+    (1, "tile=1 must be a power of two >= 2")])
+def test_tile_blocking_refuses_before_launch(tile, match):
+    with pytest.raises(ValueError, match=match):
+        cf.tile_blocking(8, tile, 132)
+    xr, xi = torch.zeros(8, tile), torch.zeros(8, tile)
+    with pytest.raises(ValueError, match=match):
+        cf.tile_fft(xr, xi, torch.zeros(tile - 1), torch.zeros(tile - 1))
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78, 16])
+def test_tile_blocking_widths_by_row_count(sms):
+    # on any SM count the row count alone reaches every width: the
+    # widest cluster (8 at the most) whose launch is one wave
+    tile = 1 << 14
+    widths = {}
+    for rows in range(1, 2 * sms):
+        _, cw = cf.tile_blocking(rows, tile, sms)
+        assert cw == 1 or rows * cw <= sms
+        assert cw == 8 or rows * cw * 2 > sms
+        widths.setdefault(cw, rows)
+    assert sorted(widths) == list(cf.CLUSTER_WIDTHS)
+
+
 def test_over_budget_cb_raises_before_launch():
     with pytest.raises(ValueError, match="R=64 x cb=1024"):
         cf.rql_blocking(1 << 20, 1 << 14, 1024)

@@ -109,8 +109,10 @@ def test_factors_bit_identical_to_reference(n, tile, r2):
 
 
 @pytest.mark.parametrize("n,want", [
-    (1 << 25, (256, 512)), (1 << 26, (256, 256)), (1 << 27, (128, 256))])
+    (1 << 25, (64, 128)), (1 << 26, (64, 64)), (1 << 27, (32, 64))])
 def test_auto_cbs_policy(n, want):
+    # each automatic R x cb block holds SIXSTEP_BLOCK_POINTS = 4096
+    # points (cb at least one warp's 32 columns): about 34 KB padded
     tile = cf.MAX_SMEM_TILE
     assert cf.sixstep_auto_cbs(n, tile) == want
     R1, R2 = cf.sixstep_auto_split(n, tile)
@@ -119,9 +121,30 @@ def test_auto_cbs_policy(n, want):
     assert cf.sixstep_blocking(n) == (tile, R1, R2, *want)
 
 
+@pytest.mark.parametrize("tile,cw", [(1 << 14, 4), (1 << 13, 2),
+                                     (4096, 1), (256, 1)])
+def test_phase_b2_cluster_width(tile, cw):
+    # each phase-B2 block holds SIXSTEP_BLOCK_POINTS points of a row
+    assert cf.sixstep_cluster_width(tile) == cw
+    assert tile // cw == min(tile, cf.SIXSTEP_BLOCK_POINTS)
+
+
+@pytest.mark.parametrize("n", [1 << 25, 1 << 26, 1 << 27])
+def test_sixstep_smem_is_padded_and_small(n):
+    tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(n)
+    need = cf.sixstep_smem_bytes(R1, cb1, R2, cb2, tile)
+    # 4096 points a plane padded to 4224 floats, re + im: 33,792 bytes,
+    # so an SM's 228 KB holds more than one block
+    assert need == 8 * (4096 + 128)
+    assert 2 * need <= 228 * 1024
+    assert cf.sixstep_smem_bytes(64, 1024, 32, 128, tile) \
+        == 8 * cf.padded_floats(64 * 1024)
+
+
 def test_auto_cbs_follow_an_explicit_split():
     # a deeper inner radix narrows the inner block, widens the outer one
-    assert cf.sixstep_auto_cbs(1 << 25, 1 << 14, r2=256) == (2048, 64)
+    # (R1 = 8 x 512 columns; R2 = 256 x the 32-column floor)
+    assert cf.sixstep_auto_cbs(1 << 25, 1 << 14, r2=256) == (512, 32)
 
 
 @pytest.mark.parametrize("r2", [1, 3, 2048, 4096])

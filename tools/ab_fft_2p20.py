@@ -20,7 +20,11 @@ line with:
 * ``fft_planned_us_back_to_back``: the same with the plan passed in
   (``fft(x, plan=...)``), so without the lookup;
 * ``fft_device_us``: the card's busy time per call (every kernel of
-  200 calls, ``torch.profiler``), which the host does not move.
+  200 calls, ``torch.profiler``), which the host does not move;
+* ``mf_max_abs``: per precision mode, the max abs error against
+  complex128 of ``fft`` through ``Plan(key, "mf", {"R": 128})`` on
+  ``chip_smoke.py`` phase 9's input (uniform +-2^-10 planes from
+  ``numpy.random.default_rng(0)``), so both roots are held on one input.
 
 The parent prints every child's line, then the median of each metric
 per root.  The timing loops are this file's own, the same for both
@@ -103,11 +107,27 @@ def child(root: str) -> None:
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", None)
         device_us += ev.self_cuda_time_total if dt is None else dt
+    import numpy as np
+
+    from cs87project_msolano2_tpu_torch.plans.core import Plan
+
+    rng = np.random.default_rng(0)
+    amp = 1.0 / np.sqrt(N)
+    x9 = (rng.uniform(-amp, amp, N).astype(np.float32)
+          + 1j * rng.uniform(-amp, amp, N).astype(np.float32))
+    ref9 = torch.from_numpy(np.fft.fft(x9.astype(np.complex128))).to(dev)
+    x9 = torch.from_numpy(x9.astype(np.complex64)).to(dev)
+    mf_max_abs = {}
+    for mode in ("split3", "highest", "fp32", "default"):
+        y9 = fft(x9, plan=Plan(plans.make_key(N, precision=mode, device=dev),
+                               "mf", {"R": 128}))
+        mf_max_abs[mode] = float((y9.to(torch.complex128) - ref9).abs().max())
     print(json.dumps({"root": root, "lookup_us": lookup_us,
                       "fft_ms": statistics.median(times),
                       "fft_us_back_to_back": b2b_us,
                       "fft_planned_us_back_to_back": planned_us,
-                      "fft_device_us": device_us / REPS}), flush=True)
+                      "fft_device_us": device_us / REPS,
+                      "mf_max_abs": mf_max_abs}), flush=True)
 
 
 def main() -> int:
@@ -138,7 +158,8 @@ def main() -> int:
     for root in (a, b):
         mine = [r for r in rows if r["root"] == root]
         summary[root] = {k: statistics.median(r[k] for r in mine)
-                         for k in rows[0] if k != "root"}
+                         for k in rows[0] if k not in ("root", "mf_max_abs")}
+        summary[root]["mf_max_abs"] = mine[0]["mf_max_abs"]
     print(json.dumps({"median_per_root": summary}))
     return 0
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device time per call of the gpu_rows and fused kernels (and the
-unchanged tile_fft as a control) on one card, for one or more checkouts
-of the PyTorch/CUDA port.
+"""Device time per call of the tile_fft and sixstep kernels, beside the
+fourstep, gpu_rows and fused kernels as the control, on one card, for
+one or more checkouts of the PyTorch/CUDA port.
 
-    python3 tools/kernel_device_ms.py [ROOT ...] [--reps 30] [--out FILE]
+    python3 tools/kernel_device_ms.py [ROOT ...] [--reps 30]
 
 Each ROOT (default: this checkout) holds ``cs87project_msolano2_tpu_torch``;
 the script runs one child process per root, in the order given (pass
@@ -18,30 +18,42 @@ root only.  For every case the child prints one JSON line with:
   ``chip_smoke.py`` phase 7 times kernels: it includes the wrapper's
   host time before the launch when the card is idle.
 
-Cases: gpu_rows at 4096 x 4096, 2^20 x 16, and 2^24 points of rows of
-2^14 .. 2^18 (automatic blocking); fused at n = 2^20 with its automatic
-blocking and, where the checkout's ``fused`` takes a cluster width, by
-(qb, cw); tile_fft at 4096 x 4096.  The card's name and power limit lead
-the output.  The timing loops are this file's own, the same for every
-root.
+Cases, each at the root's own automatic blocking: tile_fft at
+4096 x 4096, 64 x 2^14 (rql's row pass at n = 2^20) and 128 x 2^13
+(mf's); sixstep at n = 2^25 and 2^27; the control: fourstep at n =
+2^24, gpu_rows at 4096 x 4096 and fused at n = 2^20.
+
+    python3 tools/kernel_device_ms.py --widths [--reps 30]
+
+times instead this checkout's tile_fft kernel at every cluster width
+(1, 2, 4, 8) on rows of 2^14 and 2^13 points at row counts around one
+wave of the card's SMs, launched through the library's C entry with the
+width named, beside the width the wrapper picks (``auto_cw``): the
+readings ``cuda_fft.tile_blocking``'s rule is set from.
+
+The card's name and power limit lead the output.  The timing loops are
+this file's own, the same for every root.
 """
 
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
 import subprocess
 import sys
 
 SEED = 0
-GPU_ROWS_SHAPES = ((4096, 4096), (1 << 20, 16), (1024, 1 << 14),
-                   (512, 1 << 15), (256, 1 << 16), (128, 1 << 17),
-                   (64, 1 << 18))
+#: (rows, tile) of the tile_fft cases
+TILE_SHAPES = ((4096, 4096), (64, 1 << 14), (128, 1 << 13))
+#: log2 n of the sixstep cases
+SIXSTEP_LOG2N = (25, 27)
+#: (rows, tile) of the width study (--widths)
+WIDTH_SHAPES = tuple((rows, 1 << 14) for rows in (8, 16, 32, 64, 96, 128)) \
+    + ((64, 1 << 13), (128, 1 << 13))
 
 
-def child(reps: int) -> None:
+def child(reps: int, widths: bool) -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -85,36 +97,69 @@ def child(reps: int) -> None:
                           if us else None, "event_ms": event_ms}),
               flush=True)
 
-    x = planes((4096, 4096))
-    measure("tile_fft(4096,4096)", "tile_fft", cf.tile_fft, *x,
-            *flat_tables(4096, dev))
-    for rows, n in GPU_ROWS_SHAPES:
-        x = planes((rows, n))
-        measure(f"gpu_rows({rows},{n})", "gpu_rows", cf.gpu_rows, *x,
-                *lowering.device_twiddle_stack(n, dev))
+    if widths:
+        from cs87project_msolano2_tpu_torch.hw.inventory import sm_count
+        from cs87project_msolano2_tpu_torch.ops.bits import ilog2
+
+        sms = sm_count(dev)
+        for rows, tile in WIDTH_SHAPES:
+            x = planes((rows, tile))
+            y = (torch.empty_like(x[0]), torch.empty_like(x[1]))
+            tw = flat_tables(tile, dev)
+            auto = cf.tile_blocking(rows, tile, sms)
+            for cw in cf.CLUSTER_WIDTHS:
+                block_rows = cf.auto_block_rows(rows, tile) if cw == 1 else 1
+
+                def launch(cw=cw, block_rows=block_rows):
+                    cf._launch("tile_fft", "pifft_tile_fft", dev, *x, *y,
+                               *tw, rows, ilog2(tile), ilog2(block_rows),
+                               ilog2(cw))
+
+                measure(f"tile_fft({rows},{tile}) cw={cw} auto_cw="
+                        f"{auto[1]} sms={sms}", "tile_fft", launch)
+            del x, y
+        return
+    for rows, tile in TILE_SHAPES:
+        x = planes((rows, tile))
+        tw = flat_tables(tile, dev)
+        measure(f"tile_fft({rows},{tile})", "tile_fft", cf.tile_fft, *x,
+                *tw)
         del x
+    for k in SIXSTEP_LOG2N:
+        tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << k)
+        x = planes((R1, R2, tile))
+        measure(f"sixstep(2^{k}) auto {(R1, R2, cb1, cb2)}", "sixstep",
+                cf.sixstep, *x, *device_factors(R1, R2 * tile, dev),
+                *device_factors(R2, tile, dev), *flat_tables(tile, dev))
+        del x
+    tile, R, cb = cf.fourstep_blocking(1 << 24)
+    x = planes((R, tile))
+    measure(f"fourstep(2^24) (control) cb={cb}", "fourstep", cf.fourstep,
+            *x, *device_factors(R, tile, dev), *flat_tables(tile, dev))
+    x = planes((4096, 4096))
+    measure("gpu_rows(4096,4096) (control)", "gpu_rows", cf.gpu_rows, *x,
+            *lowering.device_twiddle_stack(4096, dev))
     R, T = 64, 1 << 14
     x = planes((R, T))
-    ops = (*device_factors(R, T, dev), *flat_tables(T, dev))
-    measure(f"fused({R},{T}) auto {cf.fused_blocking(R * T)}", "fused",
-            cf.fused, *x, *ops)
-    if "cw" in inspect.signature(cf.fused).parameters:
-        for qb in (1, 2):
-            for cw in (1, 2, 4, 8):
-                measure(f"fused({R},{T}) qb={qb} cw={cw}", "fused",
-                        lambda *a, qb=qb, cw=cw: cf.fused(*a, qb=qb, cw=cw),
-                        *x, *ops)
+    measure(f"fused({R},{T}) (control) auto {cf.fused_blocking(R * T)}",
+            "fused", cf.fused, *x, *device_factors(R, T, dev),
+            *flat_tables(T, dev))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="*")
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--widths", action="store_true",
+                    help="time this checkout's tile_fft at every cluster "
+                         "width instead")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.reps)
+        child(args.reps, args.widths)
         return 0
+    if args.widths and args.roots:
+        ap.error("--widths times this checkout only")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -126,7 +171,8 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=root)
         done = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child",
-             "--reps", str(args.reps)], cwd=root, env=env, timeout=900)
+             "--reps", str(args.reps)] + ["--widths"] * args.widths,
+            cwd=root, env=env, timeout=900)
         if done.returncode:
             return done.returncode
     return 0
