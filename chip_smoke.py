@@ -25,9 +25,13 @@ checks the results against a complex128 oracle, and times every kernel
 and path with CUDA events.  Phase 3 also holds gpu_rows at every
 row regime and cluster size (2..16 blocks), fused at every phase-B
 cluster width in both alias modes, tile_fft at every tile (2..2^14) and
-at every cluster width of the rql and mf row passes, and sixstep at
-n = 2^25 and 2^27 in both twiddle modes against their plain versions,
-and phase 7 times gpu_rows and fused by blocking.  The race of phase 8
+at every cluster width of the rql and mf row passes, long_range_sep
+across R (2 .. 8192) and cb (2 .. 32) with batches above 1, fourstep at
+every automatic blocking from n = 2^21 to 2^25 and at the race's half
+tile (2^13) from 2^21 to 2^24, and sixstep at n = 2^25 and 2^27, both in
+both twiddle modes, against their plain versions
+(with fourstep's persistent grid as the occupancy API gives it), and
+phase 7 times gpu_rows and fused by blocking.  The race of phase 8
 times each candidate by the loop slope over a CUDA graph
 (``utils.timing.loop_slope_ms``); the phase prints each entry's slope
 time beside its CUDA-event time.  Phase 3 also sets the card's
@@ -101,6 +105,23 @@ TILE_CHECK_POINTS = 1 << 22
 #: for each blocking these give (rql's row pass at 2^20 is 64 x 2^14,
 #: mf's 128 x 2^13)
 TILE_CLUSTER_ROWS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+#: (log2 n, tile) of phase 3's fourstep checks: every automatic
+#: blocking (tile 2^14: phase-B rows on clusters of 4), and the race's
+#: half-tile entries (tile 2^13: clusters of 2)
+FOURSTEP_CHECKS = tuple((k, 1 << 14) for k in range(21, 26)) \
+    + tuple((k, 1 << 13) for k in range(21, 25))
+#: (batch, R, C, cb) of phase 3's long_range_sep checks beside config
+#: 2's (1, 64, 2^14, 32): every first-pass split of R = 2 .. 8192, cb 2
+#: .. 32, batches above 1 (up to 16; tube_cuda's segments at n = 2^20,
+#: p = 4), rql's first pass at n = 2^22 and 2^24
+LONG_RANGE_CHECKS = ((1, 2, 4096, 32), (2, 4, 256, 2), (16, 8, 8192, 32),
+                     (4, 16, 1 << 14, 32), (2, 32, 2048, 4),
+                     (1, 128, 1 << 14, 32), (1, 256, 1 << 14, 32),
+                     (3, 512, 1024, 8), (1, 1024, 1 << 14, 16),
+                     (1, 2048, 4096, 8), (1, 4096, 4096, 4),
+                     (1, 8192, 2048, 2))
+#: (batch, R, C) of the long_range_sep shapes phase 7 also times
+LONG_RANGE_TIMED = ((1, 256, 1 << 14), (4, 16, 1 << 14))
 #: kernel launches of one call of each 1-D plan variant
 VARIANT_LAUNCHES = {
     "fused": {"fused": 1}, "fused-alias": {"fused": 1},
@@ -286,13 +307,48 @@ def run(store) -> int:
     check_kernel("long_range_sep(1,64,16384)",
                  lambda *a: cf.long_range_sep(*a, cf.DEFAULT_CB),
                  cf.long_range_sep_plain, (xr3, xi3, *fac))
-    # the large-n path's kernels at its blocking: fourstep at n = 2^24,
-    # sixstep at n = 2^27 (work items outnumber the persistent grid)
+    # long_range_sep across R (every pass split, 2 .. 8192) and cb (2 ..
+    # 32), batches above 1: rql at 2^22 and 2^24, tube_cuda's segments
+    # at p = 4
+    for batch, rr, cc, cb in LONG_RANGE_CHECKS:
+        xl = random_complex(rng, (batch, rr, cc), dev, rr * cc)
+        label = f"long_range_sep({batch},{rr},{cc}) cb={cb}"
+        check_kernel(label, lambda *a, cb=cb: cf.long_range_sep(*a, cb),
+                     cf.long_range_sep_plain,
+                     (*xl, *device_factors(rr, cc, dev)))
+        if (batch, rr, cc) not in LONG_RANGE_TIMED:
+            cases[label].pop("args")
+    del xl
+    # the large-n path's kernels at its blocking: fourstep at every
+    # automatic blocking from n = 2^21 to 2^25 and at the race's half
+    # tile from 2^21 to 2^24, in both twiddle modes, its persistent grid
+    # from the occupancy API; sixstep at n = 2^27 (work items outnumber
+    # the persistent grid)
+    four_grid = {}
+    for k, tile_k in FOURSTEP_CHECKS:
+        tk, Rk, cbk = cf.fourstep_blocking(1 << k, tile_k)
+        xk = random_complex(rng, (Rk, tk), dev, Rk * tk)
+        for separable in (True, False):
+            lr = device_factors if separable else dense_long_range_tables
+            label = f"fourstep({Rk},{tk})" + ("" if separable else "-dense")
+            check_kernel(label,
+                         lambda *a, s=separable: cf.fourstep(*a,
+                                                             separable=s),
+                         lambda *a, s=separable: cf.fourstep_plain(
+                             *a, separable=s),
+                         (*xk, *lr(Rk, tk, dev), *flat_tables(tk, dev)))
+            if k not in (22, 24) or tk != 1 << 14 or not separable:
+                cases[label].pop("args")
+        resident = cf.fourstep_resident_blocks(dev, 1 << k, tk)
+        four_grid[f"2^{k} tile {tk}"] = {
+            "cb": cbk, "cw": cf.row_cluster_width(tk),
+            "smem_bytes": cf.fourstep_smem_bytes(Rk, cbk, tk),
+            "resident_blocks": resident, "per_sm": resident / sms}
+        del xk
     t4, R4, cb4 = cf.fourstep_blocking(1 << 24)
-    xr4, xi4 = random_complex(rng, (R4, t4), dev, R4 * t4)
     label4 = f"fourstep({R4},{t4})"
-    check_kernel(label4, lambda *a: cf.fourstep(*a, cb=cb4), cf.fourstep_plain,
-                 (xr4, xi4, *device_factors(R4, t4, dev), twr14, twi14))
+    log(f"# phase 3 fourstep blocking and persistent grid (occupancy API) "
+        f"by n: {four_grid}")
     # sixstep at n = 2^25 and 2^27 (its automatic blocking), separable
     # and dense twiddles
     six = {}
@@ -301,7 +357,7 @@ def run(store) -> int:
         xr6, xi6 = random_complex(rng, (R1, R2, t6), dev, R1 * R2 * t6)
         label6 = f"sixstep({R1},{R2},{t6})"
         six[k] = {"label": label6, "blocking": (R1, R2, cb1, cb2),
-                  "cw": cf.sixstep_cluster_width(t6)}
+                  "cw": cf.row_cluster_width(t6)}
         check_kernel(label6, lambda *a, c1=cb1, c2=cb2: cf.sixstep(
                          *a, cb1=c1, cb2=c2),
                      cf.sixstep_plain,
@@ -407,11 +463,6 @@ def run(store) -> int:
         raise AssertionError(f"fused left the set-aside at {set_aside}")
     t22, R22, cb22 = cf.fourstep_blocking(1 << 22)
     xr22, xi22 = random_complex(rng, (R22, t22), dev, R22 * t22)
-    check_kernel(f"fourstep-dense({R22},{t22})",
-                 lambda *a: cf.fourstep(*a, cb=cb22, separable=False),
-                 lambda *a: cf.fourstep_plain(*a, separable=False),
-                 (xr22, xi22, *dense_long_range_tables(R22, t22, dev),
-                  twr14, twi14))
     _, s1, s2, _, _ = cf.sixstep_blocking(1 << 22)
     check_kernel(f"sixstep-dense({s1},{s2},{t22})",
                  lambda *a: cf.sixstep(*a, separable=False),
@@ -665,6 +716,13 @@ def run(store) -> int:
                cf.long_range_sep_plain, a,
                16 * R * T + 8 * (R - 1 + lev * T), 8 * R * T * lev,
                5 * R * T * lev, None)
+    for batch, rr, cc in LONG_RANGE_TIMED:
+        label = f"long_range_sep({batch},{rr},{cc}) cb={cf.DEFAULT_CB}"
+        lv = int(np.log2(rr))
+        kernel_row(label, lambda *t: cf.long_range_sep(*t, cf.DEFAULT_CB),
+                   cf.long_range_sep_plain, cases[label]["args"],
+                   16 * batch * rr * cc + 8 * (rr - 1 + lv * cc),
+                   8 * batch * rr * cc * lv, 5 * batch * rr * cc * lv, None)
 
     def fac_bytes(rows, cols):
         # separable factors: A (rows - 1) and B (levels x cols), re + im
@@ -715,12 +773,16 @@ def run(store) -> int:
                 + 8 * (T - 1), int(np.log2(r1 * r2)),
                 PLAIN_REPS_2_27 if k == 27 else REPS)
 
+    def four_row(k):
+        tk, rk, _ = cf.fourstep_blocking(1 << k)
+        lab = f"fourstep({rk},{tk})"
+        return (lab, [rk], tk, cases[lab]["args"], cf.fourstep,
+                cf.fourstep_plain,
+                16 * rk * tk + fac_bytes(rk, tk) + 8 * (tk - 1),
+                int(np.log2(rk)), REPS)
+
     for label, rows, lib_tile, args, fn, plain, nbytes, lr_levels, reps in (
-            (label4, [R4], t4, cases[label4]["args"],
-             lambda *a: cf.fourstep(*a, cb=cb4), cf.fourstep_plain,
-             16 * R4 * t4 + fac_bytes(R4, t4) + 8 * (t4 - 1),
-             int(np.log2(R4)), REPS),
-            six_row(25), six_row(27)):
+            four_row(22), four_row(24), six_row(25), six_row(27)):
         n = int(np.prod(rows)) * lib_tile
         xc = torch.complex(args[0], args[1]).reshape(n)
         kernel_row(label, fn, plain, args, nbytes,

@@ -12,11 +12,12 @@
 // __syncthreads(), so the caller may use the block right after it.
 //
 // The second half of the file (from "Hopper building blocks") holds the
-// redesigned loop of gpu_rows.cu, fused.cu, tile_fft.cu and sixstep.cu:
-// radix-8/16 butterfly groups in registers over a padded shared-memory
-// layout, float4 block copies, and a row spread over a thread-block
-// cluster.  The first half is left as it is, so long_range, fourstep
-// and mf compile to the code they always did.
+// redesigned loop of gpu_rows.cu, fused.cu, tile_fft.cu, sixstep.cu,
+// fourstep.cu and the separable long_range.cu: radix-8/16 butterfly
+// groups in registers over a padded shared-memory layout, float4 block
+// copies, a row spread over a thread-block cluster, and long-range passes
+// of three or four levels.  The first half is left as it is, so the dense
+// long_range instantiation and mf compile to the code they always did.
 
 #pragma once
 
@@ -773,6 +774,79 @@ __device__ __forceinline__ void cluster_row_levels(
   row_levels_radix<false, true, kLoad, kStore>(
       sr, si, xr, xi, yr, yi, row + (static_cast<size_t>(rank) << log2_seg),
       log2_seg, log2_seg, LOG2K, tw);
+}
+
+// --- Hopper building blocks: long-range passes of three or four levels -
+//
+// long_range_levels_radix gives its first pass, the one that reads device
+// memory, the 1..3 levels radix 8 leaves over: at R = 128 or 1024 a
+// single level, so each thread holds two points in flight.
+// long_range_levels_deep splits the log2_r levels into the fewest passes
+// of at most KMAX levels (3 or 4: radix 8 or 16), as even as possible
+// and the larger first.  With KMAX = 4 the first pass takes 3 or 4
+// levels whenever log2_r >= 5: 5 = 3 + 2, 7 = 4 + 3, 8 = 4 + 4,
+// 10 = 4 + 3 + 3, 11 = 4 + 4 + 3, 13 = 4 + 3 + 3 + 3; up to 4 levels are
+// one pass from x to y.  KMAX = 3 keeps a kernel to radix-8 registers
+// (6 = 3 + 3, 9 = 3 + 3 + 3), so that more of its blocks fit an SM.
+
+// One long_range_pass of k levels from level l0, k (1..KMAX) picked at
+// run time.
+template <int KMAX, bool kIn, bool kOut, Load kLoad, Store kStore,
+          class Twiddle>
+__device__ __forceinline__ void long_range_pass_k(
+    int k, float* sr, float* si, const float* xr, const float* xi,
+    float* yr, float* yi, size_t c0, size_t stride, int log2_r,
+    int log2_cb, int l0, const Twiddle& tw) {
+  switch (k) {
+    case 1:
+      long_range_pass<1, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l0, tw);
+      break;
+    case 2:
+      long_range_pass<2, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l0, tw);
+      break;
+    case 3:
+      long_range_pass<3, kIn, kOut, kLoad, kStore>(
+          sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l0, tw);
+      break;
+    default:
+      if constexpr (KMAX >= 4) {
+        long_range_pass<4, kIn, kOut, kLoad, kStore>(
+            sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l0, tw);
+      }
+      break;
+  }
+}
+
+// The first log2_r DIF levels of an (R, C) view on its R x cb column
+// block at column c0 (row stride `stride`), from x to y in device memory
+// through the padded planes: long_range_levels' arithmetic, in the
+// passes described above.
+template <int KMAX, Load kLoad, Store kStore, class Twiddle>
+__device__ __forceinline__ void long_range_levels_deep(
+    float* sr, float* si, const float* xr, const float* xi, float* yr,
+    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    const Twiddle& tw) {
+  const int passes = (log2_r + KMAX - 1) / KMAX;
+  const int base = log2_r / passes, extra = log2_r % passes;
+  if (passes == 1) {
+    long_range_pass_k<KMAX, true, true, kLoad, kStore>(
+        log2_r, sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, 0, tw);
+    return;
+  }
+  int l = base + (extra > 0);
+  long_range_pass_k<KMAX, true, false, kLoad, kStore>(
+      l, sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, 0, tw);
+  for (int p = 1; p < passes - 1; ++p) {
+    const int k = base + (p < extra);
+    long_range_pass_k<KMAX, false, false, kLoad, kStore>(
+        k, sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l, tw);
+    l += k;
+  }
+  // extra < passes, so the last pass takes `base` levels
+  long_range_pass_k<KMAX, false, true, kLoad, kStore>(
+      base, sr, si, xr, xi, yr, yi, c0, stride, log2_r, log2_cb, l, tw);
 }
 
 // --- Host set-up done once per card -----------------------------------

@@ -18,19 +18,43 @@
 // Design.  The TPU ran phase A then phase B as one sequential grid,
 // with an HBM carry written by double-buffered DMA; it relied on the
 // grid's steps running in order.  Hopper blocks run in no order, so
-// here one persistent cooperative launch (cudaLaunchCooperativeKernel,
-// grid = resident blocks: occupancy x SMs) walks phase A's tile/cb
-// column blocks in a strided loop, meets at cg::this_grid().sync(),
-// then walks phase B's R rows.  Both phases stage their block in the
-// same dynamic shared memory, max(2 R cb, 2 tile) floats (128 KB at
-// tile 2^14, one block per SM).  The carry is the output buffer itself:
-// phase A writes column blocks of y, phase B reads each row of y whole
-// into shared memory before it writes that row back.  Carry reads go
-// through L2 (__ldcg, fft_common.cuh), never the read-only path, because
-// other blocks wrote them earlier in this launch; the carry pointers
-// are not __restrict__.  The level loops are fft_common.cuh's, shared
-// with long_range.cu and tile_fft.cu, so the kernel agrees with the rql
-// composition to float rounding.
+// here one persistent cooperative launch (grid = the blocks the card
+// holds at once) walks phase A's tile/cb column blocks in a strided
+// loop, meets at cg::this_grid().sync(), then walks phase B's R rows.
+// The carry is the output buffer itself: phase A writes column blocks of
+// y, phase B rewrites each row of y in place.  Carry reads go through L2
+// (ld.global.cg), never the read-only path, because
+// other blocks wrote them earlier in this launch; the carry pointers are
+// not __restrict__, and offsets are 64-bit.
+//
+// The Hopper redesign.  The first design ran 1024-thread blocks of up
+// to 128 KB, one per SM, each loading its block, running one radix-2
+// level per __syncthreads() and storing it, in series.  Now both phases
+// run fft_common.cuh's register radix loop in 256-thread blocks of at
+// most 128 registers, two resident on each SM wherever the blocking
+// allows (every automatic blocking from 2^21 to 2^24), so one block's
+// copies overlap the other's levels — the Hopper counterpart of the
+// reference's double-buffered DMA:
+//   - A: pifft::long_range_levels_deep<4>, x to the carry in passes of
+//     3-4 levels, the first reading device memory with 8 or 16 points a
+//     thread in flight (R = 1024: 4 + 3 + 3 levels, 2 shared-memory
+//     round trips where the first design made 10 levels plus two
+//     copies).  x is read through L2 without evict-first: at cb = 8 a
+//     block reads 32 bytes of each row, and the neighbouring column
+//     block reads the rest of the line soon after;
+//   - B: each tile row on a cluster of cw = 2^LOG2CW blocks of 4096
+//     points (cw = 4 at tile 2^14), as sixstep's phase B2
+//     (pifft::cluster_row_levels, reading the carry through L2).
+// The reference's other overlap, read_dma((j + 1) % 2, ...)
+// (l.1156-1160), was tried as a TMA bulk copy of each block's next row
+// segment into a second shared buffer: it ran phase B alone faster but
+// the whole kernel slower on an H100 (its 99 KB blocks shrink the L1
+// that phase A reads through), so residency is the one design (PERF.md).
+// The grid is counted in whole clusters (cudaOccupancyMaxActiveClusters
+// times cw), and the launch carries both the cooperative and the cluster
+// attribute.  The card's answers (cooperative support, the resident
+// grid, the shared-memory opt-in) are kept per card, so a launch
+// captured into a CUDA graph records the launch alone.
 //
 // Bound.  Device memory.  The input is read once and the output written
 // once (16 bytes per element), plus one carry round trip (another 16);
@@ -39,8 +63,6 @@
 // the 32 moved: far below the card's fp32 ridge of about 20.  The floor
 // is therefore 16 n bytes over HBM bandwidth, and the carry caps this
 // design at half of it (the reference's one-carry roofline ceiling).
-// Not done yet: prefetching row j + 1 under row j (cp.async or TMA),
-// the Hopper counterpart of the TPU kernel's DMA double-buffering.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -51,59 +73,203 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
 
-template <class Twiddle>
-__global__ void __launch_bounds__(kThreads, 1)
+// The phases a build runs, one bit each (A 1, B 2); the normal build
+// runs both.  tools/phase_ms.py builds this file with
+// -DPIFFT_FOURSTEP_PHASES=1 or 2 to time one phase alone.
+#ifndef PIFFT_FOURSTEP_PHASES
+#define PIFFT_FOURSTEP_PHASES 3
+#endif
+constexpr bool kPhaseA = (PIFFT_FOURSTEP_PHASES & 1) != 0;
+constexpr bool kPhaseB = (PIFFT_FOURSTEP_PHASES & 2) != 0;
+
+// The dynamic shared memory of one block, in floats: phase A's two
+// padded R x cb planes or phase B's two padded segments of seg =
+// tile / cw points, whichever is larger (the persistent block holds one
+// phase at a time), rounded up to 16 bytes.
+struct Layout {
+  int plane_a;  // floats of one phase-A plane
+  int plane_b;  // floats of one phase-B plane
+  int total;
+
+  __host__ __device__ Layout(int log2_r, int log2_cb, int log2_seg) {
+    plane_a = pifft::padded_floats(1 << (log2_r + log2_cb));
+    plane_b = pifft::padded_floats(1 << log2_seg);
+    total = ((plane_a > plane_b ? 2 * plane_a : 2 * plane_b) + 3) & ~3;
+  }
+
+  __host__ __device__ int bytes() const {
+    return total * static_cast<int>(sizeof(float));
+  }
+};
+
+template <int LOG2CW, class Twiddle>
+__global__ void __launch_bounds__(kThreads, 2)
 fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* yr, float* yi,  // output and carry: not restrict
                 Twiddle tw,
                 const float* __restrict__ twr, const float* __restrict__ twi,
                 int log2_r, int log2_tile, int log2_cb) {
-  extern __shared__ float smem[];
-  const int half_smem = max(1 << (log2_r + log2_cb), 1 << log2_tile);
-  float* sr = smem;
-  float* si = smem + half_smem;
+  extern __shared__ __align__(16) float smem[];
+  const int log2_seg = log2_tile - LOG2CW;
+  const Layout lay(log2_r, log2_cb, log2_seg);
   const size_t tile = static_cast<size_t>(1) << log2_tile;
+  cg::grid_group grid = cg::this_grid();
 
-  // phase A: the long-range levels, one R x cb column block at a time
-  const int col_blocks = 1 << (log2_tile - log2_cb);
-  for (int b = blockIdx.x; b < col_blocks; b += gridDim.x) {
+  // phase A: the long-range levels, one R x cb column block at a time,
+  // x into the carry
+  const long long col_blocks = 1LL << (log2_tile - log2_cb);
+  for (long long b = blockIdx.x; kPhaseA && b < col_blocks;
+       b += gridDim.x) {
     const size_t c0 = static_cast<size_t>(b) << log2_cb;
-    pifft::load_block<pifft::Load::kCached>(sr, si, xr, xi, c0, tile,
-                                            log2_r, log2_cb);
-    pifft::long_range_levels(sr, si, log2_r, log2_cb, tw, c0);
-    pifft::store_block(yr, yi, sr, si, c0, tile, log2_r, log2_cb);
+    pifft::long_range_levels_deep<4, pifft::Load::kCoherent,
+                                  pifft::Store::kGlobal>(
+        smem, smem + lay.plane_a, xr, xi, yr, yi, c0, tile, log2_r,
+        log2_cb, tw);
   }
 
-  cg::this_grid().sync();
+  grid.sync();
 
-  // phase B: the tile DIF of every carry row, in place
-  const int rows = 1 << log2_r;
-  for (int r = blockIdx.x; r < rows; r += gridDim.x) {
-    const size_t base = static_cast<size_t>(r) << log2_tile;
-    pifft::load_block<pifft::Load::kCoherent>(sr, si, yr, yi, base, 0, 0,
-                                              log2_tile);
-    pifft::tile_levels(sr, si, log2_tile, twr, twi);
-    pifft::store_block(yr, yi, sr, si, base, 0, 0, log2_tile);
+  // phase B: the tile DIF of every carry row, in place, each row on one
+  // cluster of 2^LOG2CW blocks, block rank r ending with segment r
+  if constexpr (kPhaseB) {
+    const long long rows = 1LL << log2_r;
+    const long long clusters = gridDim.x >> LOG2CW;
+    const pifft::FlatTwiddle ftw{twr, twi, 1 << log2_tile};
+    float* sr = smem;
+    float* si = smem + lay.plane_b;
+    for (long long r = blockIdx.x >> LOG2CW; r < rows; r += clusters) {
+      const size_t row = static_cast<size_t>(r) << log2_tile;
+      if constexpr (LOG2CW == 0) {
+        pifft::row_levels_radix<true, true, pifft::Load::kCoherent,
+                                pifft::Store::kStreaming>(
+            sr, si, yr, yi, yr, yi, row, log2_tile, log2_tile, 0, ftw);
+      } else {
+        pifft::cluster_row_levels<LOG2CW, pifft::Load::kCoherent,
+                                  pifft::Store::kStreaming>(
+            sr, si, yr, yi, yr, yi, row, log2_seg, ftw);
+      }
+    }
   }
+}
+
+// The blocks of fourstep_kernel<LOG2CW, ...> the card holds at once
+// with `smem` bytes of shared memory each: blocks per SM times SMs for
+// cw = 1, the most active clusters (cudaOccupancyMaxActiveClusters)
+// times cw otherwise.  Opts the kernel into `smem` first (once per
+// card).  A card without cooperative launch is refused.
+template <int LOG2CW, class Twiddle>
+cudaError_t resident_blocks(int smem, int device, long long* resident) {
+  const void* kernel =
+      reinterpret_cast<const void*>(fourstep_kernel<LOG2CW, Twiddle>);
+  static pifft::SmemOptIn opted;
+  cudaError_t err = pifft::opt_in_smem(kernel, smem, device, opted);
+  if (err != cudaSuccess) return err;
+  int coop = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if constexpr (LOG2CW == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    *resident = static_cast<long long>(per_sm) * sms;
+  } else {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1u << LOG2CW;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(1u << LOG2CW);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = static_cast<size_t>(smem);
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    *resident = static_cast<long long>(clusters) << LOG2CW;
+  }
+  return cudaSuccess;
+}
+
+// One cooperative launch of fourstep_kernel<LOG2CW, ...> on clusters of
+// 2^LOG2CW blocks, both as attributes of this launch
+// (cudaLaunchKernelExC).  The grid is what the card holds at once
+// (resident_blocks, asked once per card and size), capped at the larger
+// phase's work and counted in whole clusters.  A card that holds none,
+// or has no cooperative launch, is refused, never run another way.
+template <int LOG2CW, class Twiddle>
+cudaError_t launch_fourstep(void** args, int smem, long long work,
+                            int device, cudaStream_t stream) {
+  // what the card answered at the last launch of this instantiation,
+  // reused while the device and the shared memory stay the same
+  static int cached_device = -1, cached_smem = -1;
+  static long long cached_resident = 0;
+  if (device != cached_device || smem != cached_smem) {
+    long long resident = 0;
+    const cudaError_t err =
+        resident_blocks<LOG2CW, Twiddle>(smem, device, &resident);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+    cached_device = device;
+    cached_smem = smem;
+    cached_resident = resident;
+  }
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = 1u << LOG2CW;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  long long blocks = work < cached_resident ? work : cached_resident;
+  blocks = (blocks >> LOG2CW) << LOG2CW;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(blocks));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = attrs;
+  config.numAttrs = LOG2CW ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelExC(
+      &config,
+      reinterpret_cast<const void*>(fourstep_kernel<LOG2CW, Twiddle>),
+      args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <class Twiddle>
 int launch(const float* xr, const float* xi, float* yr, float* yi,
            Twiddle tw, const float* twr, const float* twi, int log2_r,
-           int log2_tile, int log2_cb, int device, void* stream) {
-  const int lr = 1 << (log2_r + log2_cb);
-  const int tile = 1 << log2_tile;
-  const int half = lr > tile ? lr : tile;  // floats per plane
-  const int smem = 2 * half * static_cast<int>(sizeof(float));
+           int log2_tile, int log2_cb, int log2_cw, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = Layout(log2_r, log2_cb, log2_tile - log2_cw).bytes();
   const long long col_blocks = 1LL << (log2_tile - log2_cb);
-  const long long rows = 1LL << log2_r;
+  const long long row_blocks = 1LL << (log2_r + log2_cw);
+  const long long work = col_blocks > row_blocks ? col_blocks : row_blocks;
   void* args[] = {&xr, &xi, &yr, &yi, &tw, &twr, &twi,
                   &log2_r, &log2_tile, &log2_cb};
-  return static_cast<int>(pifft::launch_cooperative(
-      reinterpret_cast<const void*>(fourstep_kernel<Twiddle>), kThreads,
-      smem, col_blocks > rows ? col_blocks : rows, args, device, stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log2_cw) {
+    case 0: err = launch_fourstep<0, Twiddle>(args, smem, work, device, s);
+      break;
+    case 1: err = launch_fourstep<1, Twiddle>(args, smem, work, device, s);
+      break;
+    case 2: err = launch_fourstep<2, Twiddle>(args, smem, work, device, s);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -111,18 +277,21 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
 // Launch the n = 2^log2_r * 2^log2_tile point transform of (xr, xi)
 // into (yr, yi) on `stream` (a cudaStream_t): factors (ar, ai, br, bi)
 // of long_range_factors(R, tile), tables (twr, twi) of
-// flat_tables(tile), column blocks of 2^log2_cb.  One cooperative
-// launch; returns its cudaError_t (0 = success).
+// flat_tables(tile), column blocks of 2^log2_cb, phase-B rows on
+// clusters of 2^log2_cw blocks (0..2: ops/cuda_fft.py:
+// row_cluster_width).  One cooperative launch; returns its cudaError_t
+// (0 = success).  The caller (ops/cuda_fft.py: fourstep_blocking)
+// checks the blocking; the planes are 16-byte aligned.
 extern "C" int pifft_fourstep(const float* xr, const float* xi, float* yr,
                               float* yi, const float* ar, const float* ai,
                               const float* br, const float* bi,
                               const float* twr, const float* twi, int log2_r,
-                              int log2_tile, int log2_cb, int device,
-                              void* stream) {
+                              int log2_tile, int log2_cb, int log2_cw,
+                              int device, void* stream) {
   const pifft::SeparableTwiddle tw{ar, ai, br, bi,
                                    static_cast<size_t>(1) << log2_tile};
   return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
-                device, stream);
+                log2_cw, device, stream);
 }
 
 // The same transform with phase A's twiddles read from the dense
@@ -133,10 +302,36 @@ extern "C" int pifft_fourstep_dense(const float* xr, const float* xi,
                                     float* yr, float* yi, const float* wr,
                                     const float* wi, const float* twr,
                                     const float* twi, int log2_r,
-                                    int log2_tile, int log2_cb, int device,
-                                    void* stream) {
+                                    int log2_tile, int log2_cb, int log2_cw,
+                                    int device, void* stream) {
   const pifft::DenseTwiddle<true> tw{wr, wi,
                                      static_cast<size_t>(1) << log2_tile};
   return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
-                device, stream);
+                log2_cw, device, stream);
+}
+
+// The blocks of the separable kernel the card at `device` holds at once
+// for this blocking (the occupancy API's answer, which sizes the
+// persistent grid), or minus the cudaError_t of the query.
+extern "C" long long pifft_fourstep_resident_blocks(int log2_r,
+                                                    int log2_tile,
+                                                    int log2_cb, int log2_cw,
+                                                    int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  const int smem = Layout(log2_r, log2_cb, log2_tile - log2_cw).bytes();
+  long long resident = 0;
+  switch (log2_cw) {
+    case 0: err = resident_blocks<0, pifft::SeparableTwiddle>(smem, device,
+                                                              &resident);
+      break;
+    case 1: err = resident_blocks<1, pifft::SeparableTwiddle>(smem, device,
+                                                              &resident);
+      break;
+    case 2: err = resident_blocks<2, pifft::SeparableTwiddle>(smem, device,
+                                                              &resident);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return err == cudaSuccess ? resident : -static_cast<long long>(err);
 }

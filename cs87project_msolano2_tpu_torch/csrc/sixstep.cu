@@ -77,7 +77,7 @@ namespace {
 constexpr int kThreads = 256;
 
 // The phases a build runs, one bit each (A 1, B1 2, B2 4); the normal
-// build runs all three.  tools/sixstep_phase_ms.py builds this file with
+// build runs all three.  tools/phase_ms.py builds this file with
 // -DPIFFT_SIXSTEP_PHASES=1, 2 or 4 to time one phase alone.
 #ifndef PIFFT_SIXSTEP_PHASES
 #define PIFFT_SIXSTEP_PHASES 7
@@ -282,7 +282,7 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
 // (a2*, b2*) of long_range_factors(R2, tile), tables (twr, twi) of
 // flat_tables(tile), column blocks 2^log2_cb1 (outer) and 2^log2_cb2
 // (inner), phase-B2 rows on clusters of 2^log2_cw blocks (0..2: tile /
-// 4096 at tile 2^13 and 2^14, ops/cuda_fft.py: sixstep_cluster_width).  One
+// 4096 at tile 2^13 and 2^14, ops/cuda_fft.py: row_cluster_width).  One
 // cooperative launch; returns its cudaError_t.  The caller
 // (ops/cuda_fft.py: sixstep_blocking) checks the blocking.
 extern "C" int pifft_sixstep(const float* xr, const float* xi, float* yr,

@@ -80,7 +80,10 @@ def tile_smem_bytes(tile: int) -> int:
 
 
 def long_range_smem_bytes(R: int, cb: int) -> int:
-    return 2 * R * cb * 4
+    """Dynamic shared memory of one long-range block: two padded R x cb
+    planes (the separable kernel's; the dense one stages the same block
+    unpadded, 1/33 less, and is held to this count too)."""
+    return 8 * padded_floats(R * cb)
 
 
 def padded_floats(m: int) -> int:
@@ -157,50 +160,61 @@ def rql_blocking(n: int, tile: int | None = None, cb: int | None = None):
 MIN_AUTO_CB = 8
 
 
-def _auto_cb(tile: int, fits) -> int | None:
-    """The widest power-of-two column block dividing `tile` for which
-    ``fits(cb)`` holds, not below MIN_AUTO_CB; None when none fits.
-    The widest fitting block is at least DEFAULT_CB (one warp reads a
-    128-byte row segment) whenever such a block fits."""
-    cb = tile
-    while cb >= min(MIN_AUTO_CB, tile):
-        if fits(cb):
-            return cb
-        cb //= 2
-    return None
-
-
 def _check_cb(name: str, cb: int, tile: int) -> None:
     if cb < 1 or not is_power_of_two(cb) or tile % cb:
         raise ValueError(f"{name}={cb} must be a power of two dividing "
                          f"tile={tile}")
 
 
+#: points of one phase-B row segment of sixstep and fourstep: a tile
+#: row runs on a cluster of tile / ROW_SEGMENT_POINTS blocks
+ROW_SEGMENT_POINTS = 1 << 12
+
+
+def row_cluster_width(tile: int) -> int:
+    """Blocks of the cluster that holds one tile row in sixstep's phase
+    B2 and fourstep's phase B: tile / ROW_SEGMENT_POINTS (4 at tile
+    2^14), at least 1."""
+    return max(tile // ROW_SEGMENT_POINTS, 1)
+
+
+#: points of an automatic fourstep phase-A block (R x cb): about 34 KB
+#: of padded planes, as a phase-B segment, so that two blocks stay
+#: resident on each SM
+FOURSTEP_BLOCK_POINTS = 1 << 12
+
+
 def fourstep_smem_bytes(R: int, cb: int, tile: int) -> int:
-    """Dynamic shared memory of one fourstep block: the persistent block
-    holds one phase at a time, so the larger of the R x cb long-range
-    block and the tile row (re + im float32 each)."""
-    return max(long_range_smem_bytes(R, cb), tile_smem_bytes(tile))
+    """Dynamic shared memory of one block of csrc/fourstep.cu (its
+    Layout): the persistent block holds one phase at a time,
+    so the larger of phase A's two padded R x cb planes and phase B's
+    two padded segments of tile / ``row_cluster_width(tile)`` points,
+    rounded to 16 bytes."""
+    seg = tile // row_cluster_width(tile)
+    return 4 * ((max(padded_floats(R * cb), padded_floats(seg)) * 2 + 3)
+                & ~3)
 
 
 def fourstep_auto_cb(n: int, tile: int) -> int:
-    """The fourstep column block for an n = R * tile transform: the
-    widest power of two dividing `tile` whose block fits shared memory,
-    never below MIN_AUTO_CB (the counterpart of the reference's
-    ``fourstep_auto_cb``, pallas_fft.py:1196, for Hopper's budget).
-    Raises ValueError naming (R, cb, bytes, limit) when even that block
-    does not fit: R is too tall for one column block, so the transform
-    needs sixstep or a larger tile."""
+    """The fourstep column block for an n = R * tile transform:
+    FOURSTEP_BLOCK_POINTS / R, but at least MIN_AUTO_CB (one whole
+    32-byte sector of each row) and at most `tile` — 32 at n = 2^21, 16
+    at 2^22, 8 from 2^23 on (the counterpart of the reference's
+    ``fourstep_auto_cb``, pallas_fft.py:1196, for Hopper's budget: two
+    blocks a SM up to 2^24, where the 128 registers of a thread set the
+    limit, one at 2^25, where the 135 KB block does).  Raises ValueError
+    naming (R, cb, bytes, limit) when even the narrowest block does not
+    fit shared memory: R is too tall for one column block, so the
+    transform needs sixstep or a larger tile."""
     check_tile(tile)
     R = n // tile
-    cb = _auto_cb(tile, lambda c: fourstep_smem_bytes(R, c, tile)
-                  <= SMEM_LIMIT_BYTES)
-    if cb is None:
-        lo = min(MIN_AUTO_CB, tile)
+    lo = min(MIN_AUTO_CB, tile)
+    cb = min(tile, max(lo, FOURSTEP_BLOCK_POINTS // max(R, 1)))
+    if fourstep_smem_bytes(R, cb, tile) > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"fourstep is infeasible at n={n} (tile={tile}): its narrowest "
-            f"block R={R} x cb={lo} needs "
-            f"{fourstep_smem_bytes(R, lo, tile)} bytes of shared memory "
+            f"block R={R} x cb={cb} needs "
+            f"{fourstep_smem_bytes(R, cb, tile)} bytes of shared memory "
             f"(limit {SMEM_LIMIT_BYTES}); use sixstep or a larger tile")
     return cb
 
@@ -229,27 +243,21 @@ def fourstep_blocking(n: int, tile: int | None = None,
     return tile, R, cb
 
 
-#: points of an automatic sixstep long-range block (R x cb) and of one
-#: phase-B2 row segment: about 34 KB of padded planes, so that two or
-#: more blocks stay resident on each SM
+#: points of an automatic sixstep long-range block (R x cb), as of its
+#: phase-B2 row segment (ROW_SEGMENT_POINTS): about 34 KB of padded
+#: planes, so that two or more blocks stay resident on each SM
 SIXSTEP_BLOCK_POINTS = 1 << 12
-
-
-def sixstep_cluster_width(tile: int) -> int:
-    """Blocks of the cluster that holds one tile row in sixstep's phase
-    B2: tile / SIXSTEP_BLOCK_POINTS (4 at tile 2^14), at least 1."""
-    return max(tile // SIXSTEP_BLOCK_POINTS, 1)
 
 
 def sixstep_smem_bytes(R1: int, cb1: int, R2: int, cb2: int,
                        tile: int) -> int:
     """Dynamic shared memory of one sixstep block: the largest of the
     padded outer R1 x cb1 block, the padded inner R2 x cb2 block and the
-    padded phase-B2 segment of tile / ``sixstep_cluster_width(tile)``
+    padded phase-B2 segment of tile / ``row_cluster_width(tile)``
     points (re + im float32) — the persistent block holds one phase at a
     time."""
     return 8 * max(padded_floats(R1 * cb1), padded_floats(R2 * cb2),
-                   padded_floats(tile // sixstep_cluster_width(tile)))
+                   padded_floats(tile // row_cluster_width(tile)))
 
 
 def sixstep_auto_split(n: int, tile: int) -> tuple[int, int]:
@@ -311,7 +319,7 @@ def sixstep_blocking(n: int, tile: int | None = None, r2: int | None = None,
     """Validated (tile, R1, R2, cb1, cb2) for an n-point sixstep
     transform.  tile defaults to min(n, MAX_SMEM_TILE), the split to
     ``sixstep_auto_split``, the column blocks to ``sixstep_auto_cbs``;
-    phase B2 runs each row on ``sixstep_cluster_width(tile)`` blocks."""
+    phase B2 runs each row on ``row_cluster_width(tile)`` blocks."""
     if tile is None:
         tile = min(n, MAX_SMEM_TILE)
     check_tile(tile)
@@ -731,8 +739,9 @@ def fourstep(xr, xi, *operands, cb: int | None = None,
              separable: bool = True):
     """The whole pi-layout DIF of one n = R * tile transform held as
     (R, tile) float32 planes: the log2(R) long-range levels in R x cb
-    column blocks, then the tile DIF of every row.  `operands` are the
-    long-range twiddles, then the tile tables (twr, twi) of
+    column blocks, then the tile DIF of every row, each on a cluster of
+    ``row_cluster_width(tile)`` blocks.  `operands` are the long-range
+    twiddles, then the tile tables (twr, twi) of
     ``twiddle.flat_tables(tile)``: with `separable` the factors (ar, ai,
     br, bi) of ``twiddle.device_factors(R, tile)``, otherwise the dense
     (wr, wi) of ``twiddle.dense_long_range_tables(R, tile)``.  cb None
@@ -754,12 +763,30 @@ def fourstep(xr, xi, *operands, cb: int | None = None,
     _launch("fourstep",
             "pifft_fourstep" if separable else "pifft_fourstep_dense",
             xr.device, xr, xi, yr, yi, *lr, *tw, ilog2(R), ilog2(tile),
-            ilog2(cb))
+            ilog2(cb), ilog2(row_cluster_width(tile)))
     fourstep.launches += 1
     return yr, yi
 
 
 fourstep.launches = 0
+
+
+def fourstep_resident_blocks(device, n: int, tile: int | None = None,
+                             cb: int | None = None) -> int:
+    """The blocks of the separable fourstep kernel the card at `device`
+    holds at once for the n-point blocking ``fourstep_blocking(n, tile,
+    cb)``: the occupancy API's answer (cudaOccupancyMaxActiveClusters
+    times the cluster width), which sizes the kernel's persistent grid."""
+    index = _card_index("fourstep_resident_blocks", device)
+    tile, R, cb = fourstep_blocking(n, tile, cb)
+    from ..utils.buildlib import load_kernels
+
+    got = load_kernels().pifft_fourstep_resident_blocks(
+        ilog2(R), ilog2(tile), ilog2(cb), ilog2(row_cluster_width(tile)),
+        index)
+    if got < 0:
+        raise RuntimeError(f"fourstep_resident_blocks: CUDA error {-got}")
+    return got
 
 
 # --- kernel 5: sixstep ------------------------------------------------------
@@ -789,7 +816,7 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
     (R1, m = R2 * tile) view in R1 x cb1 blocks, the inner log2(R2)
     levels of each group on its (R2, tile) view in R2 x cb2 blocks, then
     the tile DIF of every row, each on a cluster of
-    ``sixstep_cluster_width(tile)`` blocks.  `operands` are the outer long-range
+    ``row_cluster_width(tile)`` blocks.  `operands` are the outer long-range
     twiddles, the inner ones, then (twr, twi) of ``flat_tables(tile)``:
     with `separable` the factors of ``device_factors(R1, m)`` and
     ``device_factors(R2, tile)``, otherwise the dense tables of
@@ -817,7 +844,7 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
             "pifft_sixstep" if separable else "pifft_sixstep_dense",
             xr.device, xr, xi, yr, yi, *outer, *inner, *tw, ilog2(R1),
             ilog2(R2), ilog2(tile), ilog2(cb1), ilog2(cb2),
-            ilog2(sixstep_cluster_width(tile)))
+            ilog2(row_cluster_width(tile)))
     sixstep.launches += 1
     return yr, yi
 

@@ -64,6 +64,7 @@ from ..ops.cuda_fft import (
     FUSED_MAX_N,
     MAX_ROW_TILE,
     MAX_SMEM_TILE,
+    MIN_AUTO_CB,
     fourstep_auto_cb,
     fourstep_blocking,
     fused_blocking,
@@ -182,7 +183,8 @@ def fourstep_candidates(n: int) -> list:
     """The fourstep race entries for an n-point 1-D key, in the
     reference's order (ladder.py:177): the auto entry, one explicit
     halving of the auto column block (kept while the half is at least
-    DEFAULT_CB), the dense tables while they stay affordable
+    MIN_AUTO_CB, one 32-byte sector of a row: 16 at n = 2^21, 8 at
+    2^22), the dense tables while they stay affordable
     (FOURSTEP_DENSE_MAX_N), and the half tile.  The reference's
     tail=128 entry is raced once, as the auto entry."""
     ents = [("fourstep", {"tile": MAX_SMEM_TILE, "cb": None,
@@ -191,7 +193,7 @@ def fourstep_candidates(n: int) -> list:
         auto = fourstep_auto_cb(n, MAX_SMEM_TILE)
     except ValueError:
         auto = None
-    if auto is not None and auto // 2 >= DEFAULT_CB:
+    if auto is not None and auto // 2 >= MIN_AUTO_CB:
         ents.append(("fourstep", {"tile": MAX_SMEM_TILE, "cb": auto // 2,
                                   "separable": True}))
     if n <= FOURSTEP_DENSE_MAX_N:

@@ -144,6 +144,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr,             # ar, ai, br, bi
         ptr, ptr,                       # twr, twi
         c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(phase-B cluster width)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_sixstep.restype = c.c_int
@@ -171,6 +172,7 @@ def load_kernels() -> ctypes.CDLL:
         ptr, ptr,                       # wr, wi (dense tables)
         ptr, ptr,                       # twr, twi
         c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(phase-B cluster width)
         c.c_int, ptr,                   # device, stream
     ]
     lib.pifft_sixstep_dense.restype = c.c_int
@@ -211,6 +213,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.pifft_gpu_rows_max_clusters.restype = c.c_longlong
     lib.pifft_gpu_rows_max_clusters.argtypes = [c.c_int, c.c_int]
+    lib.pifft_fourstep_resident_blocks.restype = c.c_longlong
+    lib.pifft_fourstep_resident_blocks.argtypes = [c.c_int] * 5
     lib.pifft_fused_carry_limit.restype = c.c_longlong
     lib.pifft_fused_carry_limit.argtypes = [c.c_int]
     lib.pifft_persisting_l2_set_aside.restype = c.c_longlong

@@ -456,3 +456,97 @@ def test_default_timer_leaves_a_wrappers_host_time_out(cuda_device):
     t_slow = autotune.default_timer(slow, key)
     assert 0 < t_bare < 1.0
     assert abs(t_slow - t_bare) <= 0.15 * t_bare + 0.003, (t_bare, t_slow)
+
+
+@pytest.mark.parametrize("separable", [True, False])
+@pytest.mark.parametrize("log2_n,tile",
+                         [(k, 1 << 14) for k in range(21, 26)]
+                         + [(k, 1 << 13) for k in range(21, 25)])
+def test_fourstep_hopper_blocking_vs_plain(cuda_device, log2_n, tile,
+                                           separable):
+    # every automatic blocking from 2^21 to 2^25 (tile 2^14, cb 32 .. 8,
+    # phase-B rows on clusters of 4) and the race's half-tile entry
+    # (ladder.fourstep_candidates) from 2^21 to 2^24 (tile 2^13, rows on
+    # clusters of 2), both twiddle modes
+    R = (1 << log2_n) // tile
+    xr, xi = _planes(48, (R, tile), cuda_device)
+    lr = twiddle.device_factors if separable \
+        else twiddle.dense_long_range_tables
+    args = (xr, xi, *lr(R, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    before = cf.fourstep.launches
+    yk = cf.fourstep(*args, separable=separable)
+    torch.cuda.synchronize()
+    assert cf.fourstep.launches == before + 1
+    yp = cf.fourstep_plain(*args, separable=separable)
+    assert rel_err(*yk, *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("log2_n", range(21, 26))
+def test_fourstep_resident_blocks_per_sm(cuda_device, log2_n):
+    # the persistent grid the occupancy API gives at every automatic
+    # blocking, in whole clusters of 4: more blocks than SMs to 2^24
+    # (two a SM where the cluster placement allows; the 128 registers of
+    # a thread cap it at two), at most one a SM at 2^25, whose 2048 x 8
+    # phase-A block takes 135 KB (cb cannot go below one 32-byte sector
+    # of a row)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    resident = cf.fourstep_resident_blocks(cuda_device, 1 << log2_n)
+    assert resident % cf.row_cluster_width(cf.MAX_SMEM_TILE) == 0
+    if log2_n < 25:
+        assert sms < resident <= 2 * sms
+    else:
+        assert 0 < resident <= sms
+
+
+@pytest.mark.parametrize("batch,R,C,cb", [
+    (1, 2, 4096, 32), (2, 4, 256, 2), (1, 16, 1024, 16),
+    (4, 16, 1 << 14, 32),       # tube_cuda's segments at n = 2^20, p = 4
+    (2, 32, 2048, 4), (1, 128, 1 << 14, 32),
+    (1, 256, 1 << 14, 32),      # rql at n = 2^22
+    (3, 512, 1024, 8), (1, 1024, 1 << 14, 16), (1, 2048, 1 << 12, 8),
+    (1, 4096, 1 << 12, 4),
+    (1, 8192, 2048, 2)])        # a 2^27-point tube segment's cb
+def test_long_range_sep_hopper_blocking_vs_plain(cuda_device, batch, R, C,
+                                                 cb):
+    # R from 2 to 8192 (every first-pass radix, passes of at most 3 or 4
+    # levels), cb from 2 to 32, batches above 1
+    xr, xi = _planes(49, (batch, R, C), cuda_device)
+    fac = twiddle.device_factors(R, C, cuda_device)
+    before = cf.long_range_sep.launches
+    yk = cf.long_range_sep(xr, xi, *fac, cb=cb)
+    torch.cuda.synchronize()
+    assert cf.long_range_sep.launches == before + 1
+    assert rel_err(*yk, *cf.long_range_sep_plain(xr, xi, *fac)) <= FP32_TOL
+
+
+def _misaligned(seed, shape, device):
+    # contiguous planes 4 bytes past a 16-byte boundary
+    n = int(np.prod(shape))
+    out = []
+    for x in _planes(seed, shape, device):
+        flat = torch.empty(n + 1, device=device)
+        view = flat[1:].view(shape)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
+def test_long_range_sep_takes_a_misaligned_view(cuda_device):
+    xr, xi = _misaligned(50, (2, 64, 1 << 12), cuda_device)
+    assert xr.data_ptr() % 16
+    fac = twiddle.device_factors(64, 1 << 12, cuda_device)
+    yk = cf.long_range_sep(xr, xi, *fac, cb=32)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *cf.long_range_sep_plain(xr, xi, *fac)) <= FP32_TOL
+
+
+def test_fourstep_takes_a_misaligned_view(cuda_device):
+    R, tile = 256, 1 << 14
+    xr, xi = _misaligned(51, (R, tile), cuda_device)
+    assert xr.data_ptr() % 16
+    args = (xr, xi, *twiddle.device_factors(R, tile, cuda_device),
+            *twiddle.flat_tables(tile, cuda_device))
+    yk = cf.fourstep(*args)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *cf.fourstep_plain(*args)) <= FP32_TOL

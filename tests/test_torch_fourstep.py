@@ -139,21 +139,40 @@ def test_fourstep_feasibility_bounds():
     assert not ladder._sixstep_feasible(1 << 15)  # R < 4 at tile 2^14
 
 
-@pytest.mark.parametrize("n,cb", [(1 << 21, 128), (1 << 22, 64),
-                                  (1 << 23, 32), (1 << 24, 16),
-                                  (1 << 25, 8)])
-def test_fourstep_auto_cb_policy(n, cb):
+# (n, cb, bytes of one block): FOURSTEP_BLOCK_POINTS / R, never below
+# one 32-byte sector a row.  A 4096-point block (33,792 bytes padded, as
+# a phase-B segment) from 2^21 to 2^23, 1024 x 8 at 2^24, 2048 x 8 at
+# 2^25.  The blocks an SM holds are the occupancy API's answer, which
+# the card test test_fourstep_resident_blocks_per_sm checks
+@pytest.mark.parametrize("n,cb,smem", [(1 << 21, 32, 33792),
+                                       (1 << 22, 16, 33792),
+                                       (1 << 23, 8, 33792),
+                                       (1 << 24, 8, 67584),
+                                       (1 << 25, 8, 135168)])
+def test_fourstep_auto_cb_policy(n, cb, smem):
     tile = cf.MAX_SMEM_TILE
     assert cf.fourstep_auto_cb(n, tile) == cb
     R = n // tile
-    assert cf.fourstep_smem_bytes(R, cb, tile) <= cf.SMEM_LIMIT_BYTES
-    assert cf.fourstep_smem_bytes(R, 2 * cb, tile) > cf.SMEM_LIMIT_BYTES \
-        or 2 * cb > tile
+    assert cb == max(cf.MIN_AUTO_CB, cf.FOURSTEP_BLOCK_POINTS // R)
+    assert cf.fourstep_smem_bytes(R, cb, tile) == smem <= cf.SMEM_LIMIT_BYTES
+
+
+def test_fourstep_smem_follows_the_kernels_build():
+    # fourstep_smem_bytes counts csrc/fourstep.cu's Layout: the larger of
+    # phase A's block and a phase-B segment (tile / row_cluster_width),
+    # two padded planes, rounded to 16 bytes
+    tile = cf.MAX_SMEM_TILE
+    assert {R: cf.fourstep_smem_bytes(R, 8, tile)
+            for R in (2, 512, 1024, 2048)} == {
+        2: 33792, 512: 33792, 1024: 67584, 2048: 135168}
+    assert cf.fourstep_smem_bytes(64, 64, 1 << 10) == 33792
+    assert cf.fourstep_smem_bytes(2, 8, 256) == 2112
+    assert cf.fourstep_smem_bytes(256, 16, 1 << 13) == 33792
 
 
 def test_fourstep_auto_cb_infeasible_names_the_block():
     with pytest.raises(ValueError,
-                       match=r"R=4096 x cb=8 needs 262144 .*limit 232448"):
+                       match=r"R=4096 x cb=8 needs 270336 .*limit 232448"):
         cf.fourstep_auto_cb(1 << 26, 1 << 14)
 
 

@@ -186,6 +186,21 @@ def test_over_budget_cb_raises_before_launch():
                           cb=1024)
 
 
+def test_padded_long_range_blocks_refuse_nothing_new():
+    # check_long_range counts the separable kernel's padded planes (one
+    # float every 32): every (R, cb) the unpadded count accepted still
+    # passes, from R = 2 to 2^14 and cb = 1 to 2^14
+    for R in (1 << k for k in range(1, 15)):
+        for cb in (1 << k for k in range(15)):
+            if 8 * R * cb <= cf.SMEM_LIMIT_BYTES:
+                cf.check_long_range(R, cb)
+                assert cf.long_range_smem_bytes(R, cb) == \
+                    8 * (R * cb + R * cb // 32)
+            else:
+                with pytest.raises(ValueError, match=f"R={R} x cb={cb}"):
+                    cf.check_long_range(R, cb)
+
+
 def test_rql_blocking_defaults():
     assert cf.rql_blocking(1 << 20) == (1 << 14, 64, 32)
     assert cf.rql_blocking(1 << 12) == (1 << 12, 1, 32)

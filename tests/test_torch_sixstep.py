@@ -125,7 +125,7 @@ def test_auto_cbs_policy(n, want):
                                      (4096, 1), (256, 1)])
 def test_phase_b2_cluster_width(tile, cw):
     # each phase-B2 block holds SIXSTEP_BLOCK_POINTS points of a row
-    assert cf.sixstep_cluster_width(tile) == cw
+    assert cf.row_cluster_width(tile) == cw
     assert tile // cw == min(tile, cf.SIXSTEP_BLOCK_POINTS)
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time per call of the tile_fft and sixstep kernels, beside the
-fourstep, gpu_rows and fused kernels as the control, on one card, for
-one or more checkouts of the PyTorch/CUDA port.
+"""Device time per call of the fourstep and long_range_sep kernels,
+beside the sixstep, tile_fft, gpu_rows, fused and long_range_dense
+kernels as the control, on one card, for one or more checkouts of the
+PyTorch/CUDA port.
 
     python3 tools/kernel_device_ms.py [ROOT ...] [--reps 30]
 
@@ -18,10 +19,12 @@ root only.  For every case the child prints one JSON line with:
   ``chip_smoke.py`` phase 7 times kernels: it includes the wrapper's
   host time before the launch when the card is idle.
 
-Cases, each at the root's own automatic blocking: tile_fft at
-4096 x 4096, 64 x 2^14 (rql's row pass at n = 2^20) and 128 x 2^13
-(mf's); sixstep at n = 2^25 and 2^27; the control: fourstep at n =
-2^24, gpu_rows at 4096 x 4096 and fused at n = 2^20.
+Cases, each at the root's own automatic blocking: fourstep at n = 2^22
+and 2^24 in both twiddle modes; long_range_sep at 1 x 64 x 2^14 (rql's
+first pass at n = 2^20, config 2), 1 x 256 x 2^14 (rql at 2^22) and
+4 x 16 x 2^14 (tube_cuda's segments at n = 2^20, p = 4), cb 32; the
+control: sixstep at n = 2^25, tile_fft at 4096 x 4096, gpu_rows at
+4096 x 4096, fused at n = 2^20 and long_range_dense at 1 x 64 x 2^14.
 
     python3 tools/kernel_device_ms.py --widths [--reps 30]
 
@@ -44,10 +47,10 @@ import subprocess
 import sys
 
 SEED = 0
-#: (rows, tile) of the tile_fft cases
-TILE_SHAPES = ((4096, 4096), (64, 1 << 14), (128, 1 << 13))
-#: log2 n of the sixstep cases
-SIXSTEP_LOG2N = (25, 27)
+#: log2 n of the fourstep cases
+FOURSTEP_LOG2N = (22, 24)
+#: (batch, R, C) of the long_range_sep cases
+LONG_RANGE_SHAPES = ((1, 64, 1 << 14), (1, 256, 1 << 14), (4, 16, 1 << 14))
 #: (rows, tile) of the width study (--widths)
 WIDTH_SHAPES = tuple((rows, 1 << 14) for rows in (8, 16, 32, 64, 96, 128)) \
     + ((64, 1 << 13), (128, 1 << 13))
@@ -61,6 +64,7 @@ def child(reps: int, widths: bool) -> None:
     from cs87project_msolano2_tpu_torch.hw import lowering
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
+        dense_long_range_tables,
         device_factors,
         flat_tables,
     )
@@ -119,24 +123,30 @@ def child(reps: int, widths: bool) -> None:
                         f"{auto[1]} sms={sms}", "tile_fft", launch)
             del x, y
         return
-    for rows, tile in TILE_SHAPES:
-        x = planes((rows, tile))
-        tw = flat_tables(tile, dev)
-        measure(f"tile_fft({rows},{tile})", "tile_fft", cf.tile_fft, *x,
-                *tw)
+    for k in FOURSTEP_LOG2N:
+        tile, R, cb = cf.fourstep_blocking(1 << k)
+        x = planes((R, tile))
+        for separable in (True, False):
+            lr = device_factors if separable else dense_long_range_tables
+            measure(f"fourstep(2^{k}) cb={cb} separable={separable}",
+                    "fourstep",
+                    lambda *a, s=separable: cf.fourstep(*a, separable=s),
+                    *x, *lr(R, tile, dev), *flat_tables(tile, dev))
         del x
-    for k in SIXSTEP_LOG2N:
-        tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << k)
-        x = planes((R1, R2, tile))
-        measure(f"sixstep(2^{k}) auto {(R1, R2, cb1, cb2)}", "sixstep",
-                cf.sixstep, *x, *device_factors(R1, R2 * tile, dev),
-                *device_factors(R2, tile, dev), *flat_tables(tile, dev))
+    for batch, R, C in LONG_RANGE_SHAPES:
+        x = planes((batch, R, C))
+        measure(f"long_range_sep({batch},{R},{C}) cb={cf.DEFAULT_CB}",
+                "long_range", cf.long_range_sep, *x,
+                *device_factors(R, C, dev), cf.DEFAULT_CB)
         del x
-    tile, R, cb = cf.fourstep_blocking(1 << 24)
-    x = planes((R, tile))
-    measure(f"fourstep(2^24) (control) cb={cb}", "fourstep", cf.fourstep,
-            *x, *device_factors(R, tile, dev), *flat_tables(tile, dev))
+    tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << 25)
+    x = planes((R1, R2, tile))
+    measure(f"sixstep(2^25) (control) auto {(R1, R2, cb1, cb2)}", "sixstep",
+            cf.sixstep, *x, *device_factors(R1, R2 * tile, dev),
+            *device_factors(R2, tile, dev), *flat_tables(tile, dev))
     x = planes((4096, 4096))
+    measure("tile_fft(4096,4096) (control)", "tile_fft", cf.tile_fft, *x,
+            *flat_tables(4096, dev))
     measure("gpu_rows(4096,4096) (control)", "gpu_rows", cf.gpu_rows, *x,
             *lowering.device_twiddle_stack(4096, dev))
     R, T = 64, 1 << 14
@@ -144,6 +154,10 @@ def child(reps: int, widths: bool) -> None:
     measure(f"fused({R},{T}) (control) auto {cf.fused_blocking(R * T)}",
             "fused", cf.fused, *x, *device_factors(R, T, dev),
             *flat_tables(T, dev))
+    x = planes((1, R, T))
+    measure(f"long_range_dense(1,{R},{T}) (control) cb={cf.DEFAULT_CB}",
+            "long_range", cf.long_range_dense, *x,
+            *dense_long_range_tables(R, T, dev), cf.DEFAULT_CB)
 
 
 def main() -> int:
