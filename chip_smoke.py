@@ -26,7 +26,9 @@ and path with CUDA events.  Phase 3 also holds gpu_rows at every
 row regime and cluster size (2..16 blocks), fused at every phase-B
 cluster width in both alias modes, tile_fft at every tile (2..2^14) and
 at every cluster width of the rql and mf row passes, long_range_sep
-across R (2 .. 8192) and cb (2 .. 32) with batches above 1, fourstep at
+and long_range_dense across R (2 .. 8192) and cb (2 .. 32) with batches
+above 1, the matmul funnel in each tensor-core mode on its persistent
+grid (wgmma, B's bf16 planes cut once per card), fourstep at
 every automatic blocking from n = 2^21 to 2^25 and at the race's half
 tile (2^13) from 2^21 to 2^24, and sixstep at n = 2^25 and 2^27, both in
 both twiddle modes, against their plain versions
@@ -207,6 +209,8 @@ def run(store) -> int:
         dense_long_range_tables,
         device_factors,
         device_funnel_b,
+        device_funnel_b2_tiles,
+        device_funnel_b_tiles,
         device_funnel_factors,
         flat_tables,
     )
@@ -381,6 +385,16 @@ def run(store) -> int:
     check_kernel("long_range_dense(1,64,16384)",
                  lambda *a: cf.long_range_dense(*a, cf.DEFAULT_CB),
                  cf.long_range_dense_plain, (xr3, xi3, *dense))
+    # the dense kernel on long_range_sep's shapes: the same passes (both
+    # KMAX, every first-pass split, cb 2 .. 32) with the dense tables
+    for batch, rr, cc, cb in LONG_RANGE_CHECKS:
+        xl = random_complex(rng, (batch, rr, cc), dev, rr * cc)
+        label = f"long_range_dense({batch},{rr},{cc}) cb={cb}"
+        check_kernel(label, lambda *a, cb=cb: cf.long_range_dense(*a, cb),
+                     cf.long_range_dense_plain,
+                     (*xl, *dense_long_range_tables(rr, cc, dev)))
+        cases[label].pop("args")
+    del xl
     x2r, x2i = random_complex(rng, (R * T,), dev)
 
     def two_kernel_plain(xr, xi):
@@ -475,16 +489,24 @@ def run(store) -> int:
         f"limit {cf.fused_carry_limit(dev)} bytes of persisting L2")
     # the matmul funnel at the mf path's shape (R = 128, n = 2^20) in each
     # tensor-core mode: the same bf16 planes and products as the plain
-    # version, summed in another order
+    # version, summed in another order; B's planes cut and tiled once per
+    # mode
+    from cs87project_msolano2_tpu_torch.ops.precision import split_levels
+
     Rm, Cm, cbm = cf.mf_blocking(R * T)
     xrm, xim = random_complex(rng, (Rm, Cm), dev, Rm * Cm)
-    mf_args = (xrm, xim, *device_funnel_b(Rm, dev),
-               *device_funnel_factors(Rm, Rm * Cm, dev))
-    for mode in ("split3", "default", "highest"):
+    mf_args = {mode: (xrm, xim,
+                      device_funnel_b_tiles(Rm, split_levels(mode), dev),
+                      *device_funnel_factors(Rm, Rm * Cm, dev)[:2],
+                      device_funnel_b2_tiles(Rm, Rm * Cm, dev))
+               for mode in ("split3", "default", "highest")}
+    mf_grid = {}
+    for mode, margs in mf_args.items():
+        mf_grid[mode] = cf.mf_resident_blocks(dev, mode)
         check_kernel(f"matmul_funnel({Rm},{Cm}) {mode}",
                      lambda *a, m=mode: cf.matmul_funnel(*a, precision=m),
                      lambda *a, m=mode: cf.matmul_funnel_plain(
-                         *a, precision=m), mf_args)
+                         *a, precision=m), margs)
     # gpu_rows at every row regime: short rows many to a block, 2^14 in
     # one block, 2^15 .. 2^18 on clusters of 2 .. 16 blocks; automatic
     # blocks and 8 rows a block (or a cluster) where shared memory
@@ -506,7 +528,9 @@ def run(store) -> int:
                              a, b, *t, block_rows=br),
                          cf.gpu_rows_plain, (*xg, *stack))
         del xg
-    log(f"# phase 3 blocking: mf R={Rm} C={Cm} cb={cbm}; gpu_rows "
+    log(f"# phase 3 blocking: mf R={Rm} C={Cm} cb={cbm}, "
+        f"{(Cm // cbm) * -(-Rm // 64)} units on a persistent grid of "
+        f"{mf_grid} blocks; gpu_rows "
         f"automatic block_rows "
         f"{[cf.gpu_rows_blocking(r, n) for r, n in GPU_ROWS_CHECKS]}")
 
@@ -909,20 +933,23 @@ def run(store) -> int:
     from cs87project_msolano2_tpu_torch.ops.precision import dot_passes
 
     nm = Rm * Cm
-    bm = torch.complex(*mf_args[2:4]).to(torch.complex64)
-    fa = [a.double() for a in mf_args[4:]]
+    bm = torch.complex(*device_funnel_b(Rm, dev)).to(torch.complex64)
+    fa = [a.double() for a in device_funnel_factors(Rm, Rm * Cm, dev)]
     tm = (torch.complex(fa[0], fa[1]).reshape(Rm, -1, 1)
           * torch.complex(fa[2], fa[3]).reshape(Rm, 1, 128)) \
         .reshape(Rm, Cm).to(torch.complex64)
     xm = torch.complex(xrm, xim)
-    mf_bytes = 16 * nm + 8 * (Rm * Rm + Rm * (Cm // 128) + Rm * 128)
     for mode in ("split3", "default", "highest"):
         label = f"matmul_funnel({Rm},{Cm}) {mode}"
+        # B's split_levels(mode) bf16 planes, re + im
+        mf_bytes = 16 * nm + 4 * split_levels(mode) * Rm * Rm \
+            + 8 * (Rm * (Cm // 128) + Rm * 128)
         kernel_row(label,
                    lambda *a, m=mode: cf.matmul_funnel(*a, precision=m),
                    lambda *a, m=mode: cf.matmul_funnel_plain(*a,
                                                              precision=m),
-                   mf_args, mf_bytes, 14 * nm, 5 * nm * int(np.log2(Rm)),
+                   mf_args[mode], mf_bytes, 14 * nm,
+                   5 * nm * int(np.log2(Rm)),
                    (lambda b, x, t: torch.matmul(b, x) * t, bm, xm, tm),
                    bf16_flops=dot_passes(mode) * 8 * Rm * nm)
     del bm, tm, xm
@@ -930,7 +957,8 @@ def run(store) -> int:
     def mf_plain(xr, xi, mode="split3"):
         # the mf composition on the two kernels' plain versions
         yr, yi = cf.matmul_funnel_plain(xr.reshape(Rm, Cm),
-                                        xi.reshape(Rm, Cm), *mf_args[2:],
+                                        xi.reshape(Rm, Cm),
+                                        *mf_args[mode][2:],
                                         precision=mode)
         return cf.tile_fft_plain(yr, yi, *flat_tables(Cm, dev))
 

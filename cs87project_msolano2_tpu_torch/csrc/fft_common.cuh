@@ -1,7 +1,6 @@
 // fft_common.cuh: the radix-2 DIF level loops every FFT kernel of the
-// port runs on a block staged in shared memory, the twiddle sources of
-// the long-range levels, and the block copies between device memory and
-// shared memory.
+// port runs on a block staged in shared memory, and the twiddle sources
+// of the long-range and row levels.
 //
 // tile_fft.cu, long_range.cu, fourstep.cu, sixstep.cu, fused.cu and
 // gpu_rows.cu all include this header, so the kernels do the same float32
@@ -11,13 +10,11 @@
 // Every function is called by all threads of a block and ends with a
 // __syncthreads(), so the caller may use the block right after it.
 //
-// The second half of the file (from "Hopper building blocks") holds the
-// redesigned loop of gpu_rows.cu, fused.cu, tile_fft.cu, sixstep.cu,
-// fourstep.cu and the separable long_range.cu: radix-8/16 butterfly
-// groups in registers over a padded shared-memory layout, float4 block
-// copies, a row spread over a thread-block cluster, and long-range passes
-// of three or four levels.  The first half is left as it is, so the dense
-// long_range instantiation and mf compile to the code they always did.
+// The loops (from "Hopper building blocks") are radix-8/16 butterfly
+// groups in registers over a padded shared-memory layout, float4 copies,
+// a row spread over a thread-block cluster, and long-range passes of
+// three or four levels.  mf.cu, the tensor-core funnel, needs none of
+// them.
 
 #pragma once
 
@@ -61,47 +58,11 @@ __device__ __forceinline__ void store_one(float* p, float v) {
   }
 }
 
-// Copy a (2^log2_rows) x (2^log2_cb) block whose row r starts at
-// src + base + r * stride into shared memory (row-major, cb per row).
-// A warp reads neighbouring floats of one row.
-template <Load kLoad>
-__device__ __forceinline__ void load_block(float* sr, float* si,
-                                           const float* xr, const float* xi,
-                                           size_t base, size_t stride,
-                                           int log2_rows, int log2_cb) {
-  const int total = 1 << (log2_rows + log2_cb);
-  const int cmask = (1 << log2_cb) - 1;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const size_t g = base + static_cast<size_t>(idx >> log2_cb) * stride +
-                     (idx & cmask);
-    sr[idx] = load_one<kLoad>(xr + g);
-    si[idx] = load_one<kLoad>(xi + g);
-  }
-  __syncthreads();
-}
-
-// The inverse of load_block: write the staged block back to device
-// memory at the same (base, stride) geometry.
-template <Store kStore = Store::kCached>
-__device__ __forceinline__ void store_block(float* yr, float* yi,
-                                            const float* sr, const float* si,
-                                            size_t base, size_t stride,
-                                            int log2_rows, int log2_cb) {
-  const int total = 1 << (log2_rows + log2_cb);
-  const int cmask = (1 << log2_cb) - 1;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const size_t g = base + static_cast<size_t>(idx >> log2_cb) * stride +
-                     (idx & cmask);
-    store_one<kStore>(yr + g, sr[idx]);
-    store_one<kStore>(yi + g, si[idx]);
-  }
-  __syncthreads();
-}
-
 // The two twiddle sources of the long-range levels of an n = R * C
-// transform viewed as (R, C).  at(l, o, j, col) gives the level-l
-// twiddle of row offset j (0 <= j < R >> (l + 1)) and column col,
-// o = R - (R >> l).
+// transform viewed as (R, C).  Long-range level l pairs rows (r, r +
+// R/2^(l+1)) inside each group of R/2^l rows, and the difference is
+// multiplied by at(l, o, j, col): the level-l twiddle of row offset j
+// (0 <= j < R >> (l + 1)) and column col, o = R - (R >> l).
 
 // Separable factors: the outer product A[o + j] * B[l, col] of the
 // per-row factor A (R - 1 floats) and the per-level column factor B
@@ -156,7 +117,7 @@ struct DenseTwiddle {
 // level0 on.  As a long-range source of the (R, C) view of one n-point
 // row, level l's twiddle of row offset j and column col is
 // W_{n >> l}^{j * C + col}, entry j * C + col of stack row level0 + l;
-// as a row source (row_levels), level l's w[j] is entry j of stack row
+// as a row source (row_pass), level l's w[j] is entry j of stack row
 // level0 + l.  Read through the read-only path: every block of a
 // launch shares the stack.
 struct StackTwiddle {
@@ -197,86 +158,6 @@ struct FlatTwiddle {
     w_i = __ldg(wi + g);
   }
 };
-
-// The first log2_r DIF levels of an n = R * C transform viewed as
-// (R, C), on the R x cb column block staged in (sr, si) whose first
-// column is c0.  Level l pairs rows (r, r + R/2^(l+1)) inside each group
-// of R/2^l rows, and the difference is multiplied by the twiddle
-// tw.at(l, o, j, c0 + c) (o = R - (R >> l)): either source above, picked
-// at compile time.
-template <class Twiddle>
-__device__ __forceinline__ void long_range_levels(float* sr, float* si,
-                                                  int log2_r, int log2_cb,
-                                                  const Twiddle& tw,
-                                                  size_t c0) {
-  const int R = 1 << log2_r;
-  const int cmask = (1 << log2_cb) - 1;
-  const int pairs = 1 << (log2_r + log2_cb - 1);
-  for (int l = 0; l < log2_r; ++l) {
-    const int lh = log2_r - l - 1;  // log2(half)
-    const int half = 1 << lh;
-    const int o = R - (R >> l);
-    for (int idx = threadIdx.x; idx < pairs; idx += blockDim.x) {
-      const int q = idx >> log2_cb, c = idx & cmask;
-      const int j = q & (half - 1);
-      const int top = ((((q >> lh) << (lh + 1)) + j) << log2_cb) | c;
-      const int bot = top + (half << log2_cb);
-      float wr, wi;
-      tw.at(l, o, j, c0 + c, wr, wi);
-      const float xr_t = sr[top], xi_t = si[top];
-      const float xr_b = sr[bot], xi_b = si[bot];
-      const float dr = xr_t - xr_b, di = xi_t - xi_b;
-      sr[top] = xr_t + xr_b;
-      si[top] = xi_t + xi_b;
-      sr[bot] = dr * wr - di * wi;
-      si[bot] = dr * wi + di * wr;
-    }
-    __syncthreads();
-  }
-}
-
-// The first log2_n DIF levels of every 2^log2_n-point row of the
-// 2^log2_total points staged in (sr, si) (rows back to back), leaving
-// each row in pi layout (bit-reversed order) once all log2_n levels of
-// the row have run.  Level l pairs (top, top + half), half = n >> (l + 1)
-// inside each group of 2 * half, and multiplies the difference by w_l[j]
-// from the row source tw.row(l, j): either source above, picked at
-// compile time.
-template <class Twiddle>
-__device__ __forceinline__ void row_levels(float* sr, float* si,
-                                           int log2_total, int log2_n,
-                                           const Twiddle& tw) {
-  const int pairs = 1 << (log2_total - 1);
-  for (int l = 0; l < log2_n; ++l) {
-    const int lh = log2_n - l - 1;  // log2(half)
-    const int half = 1 << lh;
-    for (int i = threadIdx.x; i < pairs; i += blockDim.x) {
-      const int j = i & (half - 1);
-      const int top = ((i >> lh) << (lh + 1)) + j;
-      const int bot = top + half;
-      const float ar = sr[top], ai = si[top];
-      const float br = sr[bot], bi = si[bot];
-      const float dr = ar - br, di = ai - bi;
-      float wr, wi;
-      tw.row(l, j, wr, wi);
-      sr[top] = ar + br;
-      si[top] = ai + bi;
-      sr[bot] = dr * wr - di * wi;
-      si[bot] = dr * wi + di * wr;
-    }
-    __syncthreads();
-  }
-}
-
-// All log2_tile DIF levels of one tile-point row staged in (sr, si),
-// leaving it in pi layout, twiddles from the concatenated per-level
-// tables of twiddle_tables(tile) (level l at offset tile - (tile >> l)).
-__device__ __forceinline__ void tile_levels(float* sr, float* si,
-                                            int log2_tile, const float* twr,
-                                            const float* twi) {
-  row_levels(sr, si, log2_tile, log2_tile,
-             FlatTwiddle{twr, twi, 1 << log2_tile});
-}
 
 // Everything a persistent cooperative launch needs: opt the kernel into
 // `smem` bytes of dynamic shared memory, size the grid to the blocks
@@ -337,16 +218,19 @@ inline cudaError_t launch_cooperative(
 
 // --- Hopper building blocks: the register radix loop ------------------
 //
-// The loops above do one radix-2 level per __syncthreads(), each
-// butterfly four shared-memory reads and four writes, between a block
-// copy in and a block copy out.  The passes below load the 2^K points
+// Level l of an n-point row pairs (top, top + half), half = n >> (l +
+// 1), inside each group of 2 half points: the sum goes on top, the
+// difference times w_l[j] (j = top mod half) below.  Run one level per
+// __syncthreads(), each butterfly is four shared-memory reads and four
+// writes, between a block copy in and a block copy out.  The passes
+// below load the 2^K points
 // of one butterfly group (K <= 4: radix 16) into registers, run K DIF
 // levels there with the same butterflies and the same table twiddles,
 // and write them back: one shared-memory pass and one __syncthreads()
 // per K levels.  The first pass of a row reads its points straight from
 // device memory and the last writes them straight back, so a 2^12-point
 // row is three passes (device -> registers -> shared, shared -> shared,
-// shared -> device) where the loops above made fourteen.  A group's
+// shared -> device) where a level at a time makes fourteen.  A group's
 // 2^(K-q-1) distinct level-q twiddles are read once each (through the
 // twiddle source) and shared by its 2^q butterfly pairs.
 //
@@ -389,7 +273,7 @@ __device__ __forceinline__ void store_four(float* p, float4 v) {
 // level q pairs (t, t + h), h = 2^(K-q-1), inside each group of 2h
 // points and multiplies the difference by the twiddle of its offset
 // jj = t mod h, held at slot tw_slot<K>(q, jj) of (wr, wi) — the
-// arithmetic of row_levels, butterfly for butterfly.  The twiddles are
+// radix-2 DIF butterfly above, level by level.  The twiddles are
 // loaded by the caller (all 2^K - 1 of a group before any butterfly, so
 // their loads overlap), and every index here is a constant once the
 // loops are unrolled: the points stay in registers.
@@ -540,7 +424,7 @@ __device__ __forceinline__ void row_first_pass(
 
 // All log2_n DIF levels of every 2^log2_n-point row of a block's
 // 2^log2_total points, rows back to back, leaving each row in pi layout:
-// row_levels' arithmetic in passes of 4 levels, the first pass taking
+// the radix-2 DIF levels in passes of 4, the first pass taking
 // the 1..4 left over.  The rows come from x + g0 (kIn) or the padded
 // planes (sr, si), and go to y + g0 (kOut) or back to the planes.
 // Level l's twiddles are tw.row(level + l, j): `level` > 0 runs the
@@ -586,8 +470,8 @@ __device__ __forceinline__ void row_levels_radix(
 // column block whose row r, column c lies at c0 + r * stride + c in
 // device memory and at pad_index(r * cb + c) in the planes: thread item
 // idx owns column c and the rows row0 + t * 2^s_log, s_log = log2_r - l0
-// - K.  Twiddles tw.at(l, R - (R >> l), j, c0 + c), as long_range_levels
-// reads them.  kIn / kOut as in row_pass (scalar copies: a warp reads
+// - K.  Twiddles tw.at(l, R - (R >> l), j, c0 + c).  kIn / kOut as in
+// row_pass (scalar copies: a warp reads
 // or writes 32 neighbouring columns of one row).  Ends in
 // __syncthreads().
 template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
@@ -664,8 +548,8 @@ __device__ __forceinline__ void long_range_first_pass(
 
 // The first log2_r DIF levels of an (R, C) view on its R x cb column
 // block at column c0 (row stride `stride`), from x to y in device
-// memory through the padded planes: long_range_levels' arithmetic in
-// passes of 3 levels (radix 8: an R = 64, cb = 32 block gives 256 thread
+// memory through the padded planes: the long-range levels in passes of
+// 3 levels (radix 8: an R = 64, cb = 32 block gives 256 thread
 // items a pass), the first pass taking the 1..3 left over.
 template <Load kLoad, Store kStore, class Twiddle>
 __device__ __forceinline__ void long_range_levels_radix(
@@ -821,8 +705,8 @@ __device__ __forceinline__ void long_range_pass_k(
 
 // The first log2_r DIF levels of an (R, C) view on its R x cb column
 // block at column c0 (row stride `stride`), from x to y in device memory
-// through the padded planes: long_range_levels' arithmetic, in the
-// passes described above.
+// through the padded planes: the long-range levels, in the passes
+// described above.
 template <int KMAX, Load kLoad, Store kStore, class Twiddle>
 __device__ __forceinline__ void long_range_levels_deep(
     float* sr, float* si, const float* xr, const float* xi, float* yr,

@@ -24,9 +24,9 @@ funnel and the ``gpu`` backend:
   launch whose carry stays in L2 (replaces ``_fused_fft_kernel``), the
   ladder's ``fused`` and ``fused-alias``, raced by the autotuner;
 * ``matmul_funnel`` — the first log2(R) levels as one R-point DFT matrix
-  product on the tensor cores (bf16 mma.sync, passes per precision
-  mode), times the twiddle grid (replaces ``_matmul_funnel_kernel``);
-  with ``tile_fft`` the ladder's ``mf``;
+  product on the tensor cores (bf16 wgmma, passes per precision mode,
+  B's planes cut once per card), times the twiddle grid (replaces
+  ``_matmul_funnel_kernel``); with ``tile_fft`` the ladder's ``mf``;
 * ``gpu_rows`` — the radix-2 DIF of every row of up to 2^18 points,
   twiddles from the per-level stack (replaces ``hw/lowering.py``'s
   ``_radix2_kernel``), the ``gpu`` backend's ``gpu-rows``.
@@ -53,14 +53,19 @@ import torch
 from ..hw.inventory import sm_count
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
-from .precision import make_dot, split_levels, storage_dtype
+from .precision import bf16_split, planes_dot, split_levels, storage_dtype
 from .twiddle import (
+    FUNNEL_TILE_K,
+    FUNNEL_TILE_ROWS,
     dense_long_range_tables,
     device_factors,
-    device_funnel_b,
+    device_funnel_b2_tiles,
+    device_funnel_b_tiles,
     device_funnel_factors,
     device_tables,
     flat_tables,
+    funnel_b2_untile,
+    funnel_b_untile,
 )
 
 LANE = 128
@@ -80,9 +85,8 @@ def tile_smem_bytes(tile: int) -> int:
 
 
 def long_range_smem_bytes(R: int, cb: int) -> int:
-    """Dynamic shared memory of one long-range block: two padded R x cb
-    planes (the separable kernel's; the dense one stages the same block
-    unpadded, 1/33 less, and is held to this count too)."""
+    """Dynamic shared memory of one long-range block, separable or
+    dense: two padded R x cb planes."""
     return 8 * padded_floats(R * cb)
 
 
@@ -661,8 +665,9 @@ def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
     """First log2(R) DIF levels of each transform of (batch, R, C)
     float32 planes (n = R*C each), twiddles read from the dense (R - 1,
     C) tables of ``twiddle.dense_long_range_tables(R, C)``.  CUDA
-    tensors launch the kernel (csrc/long_range.cu, dense tables) in column
-    blocks of `cb`; CPU tensors take ``long_range_dense_plain``.
+    tensors launch the kernel (csrc/long_range.cu: the separable
+    kernel's passes of 3-4 levels, dense tables) in column blocks of
+    `cb`; CPU tensors take ``long_range_dense_plain``.
     Returns new planes."""
     _check_planes(xr, xi, 3, "long_range_dense")
     batch, R, C = xr.shape
@@ -994,9 +999,10 @@ fused.launches = 0
 
 # --- kernel 7: matmul_funnel ------------------------------------------------
 
-#: columns of one warp's work item in the funnel kernel: cb is a multiple
-MF_ITEM_COLS = 64
-#: rows of one mma.sync tile: R is a multiple
+#: columns (wgmma's N) of one work unit of the funnel kernel (64 rows,
+#: its M, by MF_TILE_COLS): the column block cb is always MF_TILE_COLS
+MF_TILE_COLS = 64
+#: rows of X one wgmma step contracts (its K): R is a multiple
 MF_MIN_R = 16
 
 
@@ -1010,26 +1016,20 @@ def check_mf_storage(precision: str) -> None:
                          f"fp32 storage only")
 
 
-def mf_smem_bytes(R: int, cb: int) -> int:
-    """Dynamic shared memory of one funnel block: its cb columns of Xr
-    and Xi staged column-major, 2R + 8 floats a column."""
-    return cb * (2 * R + 8) * 4
-
-
 def mf_blocking(n: int, R: int = LANE, cb: int | None = None):
     """Validated (R, C, cb) for the matmul funnel of an n-point
     transform viewed as (R, C = n/R).  R is a power of two of at least
-    16 (one mma.sync tile) dividing n; C must be a multiple of 128 (the
+    16 (one wgmma K step) dividing n; C must be a multiple of 128 (the
     twiddle factors' lane split) and at most MAX_SMEM_TILE (the tile
-    kernel finishes each row of C points); cb, the columns a block owns,
-    a multiple of 64 dividing C whose block fits shared memory.  cb None
-    takes the widest block up to 64 * max(1, 128 / R) columns (8 work
-    items for the block's 8 warps) that divides C and fits.  With R = 128
-    that serves 2^14 <= n <= 2^21.  Raises ValueError naming the
-    limiting pair before any launch."""
+    kernel finishes each row of C points).  The kernel's work unit is
+    64 rows of Y by MF_TILE_COLS columns (one warpgroup's m64n64
+    accumulators), so cb, the column block, is MF_TILE_COLS: None takes
+    it, any other value is refused.  With R = 128 that serves 2^14 <= n
+    <= 2^21.  Raises ValueError naming the limiting pair before any
+    launch."""
     if R < MF_MIN_R or not is_power_of_two(R):
         raise ValueError(f"mf: R={R} must be a power of two >= {MF_MIN_R} "
-                         f"(one {MF_MIN_R}-row tensor-core tile)")
+                         f"(one {MF_MIN_R}-row wgmma step)")
     if n % R:
         raise ValueError(f"mf: R={R} must divide n={n}")
     C = n // R
@@ -1041,30 +1041,29 @@ def mf_blocking(n: int, R: int = LANE, cb: int | None = None):
                          f"MAX_SMEM_TILE={MAX_SMEM_TILE}, the longest row "
                          f"the tile kernel finishes; use a larger R")
     if cb is None:
-        cb = MF_ITEM_COLS * max(1, LANE // R)
-        while cb > MF_ITEM_COLS and (C % cb or mf_smem_bytes(R, cb)
-                                     > SMEM_LIMIT_BYTES):
-            cb //= 2
-    if cb < MF_ITEM_COLS or cb % MF_ITEM_COLS or C % cb:
-        raise ValueError(f"mf: cb={cb} must be a multiple of "
-                         f"{MF_ITEM_COLS} dividing n/R = {C}")
-    if mf_smem_bytes(R, cb) > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"mf blocks R={R} x cb={cb} need {mf_smem_bytes(R, cb)} bytes "
-            f"of shared memory (limit {SMEM_LIMIT_BYTES}); reduce cb or R")
+        cb = MF_TILE_COLS
+    if cb != MF_TILE_COLS:
+        raise ValueError(f"mf: cb={cb} is not the kernel's column block "
+                         f"of {MF_TILE_COLS} (one warpgroup's "
+                         f"m64n{MF_TILE_COLS} accumulators); pass "
+                         f"cb={MF_TILE_COLS} or None")
     return R, C, cb
 
 
-def matmul_funnel_plain(xr, xi, br, bi, ar, ai, b2r, b2i,
-                        precision: str = "split3"):
-    """Plain version of ``matmul_funnel``: the four real products of
-    B @ X through ``precision.make_dot(precision)``, then the twiddle
-    grid rebuilt from A (R, Q) and B2 (R, 128) as a broadcast complex
-    product, in the TPU body's order of operations."""
-    dot = make_dot(precision)
+def matmul_funnel_plain(xr, xi, bt, ar, ai, b2t, precision: str = "split3"):
+    """Plain version of ``matmul_funnel``: B's planes and B2 taken back
+    out of their tiles, X cut into the mode's bf16 planes and the four real
+    products of B @ X summed over plane pairs (``precision.planes_dot``,
+    the sum ``make_dot`` forms), then the twiddle grid rebuilt from A
+    (R, Q) and B2 (R, 128) as a broadcast complex product, in the TPU
+    body's order of operations."""
+    levels = split_levels(precision)
     R, C = xr.shape
-    yr = dot(br, xr) - dot(bi, xi)
-    yi = dot(br, xi) + dot(bi, xr)
+    bpr, bpi = funnel_b_untile(bt)
+    b2r, b2i = funnel_b2_untile(b2t, R)
+    xpr, xpi = bf16_split(xr, levels), bf16_split(xi, levels)
+    yr = planes_dot(bpr, xpr) - planes_dot(bpi, xpi)
+    yi = planes_dot(bpr, xpi) + planes_dot(bpi, xpr)
     a_r = ar.reshape(R, -1, 1)
     a_i = ai.reshape(R, -1, 1)
     w_r = b2r.reshape(R, 1, LANE)
@@ -1074,33 +1073,69 @@ def matmul_funnel_plain(xr, xi, br, bi, ar, ai, b2r, b2i,
     return yr * tr - yi * ti, yr * ti + yi * tr
 
 
-def matmul_funnel(xr, xi, br, bi, ar, ai, b2r, b2i, cb: int | None = None,
+def _check_b_tiles(bt, levels: int, R: int, device) -> None:
+    if not isinstance(bt, torch.Tensor) or bt.dtype != torch.bfloat16 \
+            or not bt.is_contiguous():
+        raise ValueError("matmul_funnel: B must be contiguous bfloat16 "
+                         "tiles (twiddle.device_funnel_b_tiles)")
+    units = -(-R // FUNNEL_TILE_ROWS)
+    want = (units, R // FUNNEL_TILE_K, 2, levels, 2, FUNNEL_TILE_ROWS, 8)
+    if tuple(bt.shape) != want:
+        raise ValueError(f"matmul_funnel: B tiles shape {tuple(bt.shape)} "
+                         f"!= {want} (the mode's {levels} planes of the "
+                         f"({R}, {R}) matrix)")
+    if bt.device != device:
+        raise ValueError(f"matmul_funnel: B tiles on {bt.device}, planes "
+                         f"on {device}")
+
+
+def matmul_funnel(xr, xi, bt, ar, ai, b2t, cb: int | None = None,
                   precision: str = "split3"):
     """Y = (B @ X) * T on (R, C) float32 planes: the first log2(R) DIF
-    levels of an n = R * C transform.  (br, bi) is the (R, R) DFT matrix
-    of ``twiddle.dft_funnel_b(R)``; (ar, ai, b2r, b2i) the factors of
-    ``twiddle.dft_funnel_factors(R, n)``, A (R, C/128) and B2 (R, 128)
-    (``twiddle.device_funnel_b`` / ``device_funnel_factors``).
+    levels of an n = R * C transform.  bt holds the L bfloat16 planes of
+    the DFT matrix of ``twiddle.dft_funnel_b(R)``, Br's and Bi's, L =
+    ``precision.split_levels(precision)``, as the kernel's step tiles
+    (``twiddle.device_funnel_b_tiles``); (ar, ai) the factor A (R,
+    C/128) of ``twiddle.dft_funnel_factors(R, n)``
+    (``twiddle.device_funnel_factors``) and b2t its factor B2 (R, 128)
+    as the kernel's epilogue tiles (``twiddle.device_funnel_b2_tiles``).
     `precision` sets the bf16 tensor-core passes of the product
-    (``precision.dot_passes``).  cb None takes ``mf_blocking``'s block.
-    CUDA tensors launch the kernel (csrc/mf.cu) once; CPU tensors take
-    ``matmul_funnel_plain``.  Returns new (R, C) planes."""
+    (``precision.dot_passes``).  cb:
+    ``mf_blocking``'s.  CUDA tensors launch the kernel (csrc/mf.cu)
+    once; CPU tensors take ``matmul_funnel_plain``.  Returns new (R, C)
+    planes."""
     _check_planes(xr, xi, 2, "matmul_funnel")
     R, C = xr.shape
     levels = split_levels(precision)
     R, C, cb = mf_blocking(R * C, R, cb)
+    _check_b_tiles(bt, levels, R, xr.device)
     _check_operands("matmul_funnel", xr.device,
-                    (br, (R, R)), (bi, (R, R)),
                     (ar, (R, C // LANE)), (ai, (R, C // LANE)),
-                    (b2r, (R, LANE)), (b2i, (R, LANE)))
+                    (b2t, (-(-R // FUNNEL_TILE_ROWS), 2, 4, 2, 8, 8, 4, 2,
+                           2)))
     if xr.device.type == "cpu":
-        return matmul_funnel_plain(xr, xi, br, bi, ar, ai, b2r, b2i,
-                                   precision)
+        return matmul_funnel_plain(xr, xi, bt, ar, ai, b2t, precision)
+    # the kernel copies X 16 bytes at a time
+    xr, xi = _aligned(xr), _aligned(xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("matmul_funnel", "pifft_matmul_funnel", xr.device, xr, xi, yr,
-            yi, br, bi, ar, ai, b2r, b2i, ilog2(R), C, ilog2(cb), levels)
+            yi, bt, ar, ai, b2t, ilog2(R), C, levels)
     matmul_funnel.launches += 1
     return yr, yi
+
+
+def mf_resident_blocks(device, precision: str = "split3") -> int:
+    """The persistent grid ``matmul_funnel`` launches with on `device` in
+    `precision` (the blocks the card holds at once; fewer when there are
+    fewer work units).  Needs the card."""
+    from ..utils.buildlib import load_kernels
+
+    index = _card_index("mf_resident_blocks", device)
+    blocks = load_kernels().pifft_matmul_funnel_resident_blocks(
+        index, split_levels(precision))
+    if blocks < 1:
+        raise RuntimeError(f"mf_resident_blocks: CUDA error {-blocks}")
+    return blocks
 
 
 matmul_funnel.launches = 0
@@ -1381,8 +1416,10 @@ def fft_pi_layout_cuda_mf(xr, xi, R: int = LANE, cb: int | None = None,
     dev = xr.device
     yr, yi = matmul_funnel(xr.contiguous().reshape(R, C),
                            xi.contiguous().reshape(R, C),
-                           *device_funnel_b(R, dev),
-                           *device_funnel_factors(R, n, dev), cb=cb,
+                           device_funnel_b_tiles(R, split_levels(precision),
+                                                 dev),
+                           *device_funnel_factors(R, n, dev)[:2],
+                           device_funnel_b2_tiles(R, n, dev), cb=cb,
                            precision=precision)
     yr, yi = tile_fft(yr, yi, *flat_tables(C, dev))
     return yr.reshape(n), yi.reshape(n)

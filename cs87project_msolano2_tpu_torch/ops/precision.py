@@ -25,7 +25,9 @@ split that XLA's HIGHEST runs on the TPU's MXU, here on the tensor
 cores, not as float32 FMAs (PERF.md has the error each mode measured).
 bf16 products are exact in float32, so the plain ``make_dot`` below
 (products of the same planes in float32) computes the same sum in
-another order.
+another order.  The kernel takes the DFT matrix already cut
+(``twiddle.device_funnel_b_planes``) and cuts X itself; ``planes_dot``
+is the plain sum over planes given.
 
 Every other level of the port runs as float32 butterflies, which meet
 the tightest fp32-storage budget in every mode.  bf16 storage is not
@@ -141,25 +143,34 @@ def bf16_split(x, levels: int) -> list:
     return planes
 
 
+def planes_dot(a_planes, b_planes):
+    """Plain (m, k) @ (k, n) of two operands already cut into the same
+    number L of bf16 planes: the products of plane i of `a` and plane j
+    of `b` for i + j < L, summed in float32 smallest terms first, as the
+    funnel kernel accumulates them."""
+    import torch
+
+    levels = len(a_planes)
+    xs = [p.to(torch.float32) for p in a_planes]
+    bs = [p.to(torch.float32) for p in b_planes]
+    out = None
+    for s in range(levels - 1, -1, -1):
+        for i in range(s + 1):
+            term = xs[i] @ bs[s - i]
+            out = term if out is None else out + term
+    return out
+
+
 def make_dot(mode: str):
     """Plain (m, k) @ (k, n) under `mode`: both float32 operands cut by
     ``bf16_split`` into ``split_levels(mode)`` planes, and the products
     of plane i and plane j for i + j < levels summed in float32 — the
-    sum the funnel kernel's tensor-core passes compute."""
-    import torch
-
+    sum the funnel kernel's tensor-core passes compute
+    (``planes_dot``)."""
     levels = split_levels(mode)
 
     def dot(x, b):
-        xs = [p.to(torch.float32) for p in bf16_split(x, levels)]
-        bs = [p.to(torch.float32) for p in bf16_split(b, levels)]
-        out = None
-        # smallest terms first, as the kernel accumulates them
-        for s in range(levels - 1, -1, -1):
-            for i in range(s + 1):
-                term = xs[i] @ bs[s - i]
-                out = term if out is None else out + term
-        return out
+        return planes_dot(bf16_split(x, levels), bf16_split(b, levels))
 
     return dot
 

@@ -9,8 +9,10 @@ per-level tables reshaped to the (R, C) view
 (``dense_long_range_tables``).
 
 The matmul funnel (``mf``) takes the bit-reversed R-point DFT matrix
-(``dft_funnel_b``) and the separable factors of its (R, n/R) twiddle
-grid (``dft_funnel_factors``).
+(``dft_funnel_b``), cut into the bf16 planes of a precision mode
+(``device_funnel_b_planes``) and laid out as its kernel's step tiles
+(``device_funnel_b_tiles``), and the separable factors of its (R, n/R)
+twiddle grid (``dft_funnel_factors``).
 
 The host tables are bit-identical to the reference package's
 (``ops/twiddle.py:twiddle_tables``,
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from .bits import bit_reverse_indices, ilog2
+from .precision import bf16_split
 
 #: lane width of the funnel's (R, Q, LANE) column view
 LANE = 128
@@ -199,3 +202,89 @@ def device_funnel_b(R: int, device) -> tuple:
 def device_funnel_factors(R: int, n: int, device) -> tuple:
     """``dft_funnel_factors(R, n)`` as kernel operands on `device`."""
     return funnel_factors_from_reference(*dft_funnel_factors(R, n), device)
+
+
+@lru_cache(maxsize=16)
+def device_funnel_b_planes(R: int, levels: int, device) -> tuple:
+    """``dft_funnel_b(R)`` cut into `levels` bf16 planes on `device`
+    (``precision.bf16_split``: round to nearest even), (bpr, bpi) each
+    stacked (levels, R, R) bfloat16: the planes
+    ``device_funnel_b_tiles`` lays out for the kernel."""
+    return tuple(torch.stack(bf16_split(b, levels)).to(device)
+                 for b in funnel_b_from_reference(*dft_funnel_b(R), "cpu"))
+
+
+#: rows and columns of one step's slice of B in the funnel kernel (its
+#: work unit's rows, one wgmma's K)
+FUNNEL_TILE_ROWS = 64
+FUNNEL_TILE_K = 16
+
+
+def funnel_b_tiles(bpr, bpi):
+    """The funnel's bf16 planes (bpr, bpi), each (L, R, R), as the
+    kernel's step tiles: one bfloat16 tensor (row_units, R / 16, 2, L,
+    2, 64, 8) whose [u, k] slice holds rows 64 u .. 64 u + 63 and columns
+    16 k .. 16 k + 15 of every plane of Br, then of Bi, contiguous, each
+    plane in wgmma's no-swizzle K-major layout (columns 16 k .. + 7 of
+    the 64 rows, then the next 8), rows past R zero (R < 64)."""
+    L, R, _ = bpr.shape
+    rows = max(R, FUNNEL_TILE_ROWS)
+    p = torch.zeros((2, L, rows, R), dtype=bpr.dtype, device=bpr.device)
+    p[0, :, :R] = bpr
+    p[1, :, :R] = bpi
+    # m, s, u, row, k, half, e
+    p = p.reshape(2, L, rows // FUNNEL_TILE_ROWS, FUNNEL_TILE_ROWS,
+                  R // FUNNEL_TILE_K, 2, 8)
+    return p.permute(2, 4, 0, 1, 5, 3, 6).contiguous()
+
+
+def funnel_b_untile(bt) -> tuple:
+    """The (bpr, bpi) planes, each (L, R, R), of the tiles `bt` of
+    ``funnel_b_tiles``."""
+    units, ks, _, L, _, tile_rows, _ = bt.shape
+    R = ks * FUNNEL_TILE_K
+    p = bt.permute(2, 3, 0, 5, 1, 4, 6)
+    p = p.reshape(2, L, units * tile_rows, R)[:, :, :R]
+    return p[0].contiguous(), p[1].contiguous()
+
+
+@lru_cache(maxsize=16)
+def device_funnel_b_tiles(R: int, levels: int, device):
+    """``funnel_b_tiles`` of ``device_funnel_b_planes(R, levels)`` on
+    `device`: the B operand the funnel kernel reads, made once per card,
+    R and number of planes."""
+    return funnel_b_tiles(*device_funnel_b_planes(R, levels, "cpu")) \
+        .to(device)
+
+
+def funnel_b2_tiles(b2r, b2i):
+    """The funnel's column factor B2, (b2r, b2i) each (R, 128), as its
+    kernel's epilogue reads it: one float32 tensor (row_units, 2, 4, 2,
+    8, 8, 4, 2, 2) whose [u, l, w, h, j, g, t] entry holds row 64 u +
+    16 w + 8 h + g, columns 64 l + 8 j + 2 t and the next, re then im
+    (a warp's 32 lanes read 512 contiguous bytes), rows past R zero."""
+    R = b2r.shape[0]
+    rows = max(R, FUNNEL_TILE_ROWS)
+    p = torch.zeros((2, rows, LANE), dtype=b2r.dtype, device=b2r.device)
+    p[0, :R] = b2r
+    p[1, :R] = b2i
+    # p, u, w, h, g, l, j, t, e
+    p = p.reshape(2, rows // FUNNEL_TILE_ROWS, 4, 2, 8, 2, 8, 4, 2)
+    return p.permute(1, 5, 2, 3, 6, 4, 7, 0, 8).contiguous()
+
+
+def funnel_b2_untile(wt, R: int) -> tuple:
+    """The (b2r, b2i) factors, each (R, 128), of the tiles `wt` of
+    ``funnel_b2_tiles``."""
+    p = wt.permute(7, 0, 2, 3, 5, 1, 4, 6, 8)
+    p = p.reshape(2, -1, LANE)[:, :R]
+    return p[0].contiguous(), p[1].contiguous()
+
+
+@lru_cache(maxsize=8)
+def device_funnel_b2_tiles(R: int, n: int, device):
+    """``funnel_b2_tiles`` of the B2 factor of ``dft_funnel_factors(R,
+    n)`` on `device`, made once per card, R and n."""
+    _, _, b2r, b2i = funnel_factors_from_reference(
+        *dft_funnel_factors(R, n), "cpu")
+    return funnel_b2_tiles(b2r, b2i).to(device)

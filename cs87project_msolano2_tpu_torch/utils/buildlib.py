@@ -198,11 +198,17 @@ def load_kernels() -> ctypes.CDLL:
     lib.pifft_matmul_funnel.restype = c.c_int
     lib.pifft_matmul_funnel.argtypes = [
         ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
-        ptr, ptr,                       # br, bi (the DFT matrix)
-        ptr, ptr, ptr, ptr,             # ar, ai, b2r, b2i (factors)
-        c.c_int, c.c_int, c.c_int,      # log2(R), C, log2(cb)
+        ptr,                            # bt (B's bf16 planes as tiles)
+        ptr, ptr, ptr,                  # ar, ai, b2t (factors, B2 tiled)
+        c.c_int, c.c_int,               # log2(R), C
         c.c_int,                        # bf16 planes per operand
         c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_matmul_funnel_resident_blocks.restype = c.c_longlong
+    lib.pifft_matmul_funnel_resident_blocks.argtypes = [c.c_int, c.c_int]
+    lib.pifft_matmul_funnel_trace.restype = c.c_int
+    lib.pifft_matmul_funnel_trace.argtypes = [
+        ptr,                            # host buffer for the trace
     ]
     lib.pifft_gpu_rows.restype = c.c_int
     lib.pifft_gpu_rows.argtypes = [

@@ -14,7 +14,7 @@ from cs87project_msolano2_tpu_torch.models.fft import fft, fft_planes_fast
 from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
 from cs87project_msolano2_tpu_torch.ops import twiddle
 from cs87project_msolano2_tpu_torch.ops.bits import bit_reverse_indices
-from cs87project_msolano2_tpu_torch.ops.precision import rel_err
+from cs87project_msolano2_tpu_torch.ops.precision import rel_err, split_levels
 
 # kernel vs plain version: same float32 ops, except nvcc's FMA contraction
 FP32_TOL = 1e-6
@@ -131,10 +131,26 @@ def test_bad_launch_raises(cuda_device):
         cf.tile_fft(xr, xi, twr, twi)
 
 
+#: (batch, R, C, cb) of the long-range kernels on their Hopper passes:
+#: R from 2 to 8192 (every first-pass radix, passes of at most 3 or 4
+#: levels, both KMAX), cb from 2 to 32, batches above 1
+LONG_RANGE_HOPPER_SHAPES = [
+    (1, 2, 4096, 32), (2, 4, 256, 2), (1, 16, 1024, 16),
+    (4, 16, 1 << 14, 32),       # tube_cuda's segments at n = 2^20, p = 4
+    (2, 32, 2048, 4), (1, 128, 1 << 14, 32),
+    (1, 256, 1 << 14, 32),      # rql at n = 2^22
+    (3, 512, 1024, 8), (1, 1024, 1 << 14, 16), (1, 2048, 1 << 12, 8),
+    (1, 4096, 1 << 12, 4),
+    (1, 8192, 2048, 2)]         # a 2^27-point tube segment's cb
+
+
 @pytest.mark.parametrize("batch,R,C,cb", [(1, 64, 1 << 14, 32),
                                          (3, 4, 1 << 14, 32),
-                                         (2, 8, 512, 8)])
+                                         (2, 8, 512, 8)]
+                         + LONG_RANGE_HOPPER_SHAPES)
 def test_long_range_dense_kernel_vs_plain(cuda_device, batch, R, C, cb):
+    # the two-kernel entry's pass (1 x 64 x 2^14 at n = 2^20) and
+    # long_range_sep's shapes: the same passes with the dense tables
     xr, xi = _planes(38, (batch, R, C), cuda_device)
     tables = twiddle.dense_long_range_tables(R, C, cuda_device)
     before = cf.long_range_dense.launches
@@ -273,15 +289,28 @@ MODE_BUDGET = {"split3": 1e-5, "highest": 5e-6, "fp32": 5e-6,
 
 @pytest.mark.parametrize("mode", ["split3", "default", "highest", "fp32"])
 @pytest.mark.parametrize("R,n,cb", [(16, 1 << 12, None),   # one K step
-                                    (16, 1 << 14, 1024),
+                                    (16, 1 << 14, 64),
+                                    (32, 1 << 13, None),
+                                    (64, 1 << 14, None),
                                     (128, 1 << 14, None),
-                                    (128, 1 << 20, None)])
+                                    (128, 1 << 20, None),
+                                    (128, 1 << 21, None),
+                                    (256, 1 << 15, None),
+                                    (256, 1 << 21, None)])
 def test_matmul_funnel_kernel_vs_plain(cuda_device, mode, R, n, cb):
     # the same bf16 planes and products in both, summed in another
-    # order: float32 rounding of the accumulation
+    # order: float32 rounding of the accumulation.  R < 64 pads the
+    # 64-row unit with zero rows; at n = 2^21 the units outnumber the
+    # persistent grid and are not a multiple of it
     xr, xi = _planes(40, (R, n // R), cuda_device)
-    args = (xr, xi, *twiddle.device_funnel_b(R, cuda_device),
-            *twiddle.device_funnel_factors(R, n, cuda_device))
+    args = (xr, xi, twiddle.device_funnel_b_tiles(
+                R, split_levels(mode), cuda_device),
+            *twiddle.device_funnel_factors(R, n, cuda_device)[:2],
+            twiddle.device_funnel_b2_tiles(R, n, cuda_device))
+    if n == 1 << 21:
+        units = (n // R // cf.MF_TILE_COLS) * -(-R // 64)
+        grid = cf.mf_resident_blocks(cuda_device, mode)
+        assert units > grid and units % grid, (units, grid)
     before = cf.matmul_funnel.launches
     yk = cf.matmul_funnel(*args, cb=cb, precision=mode)
     torch.cuda.synchronize()
@@ -499,14 +528,7 @@ def test_fourstep_resident_blocks_per_sm(cuda_device, log2_n):
         assert 0 < resident <= sms
 
 
-@pytest.mark.parametrize("batch,R,C,cb", [
-    (1, 2, 4096, 32), (2, 4, 256, 2), (1, 16, 1024, 16),
-    (4, 16, 1 << 14, 32),       # tube_cuda's segments at n = 2^20, p = 4
-    (2, 32, 2048, 4), (1, 128, 1 << 14, 32),
-    (1, 256, 1 << 14, 32),      # rql at n = 2^22
-    (3, 512, 1024, 8), (1, 1024, 1 << 14, 16), (1, 2048, 1 << 12, 8),
-    (1, 4096, 1 << 12, 4),
-    (1, 8192, 2048, 2)])        # a 2^27-point tube segment's cb
+@pytest.mark.parametrize("batch,R,C,cb", LONG_RANGE_HOPPER_SHAPES)
 def test_long_range_sep_hopper_blocking_vs_plain(cuda_device, batch, R, C,
                                                  cb):
     # R from 2 to 8192 (every first-pass radix, passes of at most 3 or 4
@@ -539,6 +561,30 @@ def test_long_range_sep_takes_a_misaligned_view(cuda_device):
     yk = cf.long_range_sep(xr, xi, *fac, cb=32)
     torch.cuda.synchronize()
     assert rel_err(*yk, *cf.long_range_sep_plain(xr, xi, *fac)) <= FP32_TOL
+
+
+def test_long_range_dense_takes_a_misaligned_view(cuda_device):
+    xr, xi = _misaligned(52, (2, 64, 1 << 12), cuda_device)
+    assert xr.data_ptr() % 16
+    tables = twiddle.dense_long_range_tables(64, 1 << 12, cuda_device)
+    yk = cf.long_range_dense(xr, xi, *tables, cb=32)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *cf.long_range_dense_plain(xr, xi, *tables)) \
+        <= FP32_TOL
+
+
+def test_matmul_funnel_takes_a_misaligned_view(cuda_device):
+    # the kernel copies X 16 bytes at a time: a view off a 16-byte
+    # boundary is copied to fresh memory first
+    R, n = 128, 1 << 14
+    xr, xi = _misaligned(53, (R, n // R), cuda_device)
+    assert xr.data_ptr() % 16
+    args = (xr, xi, twiddle.device_funnel_b_tiles(R, 2, cuda_device),
+            *twiddle.device_funnel_factors(R, n, cuda_device)[:2],
+            twiddle.device_funnel_b2_tiles(R, n, cuda_device))
+    yk = cf.matmul_funnel(*args)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *cf.matmul_funnel_plain(*args)) <= FP32_TOL
 
 
 def test_fourstep_takes_a_misaligned_view(cuda_device):

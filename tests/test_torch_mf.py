@@ -140,6 +140,75 @@ def test_split_planes_sum_back():
             <= tol
 
 
+def _jnp_split(x, levels):
+    # the reference's casts (precision.py:231-235), carried to `levels`
+    # planes: each the round to nearest even of what the planes before it
+    # left
+    planes, rest = [], jnp.asarray(x)
+    for _ in range(levels):
+        p = rest.astype(jnp.bfloat16)
+        planes.append(np.asarray(p).view(np.int16))
+        rest = rest - p.astype(jnp.float32)
+    return planes
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+@pytest.mark.parametrize("R", [16, 32, 64, 128, 256])
+def test_funnel_b_planes_are_the_reference_split(R, levels):
+    # the B operand the funnel kernel reads: the reference's dft_funnel_b
+    # cut into `levels` bf16 planes, bit for bit, made once per R and L
+    planes = twiddle.device_funnel_b_planes(R, levels, CPU)
+    assert planes is twiddle.device_funnel_b_planes(R, levels, CPU)
+    for mine, theirs in zip(planes, ref_pf.dft_funnel_b(R)):
+        assert mine.dtype == torch.bfloat16 and mine.is_contiguous()
+        assert tuple(mine.shape) == (levels, R, R)
+        for got, want in zip(mine, _jnp_split(theirs, levels)):
+            np.testing.assert_array_equal(_bits(got), want)
+        # and they sum back to B as test_split_planes_sum_back's planes
+        back = sum(p.to(torch.float64) for p in mine)
+        tol = {1: 2 ** -8, 2: 2 ** -16, 3: 2 ** -24}[levels]
+        b = torch.from_numpy(theirs).double()
+        big = b.abs() > 0
+        assert float(((back - b)[big].abs() / b[big].abs()).max()) <= tol
+        assert torch.equal(back[~big], b[~big])
+    # the kernel's step tiles hold exactly these planes: slice (u, k) of
+    # Br then Bi is rows 64 u .., columns 16 k .. of every plane, first
+    # columns 16 k .. + 7 of the 64 rows, then the next 8 (wgmma's
+    # K-major core matrices), rows past R zero
+    tiles = twiddle.device_funnel_b_tiles(R, levels, CPU)
+    assert tiles is twiddle.device_funnel_b_tiles(R, levels, CPU)
+    assert tiles.dtype == torch.bfloat16 and tiles.is_contiguous()
+    assert tuple(tiles.shape) == (-(-R // 64), R // 16, 2, levels, 2, 64, 8)
+    for got, want in zip(twiddle.funnel_b_untile(tiles), planes):
+        assert torch.equal(got, want)
+    P = np.stack([_bits(p) for p in planes])          # (2, L, R, R)
+    u, k, m, s, h, row, e = np.ix_(*(range(d) for d in tiles.shape))
+    r = 64 * u + row
+    c = 16 * k + 8 * h + e
+    want = np.where(r < R, P[m, s, np.minimum(r, R - 1), c], 0)
+    np.testing.assert_array_equal(_bits(tiles), want)
+
+
+@pytest.mark.parametrize("R", [16, 32, 64, 128, 256])
+def test_funnel_b2_tiles_are_the_factor(R):
+    # the kernel epilogue's B2: dft_funnel_factors' (R, 128) factor, each
+    # warp's (h, j) pairs of 32 lanes contiguous, rows past R zero
+    n = R * 1024
+    _, _, b2r, b2i = twiddle.device_funnel_factors(R, n, CPU)
+    wt = twiddle.device_funnel_b2_tiles(R, n, CPU)
+    assert wt is twiddle.device_funnel_b2_tiles(R, n, CPU)
+    assert wt.dtype == torch.float32 and wt.is_contiguous()
+    assert tuple(wt.shape) == (-(-R // 64), 2, 4, 2, 8, 8, 4, 2, 2)
+    back = twiddle.funnel_b2_untile(wt, R)
+    assert torch.equal(back[0], b2r) and torch.equal(back[1], b2i)
+    B2 = np.stack([b2r.numpy(), b2i.numpy()])           # (2, R, 128)
+    u, lh, w, h, j, g, t, p, e = np.ix_(*(range(d) for d in wt.shape))
+    r = 64 * u + 16 * w + 8 * h + g
+    c = 64 * lh + 8 * j + 2 * t + e
+    want = np.where(r < R, B2[p, np.minimum(r, R - 1), c], 0)
+    np.testing.assert_array_equal(wt.numpy(), want)
+
+
 @pytest.mark.parametrize("mode", FP32_MODES)
 def test_make_dot_vs_reference(mode):
     rng = np.random.default_rng(3)
@@ -174,9 +243,9 @@ def _reference_mf(n, R, cb, tail, mode):
 
 
 def _port_cb(R, cb):
-    # the reference's (R=128, cb=256) block needs 270,336 bytes of
-    # shared memory, past a block's 232,448: the port takes its own
-    return cb if cf.mf_smem_bytes(R, cb) <= cf.SMEM_LIMIT_BYTES else None
+    # the reference's column blocks (128 .. 1024) are its VMEM's; the
+    # port's wgmma kernel has one column block, its m64n64 unit's 64
+    return None
 
 
 @pytest.mark.parametrize("mode", FP32_MODES)
@@ -199,8 +268,10 @@ def test_matmul_funnel_plain_is_the_first_levels(mode):
     n, R = 1 << 13, 16
     C = n // R
     xr, xi = _planes(14, (R, C))
-    args = _t(xr, xi) + twiddle.device_funnel_b(R, CPU) + \
-        twiddle.device_funnel_factors(R, n, CPU)
+    args = _t(xr, xi) + (twiddle.device_funnel_b_tiles(
+        R, precision.split_levels(mode), CPU),) + \
+        twiddle.device_funnel_factors(R, n, CPU)[:2] + \
+        (twiddle.device_funnel_b2_tiles(R, n, CPU),)
     yr, yi = cf.matmul_funnel(*args, precision=mode)
     assert yr.shape == (R, C) and cf.matmul_funnel.launches == 0
     y = np.fft.fft(yr.double().numpy() + 1j * yi.double().numpy(), axis=1)
@@ -214,18 +285,26 @@ def test_mf_blocking_defaults_and_limits():
     assert cf.mf_blocking(1 << 20) == (128, 1 << 13, 64)
     assert cf.mf_blocking(1 << 14) == (128, 128, 64)
     assert cf.mf_blocking(1 << 21) == (128, 1 << 14, 64)
-    # eight 64-column work items for the block's eight warps at R = 16
-    assert cf.mf_blocking(1 << 14, 16) == (16, 1024, 512)
+    # one warpgroup's 64 x 64 unit at every R: the column block is 64
+    assert cf.mf_blocking(1 << 14, 16) == (16, 1024, 64)
+    assert cf.mf_blocking(1 << 15, 256, 64) == (256, 128, 64)
     with pytest.raises(ValueError, match="R=8 must be a power of two >= 16"):
         cf.mf_blocking(1 << 14, 8)
+    with pytest.raises(ValueError, match="R=48 must be a power of two"):
+        cf.mf_blocking(48 * 1024, 48)
     with pytest.raises(ValueError, match="exceeds MAX_SMEM_TILE"):
         cf.mf_blocking(1 << 22)
     with pytest.raises(ValueError, match="multiple of 128"):
         cf.mf_blocking(1 << 13, 128)
-    with pytest.raises(ValueError, match="cb=96 must be a multiple of 64"):
+    with pytest.raises(ValueError, match="cb=96 is not the kernel's column "
+                                         "block of 64"):
         cf.mf_blocking(1 << 20, 128, 96)
-    with pytest.raises(ValueError, match="limit 232448"):
+    with pytest.raises(ValueError, match="cb=256 is not the kernel's "
+                                         "column block of 64"):
         cf.mf_blocking(1 << 20, 128, 256)
+    with pytest.raises(ValueError, match="cb=32 is not the kernel's column "
+                                         "block of 64"):
+        cf.mf_blocking(1 << 20, 128, 32)
 
 
 def test_mf_refuses_narrow_storage_and_bad_shapes():
@@ -235,11 +314,27 @@ def test_mf_refuses_narrow_storage_and_bad_shapes():
     with pytest.raises(ValueError, match="unknown precision"):
         cf.fft_pi_layout_cuda_mf(xr, xi, precision="tf32")
     R, C = 16, 1024
-    args = twiddle.device_funnel_b(R, CPU) + \
-        twiddle.device_funnel_factors(R, R * C, CPU)
+    tiles = twiddle.device_funnel_b_tiles(R, 2, CPU)
     with pytest.raises(ValueError, match="operand shape"):
-        cf.matmul_funnel(*_t(*_planes(16, (R, C))), *args[:2],
-                         *twiddle.device_funnel_factors(R, 2 * R * C, CPU))
+        cf.matmul_funnel(*_t(*_planes(16, (R, C))), tiles,
+                         *twiddle.device_funnel_factors(R, 2 * R * C,
+                                                        CPU)[:2],
+                         twiddle.device_funnel_b2_tiles(R, 2 * R * C, CPU))
+    # split3's two planes of B, not highest's three nor fp32 matrices
+    fac = twiddle.device_funnel_factors(R, R * C, CPU)[:2] + \
+        (twiddle.device_funnel_b2_tiles(R, R * C, CPU),)
+    # B2 as the (R, 128) factor, not the epilogue's tiles
+    with pytest.raises(ValueError, match="operand shape"):
+        cf.matmul_funnel(*_t(*_planes(16, (R, C))), tiles,
+                         *twiddle.device_funnel_factors(R, R * C, CPU)[:3])
+    with pytest.raises(ValueError, match=r"B tiles shape \(1, 1, 2, 2, 2, "
+                                         r"64, 8\) != \(1, 1, 2, 3, 2, 64, "
+                                         r"8\)"):
+        cf.matmul_funnel(*_t(*_planes(16, (R, C))), tiles, *fac,
+                         precision="highest")
+    with pytest.raises(ValueError, match="contiguous bfloat16"):
+        cf.matmul_funnel(*_t(*_planes(16, (R, C))),
+                         twiddle.device_funnel_b(R, CPU)[0], *fac)
 
 
 # ------------------------------------------------------------ the ladder
@@ -266,7 +361,8 @@ def test_plan_mf_refuses_bf16_and_bad_params():
                                          "storage path — fp32 storage only"):
         ladder.build_executor(key, "mf", {"R": 128})
     key = plans.make_key(1 << 20, device="cpu")
-    with pytest.raises(ValueError, match="limit 232448"):
+    with pytest.raises(ValueError, match="cb=256 is not the kernel's "
+                                         "column block of 64"):
         ladder.build_executor(key, "mf", {"R": 128, "cb": 256})
     with pytest.raises(ValueError, match="MAX_SMEM_TILE"):
         ladder.build_executor(plans.make_key(1 << 22, device="cpu"), "mf",
@@ -351,6 +447,44 @@ def test_every_kernel_entry_point_is_built_and_typed():
             found = re.findall(r'extern "C" [^(]*?\b(pifft_\w+)\(', f.read())
             for fn in found:
                 assert f"lib.{fn}.argtypes" in binding, (src, fn)
+    # and each declared list matches the C parameters, type for type
+    assert _argtypes(binding, "pifft_matmul_funnel") == \
+        _c_params("mf.cu", "pifft_matmul_funnel") == ["p"] * 8 + \
+        ["i", "i", "i", "i", "p"]
+    assert _argtypes(binding, "pifft_matmul_funnel_resident_blocks") == \
+        _c_params("mf.cu", "pifft_matmul_funnel_resident_blocks") == \
+        ["i", "i"]
+    for src in glob.glob(os.path.join(buildlib.CSRC_DIR, "*.cu")):
+        with open(src) as f:
+            for fn in re.findall(r'extern "C" [^(]*?\b(pifft_\w+)\(',
+                                 f.read()):
+                assert _argtypes(binding, fn) == \
+                    _c_params(os.path.basename(src), fn), (src, fn)
+
+
+def _argtypes(binding, fn):
+    # lib.<fn>.argtypes as type letters: p pointer, i int, L long long
+    import re
+    import types
+
+    m = re.search(rf"lib\.{fn}\.argtypes = (\[.*?\](?: \* \d+)?)\n",
+                  binding, re.S)
+    c = types.SimpleNamespace(c_int="i", c_longlong="L")
+    return eval(re.sub(r"#[^\n]*", "", m.group(1)), {"ptr": "p", "c": c})
+
+
+def _c_params(source, fn):
+    # the C entry's parameters as the same letters
+    import os
+    import re
+
+    from cs87project_msolano2_tpu_torch.utils import buildlib
+
+    with open(os.path.join(buildlib.CSRC_DIR, source)) as f:
+        text = f.read()
+    params = re.search(rf"\b{fn}\(([^)]*)\)", text).group(1).split(",")
+    return ["p" if "*" in q else "L" if "long long" in q else "i"
+            for q in params if q.strip()]
 
 
 if __name__ == "__main__":

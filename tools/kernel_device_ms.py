@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device time per call of the fourstep and long_range_sep kernels,
-beside the sixstep, tile_fft, gpu_rows, fused and long_range_dense
-kernels as the control, on one card, for one or more checkouts of the
-PyTorch/CUDA port.
+"""Device time per call of the matmul_funnel and long_range_dense
+kernels, beside the fourstep, long_range_sep, sixstep, tile_fft,
+gpu_rows and fused kernels as the control, on one card, for one or more
+checkouts of the PyTorch/CUDA port.
 
     python3 tools/kernel_device_ms.py [ROOT ...] [--reps 30]
 
@@ -19,12 +19,16 @@ root only.  For every case the child prints one JSON line with:
   ``chip_smoke.py`` phase 7 times kernels: it includes the wrapper's
   host time before the launch when the card is idle.
 
-Cases, each at the root's own automatic blocking: fourstep at n = 2^22
-and 2^24 in both twiddle modes; long_range_sep at 1 x 64 x 2^14 (rql's
-first pass at n = 2^20, config 2), 1 x 256 x 2^14 (rql at 2^22) and
-4 x 16 x 2^14 (tube_cuda's segments at n = 2^20, p = 4), cb 32; the
-control: sixstep at n = 2^25, tile_fft at 4096 x 4096, gpu_rows at
-4096 x 4096, fused at n = 2^20 and long_range_dense at 1 x 64 x 2^14.
+Cases, each at the root's own automatic blocking: matmul_funnel at
+128 x 2^13 (the mf path's first launch at n = 2^20) in the split3,
+default and highest modes, and long_range_dense at 1 x 64 x 2^14 (the
+two-kernel entry's first pass at n = 2^20), cb 32; the control:
+fourstep at n = 2^22 and 2^24 in both twiddle modes, long_range_sep at
+1 x 64 x 2^14 (rql's first pass at n = 2^20, config 2), 1 x 256 x 2^14
+(rql at 2^22) and 4 x 16 x 2^14 (tube_cuda's segments at n = 2^20, p =
+4), cb 32, sixstep at n = 2^25, tile_fft at 4096 x 4096, gpu_rows at
+4096 x 4096 and fused at n = 2^20.  A root whose funnel takes B in
+float32 and B2 (R, 128) (before the kernel's tiles) is given them so.
 
     python3 tools/kernel_device_ms.py --widths [--reps 30]
 
@@ -49,6 +53,9 @@ import sys
 SEED = 0
 #: log2 n of the fourstep cases
 FOURSTEP_LOG2N = (22, 24)
+#: (R, n) and precision modes of the matmul_funnel cases
+MF_SHAPE = (128, 1 << 20)
+MF_MODES = ("split3", "default", "highest")
 #: (batch, R, C) of the long_range_sep cases
 LONG_RANGE_SHAPES = ((1, 64, 1 << 14), (1, 256, 1 << 14), (4, 16, 1 << 14))
 #: (rows, tile) of the width study (--widths)
@@ -63,6 +70,8 @@ def child(reps: int, widths: bool) -> None:
 
     from cs87project_msolano2_tpu_torch.hw import lowering
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.ops import twiddle
+    from cs87project_msolano2_tpu_torch.ops.precision import split_levels
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
         dense_long_range_tables,
         device_factors,
@@ -123,20 +132,38 @@ def child(reps: int, widths: bool) -> None:
                         f"{auto[1]} sms={sms}", "tile_fft", launch)
             del x, y
         return
+    R, n = MF_SHAPE
+    x = planes((R, n // R))
+    for mode in MF_MODES:
+        fac = twiddle.device_funnel_factors(R, n, dev)
+        if hasattr(twiddle, "device_funnel_b_tiles"):
+            ops = (twiddle.device_funnel_b_tiles(R, split_levels(mode), dev),
+                   *fac[:2], twiddle.device_funnel_b2_tiles(R, n, dev))
+        else:
+            ops = (*twiddle.device_funnel_b(R, dev), *fac)
+        measure(f"matmul_funnel({R},{n // R}) {mode}", "matmul_funnel",
+                lambda *a, m=mode: cf.matmul_funnel(*a, precision=m), *x,
+                *ops)
+    R, T = 64, 1 << 14
+    x = planes((1, R, T))
+    measure(f"long_range_dense(1,{R},{T}) cb={cf.DEFAULT_CB}",
+            "long_range", cf.long_range_dense, *x,
+            *dense_long_range_tables(R, T, dev), cf.DEFAULT_CB)
+    del x
     for k in FOURSTEP_LOG2N:
         tile, R, cb = cf.fourstep_blocking(1 << k)
         x = planes((R, tile))
         for separable in (True, False):
             lr = device_factors if separable else dense_long_range_tables
-            measure(f"fourstep(2^{k}) cb={cb} separable={separable}",
-                    "fourstep",
+            measure(f"fourstep(2^{k}) cb={cb} separable={separable} "
+                    f"(control)", "fourstep",
                     lambda *a, s=separable: cf.fourstep(*a, separable=s),
                     *x, *lr(R, tile, dev), *flat_tables(tile, dev))
         del x
     for batch, R, C in LONG_RANGE_SHAPES:
         x = planes((batch, R, C))
-        measure(f"long_range_sep({batch},{R},{C}) cb={cf.DEFAULT_CB}",
-                "long_range", cf.long_range_sep, *x,
+        measure(f"long_range_sep({batch},{R},{C}) cb={cf.DEFAULT_CB} "
+                f"(control)", "long_range", cf.long_range_sep, *x,
                 *device_factors(R, C, dev), cf.DEFAULT_CB)
         del x
     tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << 25)
@@ -154,10 +181,6 @@ def child(reps: int, widths: bool) -> None:
     measure(f"fused({R},{T}) (control) auto {cf.fused_blocking(R * T)}",
             "fused", cf.fused, *x, *device_factors(R, T, dev),
             *flat_tables(T, dev))
-    x = planes((1, R, T))
-    measure(f"long_range_dense(1,{R},{T}) (control) cb={cf.DEFAULT_CB}",
-            "long_range", cf.long_range_dense, *x,
-            *dense_long_range_tables(R, T, dev), cf.DEFAULT_CB)
 
 
 def main() -> int:

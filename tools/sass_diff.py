@@ -6,16 +6,18 @@ named source share.
     python3 tools/sass_diff.py OLD_ROOT NEW_ROOT [SOURCE ...]
 
 Each root holds ``cs87project_msolano2_tpu_torch/csrc``.  Every source
-(default: sixstep.cu, fused.cu, tile_fft.cu, gpu_rows.cu, mf.cu and
-long_range.cu) is compiled in both roots with the package's nvcc flags
-to a cubin (the nvcc processes started together), disassembled with
-cuobjdump -sass, and cut into one instruction list per kernel.  Kernel
-names are compared with the anonymous namespace's per-file tag taken
-out, and instructions with their addresses and comments taken out.  One
-JSON line a kernel the two builds share ("identical" true or false, its
-instruction count), then one a kernel found in only one build; exit
-status 1 if a shared kernel differs.  Runs where nvcc and cuobjdump are
-(the machine with the card); needs no card.
+(default: sixstep.cu, fused.cu, tile_fft.cu, gpu_rows.cu, fourstep.cu
+and long_range.cu) is compiled in both roots with the package's nvcc
+flags to a cubin (the nvcc processes started together), disassembled
+with cuobjdump -sass, and cut into one instruction list per kernel.
+Kernel names are compared with the anonymous namespace's per-file tag
+taken out, and instructions with their addresses and comments taken
+out.  One JSON line a kernel the two builds share ("identical" true or
+false, its instruction count), then one a kernel found in only one
+build; each line also counts the kernel's tensor-core instructions
+(``HGMMA``, Hopper's wgmma, and ``HMMA``, mma.sync) in each build that
+has it.  Exit status 1 if a shared kernel differs.  Runs where nvcc and
+cuobjdump are (the machine with the card); needs no card.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONTROLS = ("sixstep.cu", "fused.cu", "tile_fft.cu", "gpu_rows.cu", "mf.cu",
-            "long_range.cu")
+CONTROLS = ("sixstep.cu", "fused.cu", "tile_fft.cu", "gpu_rows.cu",
+            "fourstep.cu", "long_range.cu")
 #: the anonymous namespace's per-file tag in a mangled name
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
@@ -50,6 +52,13 @@ def kernels(sass: str) -> dict:
         if m and name is not None:
             out[name].append(m.group(1))
     return out
+
+
+def tensor_ops(instructions: list) -> dict:
+    """{"HGMMA": n, "HMMA": n}: the kernel's tensor-core instructions."""
+    return {op: sum(1 for ins in instructions
+                    if re.match(rf"(@\S+\s+)?{op}\.", ins))
+            for op in ("HGMMA", "HMMA")}
 
 
 def main() -> int:
@@ -95,11 +104,16 @@ def main() -> int:
                     print(json.dumps({"source": name, "kernel": kernel,
                                       "identical": same,
                                       "instructions": [len(a[kernel]),
-                                                       len(b[kernel])]}))
+                                                       len(b[kernel])],
+                                      "tensor_ops": [tensor_ops(a[kernel]),
+                                                     tensor_ops(b[kernel])]}))
                 else:
+                    ins = a[kernel] if kernel in a else b[kernel]
                     print(json.dumps({"source": name, "kernel": kernel,
                                       "only_in": old if kernel in a
-                                      else new}))
+                                      else new,
+                                      "instructions": len(ins),
+                                      "tensor_ops": tensor_ops(ins)}))
     return 1 if differ else 0
 
 
