@@ -20,9 +20,16 @@ funnel (phase 9: ``Plan(key, "mf")`` at N=2^20 in pi and natural order
 in every fp32-storage precision mode, on the tensor cores) and the
 ``gpu`` plan backend (phase 10: ``plan_for(..., backend="gpu")`` at
 4096 x 4096 and 64 x 2^18 on ``gpu-rows``, 2^20 on ``gpu-stages``, a
-race whose winner a second process reads back, and ``hw probe``) —
-checks the results against a complex128 oracle, and times every kernel
-and path with CUDA events.  Phase 3 also holds gpu_rows at every
+race whose winner a second process reads back, and ``hw probe``) and
+the bf16 storage mode (phase 11: ``precision="bf16"`` through the plan
+layer in natural and pi order at config 2 on ``rql``, config 3 on
+``rows``, 2^24 on ``fourstep`` and 2^27 on ``sixstep``, each kernel's
+bf16 device time beside its float32 one, and the precision race at
+2^20 with its bf16 and split3 entries) — checks the results against a
+complex128 oracle, and times every kernel and path with CUDA events.
+Phase 3 holds the bf16 instantiations of tile_fft, long_range_sep,
+fourstep and sixstep against their plain bf16 versions at the main
+path's shapes (rel L2 <= 1e-3: both round at the same points).  Phase 3 also holds gpu_rows at every
 row regime and cluster size (2..16 blocks), fused at every phase-B
 cluster width in both alias modes, tile_fft at every tile (2..2^14) and
 at every cluster width of the rql and mf row passes, long_range_sep
@@ -43,8 +50,10 @@ own value is put back at exit.  Phases 1-7 run with
 ``PIFFT_PLAN_CACHE`` pointed at a fresh temporary directory, so no plan
 stored on the machine changes their paths.  Phase 7 reads each kernel's
 time twice: CUDA events around the call (the wrapper's host time
-included, as a caller sees it) and the card's busy time per call from
-``torch.profiler`` (``device_ms``, the kernels alone).  The last line of standard output is
+included, as a caller sees it) and the card's time per call from
+``torch.profiler`` (``device_ms``, the kernels alone: each kernel's mean
+time a launch times its launches in one call).  The last line of
+standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
 
@@ -68,9 +77,20 @@ import time
 import numpy as np
 
 KERNEL_TOL = 1e-6   # kernel vs plain version, rel L2: FMA contraction
+#: a bf16 instantiation vs its plain bf16 version, rel L2: both compute
+#: in float32 and round at the same points, so they differ only where a
+#: float32 difference of about 1e-7 crosses a bf16 rounding boundary
+BF16_KERNEL_TOL = 1e-3
+#: the bf16 mode's budget against complex128 (ops/precision.py)
+BF16_BUDGET = 3e-2
 PATH_TOL = 1e-5     # whole transform vs complex128, rel L2: split3 budget
 MAX_ABS_TOL = 1e-5  # BASELINE's bound on max abs error
 REPS = 30
+#: one-byte fills that open each torch.profiler session (chip_smoke's
+#: ``profiled``): they take the records the profiler loses at a
+#: session's start; PAD_KEY names their kernel (and the L2 flush's)
+PROFILE_PAD = 256
+PAD_KEY = "FillFunctor<unsigned char>"
 #: reps of the plain versions at n = 2^27, a few hundred ms per call
 PLAIN_REPS_2_27 = 5
 SEED = 0
@@ -129,7 +149,15 @@ VARIANT_LAUNCHES = {
     "fused": {"fused": 1}, "fused-alias": {"fused": 1},
     "rql": {"long_range_sep": 1, "tile_fft": 1},
     "two-kernel": {"long_range_dense": 1, "tile_fft": 1},
-    "fourstep": {"fourstep": 1}, "sixstep": {"sixstep": 1}}
+    "fourstep": {"fourstep": 1}, "sixstep": {"sixstep": 1},
+    "rows": {"tile_fft": 1}}
+#: (label, shape, plan variant) of phase 11's bf16 storage runs
+BF16_PATHS = (("config 2 N=2^20", (1 << 20,), "rql"),
+              ("config 3 (4096,4096)", (4096, 4096), "rows"),
+              ("N=2^24", (1 << 24,), "fourstep"),
+              ("N=2^27", (1 << 27,), "sixstep"))
+#: profiled calls of each phase-11 device-time reading
+BF16_PROFILE_REPS = 10
 
 
 def log(msg):
@@ -252,17 +280,21 @@ def run(store) -> int:
     R, T = 64, 1 << 14
     cases = {}
 
-    def check_kernel(label, kernel, plain, args):
+    def check_kernel(label, kernel, plain, args, tol=KERNEL_TOL):
         yk = kernel(*args)
         yp = plain(*args)
         torch.cuda.synchronize()
-        k = torch.complex(*yk)
-        p = torch.complex(*yp)
+        if yk[0].dtype != args[0].dtype:
+            raise AssertionError(f"{label} returned {yk[0].dtype} for "
+                                 f"{args[0].dtype} planes")
+        # bf16 planes are compared in float32 (exact upcasts)
+        k = torch.complex(yk[0].float(), yk[1].float())
+        p = torch.complex(yp[0].float(), yp[1].float())
         err = rel_l2(k, p)
         mabs = max_abs(k, p)
-        log(f"# phase 3 {label}: rel L2 {err:.3e}, max abs {mabs:.3e} "
-            f"vs plain")
-        if not err <= KERNEL_TOL:
+        log(f"# phase 3 {label}: rel L2 {err:.3e} (limit {tol:g}), max abs "
+            f"{mabs:.3e} vs plain")
+        if not err <= tol:
             raise AssertionError(f"{label} disagrees with its plain "
                                  f"version: rel L2 {err:.3e}")
         cases[label] = {"rel_l2": err, "max_abs_err": mabs, "args": args}
@@ -417,31 +449,104 @@ def run(store) -> int:
     # (atexit runs last what it registered first).
     from torch.profiler import ProfilerActivity, profile
 
-    def rql_device_ms(flush):
-        scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev) \
-            if flush else None
-        for _ in range(3):
-            cf.fft_pi_layout_cuda_rql(x2r, x2i)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                if scratch is not None:
-                    scratch.fill_(1)
-                cf.fft_pi_layout_cuda_rql(x2r, x2i)
-            torch.cuda.synchronize()
-        us = 0.0
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def kernel_name(key):
+        # a profiler kernel name without namespace, template arguments
+        # and parameters; " bf16" for a bf16 storage instantiation
+        k = key.replace("(anonymous namespace)::", "").replace("void ", "")
+        return k.split("<")[0].split("(")[0].strip() + (
+            " bf16" if "bfloat16" in key else "")
+
+    def kernel_ms(prof):
+        # {profiler kernel key: (device ms summed, launches seen)} of a
+        # profile's CUDA kernels, the one-byte fills (pad, flush) left out
+        seen = {}
         for ev in prof.key_averages():
-            if "long_range" in ev.key or "tile_fft" in ev.key:
-                dt = getattr(ev, "self_device_time_total", None)
-                us += ev.self_cuda_time_total if dt is None else dt
-        if not us:
+            if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                    PAD_KEY in ev.key:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            ms, count = seen.get(ev.key, (0.0, 0))
+            seen[ev.key] = (ms + us / 1e3, count + ev.count)
+        return seen
+
+    pad = torch.empty(1, dtype=torch.uint8, device=dev)
+
+    def profiled(fn, *args, reps=1, flush_l2=False, cpu=False):
+        # ({kernel key: (ms, launches)}, wall ms) of `reps` calls in one
+        # torch.profiler session, or (None, None).  The profiler loses the
+        # first records of a session, more of them the longer the process
+        # has launched kernels (on the H100: a one-call session saw no
+        # kernel from phase 7 on), so the session opens with PROFILE_PAD
+        # one-byte fills that take the loss; a session that kept none of
+        # them is read again with four times as many
+        npad = PROFILE_PAD
+        acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+        for _ in range(3):
+            with profile(activities=acts) as prof:
+                for _ in range(npad):
+                    pad.fill_(0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    if flush_l2:
+                        flush.fill_(1)
+                    fn(*args)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            fills = sum(ev.count for ev in prof.key_averages()
+                        if ev.device_type == torch.autograd.DeviceType.CUDA
+                        and PAD_KEY in ev.key)
+            if fills > reps * flush_l2:
+                return kernel_ms(prof), wall_ms
+            npad *= 4
+        return None, None
+
+    def device_ms(fn, *args, reps=REPS, by_kernel=False, flush_l2=True):
+        # the card's time per call from torch.profiler, the kernels alone
+        # (the host's launch gaps do not move it): each kernel's mean time
+        # a launch over `reps` calls, the L2 flushed before each (unless
+        # flush_l2 is False), times its launches a call (those of one call
+        # profiled alone, or of the `reps` calls over reps where that is
+        # more).  A session's sum over calls is not read, so a record the
+        # profiler loses moves neither.  None where it kept none (not
+        # measured).  With by_kernel, (ms, {kernel: [ms a launch, launches
+        # a call]})
+        for _ in range(3):
+            fn(*args)
+        torch.cuda.synchronize()
+        one = profiled(fn, *args)[0]
+        many = profiled(fn, *args, reps=reps, flush_l2=flush_l2)[0]
+        if one is None or many is None:
+            one = {}
+        kernels = {}
+        for key, (ms, c) in one.items():
+            ms_r, c_r = many.get(key, (ms * reps, c * reps))
+            launches = max(c, round(c_r / reps))
+            t, n = kernels.get(kernel_name(key), (0.0, 0))
+            kernels[kernel_name(key)] = (t + ms_r / c_r * launches,
+                                         n + launches)
+        total = sum(t for t, _ in kernels.values()) or None
+        if not by_kernel:
+            return total
+        return total, {k: [t / n, n] for k, (t, n) in kernels.items()}
+
+    def rql_device_ms(flush_l2):
+        _, by_kernel = device_ms(cf.fft_pi_layout_cuda_rql, x2r, x2i,
+                                 flush_l2=flush_l2, by_kernel=True)
+        ms = sum(t * c for k, (t, c) in by_kernel.items()
+                 if "long_range" in k or "tile_fft" in k)
+        if not ms:
             raise AssertionError("the profiler saw no rql kernel")
-        return us / 1e3 / REPS
+        return ms
 
     def rql_reading():
         reading = {"set_aside_bytes": cf.persisting_l2_set_aside(dev)}
-        for flush in (True, False):
-            reading[f"rql_device_ms_flush_{flush}"] = rql_device_ms(flush)
+        for cold in (True, False):
+            reading[f"rql_device_ms_flush_{cold}"] = rql_device_ms(cold)
         return reading
 
     set_aside = {"at_start_bytes": cf.persisting_l2_set_aside(dev)}
@@ -534,6 +639,49 @@ def run(store) -> int:
         f"automatic block_rows "
         f"{[cf.gpu_rows_blocking(r, n) for r, n in GPU_ROWS_CHECKS]}")
 
+    # the bf16 storage instantiations at the main path's shapes, each
+    # against its plain bf16 version on the same bf16 planes and tables:
+    # tile_fft at config 3's 4096 x 4096 and rql's 64 x 2^14,
+    # long_range_sep at rql's 1 x 64 x 2^14, fourstep at 2^22 and 2^24,
+    # sixstep at 2^25 and 2^27 (their automatic blocking)
+    bf = "bfloat16"
+
+    def bf16_planes(shape, n):
+        return tuple(t.to(torch.bfloat16)
+                     for t in random_complex(rng, shape, dev, n))
+
+    bf16_labels = {}
+    for rows, tile in ((4096, 4096), (R, T)):
+        label = f"tile_fft_bf16({rows},{tile})"
+        check_kernel(label, cf.tile_fft, cf.tile_fft_plain,
+                     (*bf16_planes((rows, tile), tile),
+                      *flat_tables(tile, dev, bf)), BF16_KERNEL_TOL)
+    bf16_labels["tile_fft_bf16"] = "tile_fft_bf16(4096,4096)"
+    label = f"long_range_sep_bf16(1,{R},{T})"
+    check_kernel(label, lambda *a: cf.long_range_sep(*a, cf.DEFAULT_CB),
+                 cf.long_range_sep_plain,
+                 (*bf16_planes((1, R, T), R * T),
+                  *device_factors(R, T, dev, bf)), BF16_KERNEL_TOL)
+    bf16_labels["long_range_sep_bf16"] = label
+    for k in (22, 24):
+        tk, Rk, _ = cf.fourstep_blocking(1 << k)
+        label = f"fourstep_bf16({Rk},{tk})"
+        check_kernel(label, cf.fourstep, cf.fourstep_plain,
+                     (*bf16_planes((Rk, tk), Rk * tk),
+                      *device_factors(Rk, tk, dev, bf),
+                      *flat_tables(tk, dev, bf)), BF16_KERNEL_TOL)
+        bf16_labels["fourstep_bf16"] = label
+    for k in (25, 27):
+        t6, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << k)
+        label = f"sixstep_bf16({R1},{R2},{t6})"
+        check_kernel(label, lambda *a, c1=cb1, c2=cb2: cf.sixstep(
+                         *a, cb1=c1, cb2=c2), cf.sixstep_plain,
+                     (*bf16_planes((R1, R2, t6), R1 * R2 * t6),
+                      *device_factors(R1, R2 * t6, dev, bf),
+                      *device_factors(R2, t6, dev, bf),
+                      *flat_tables(t6, dev, bf)), BF16_KERNEL_TOL)
+        bf16_labels["sixstep_bf16"] = label
+
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
 
@@ -625,7 +773,9 @@ def run(store) -> int:
                 "sixstep": cf.sixstep.launches}
 
     def counts_all():
-        return {k.__name__: k.launches for k in cf.KERNELS}
+        # every instantiation: float32 under the wrapper's name, bf16
+        # storage as <name>_bf16
+        return cf.launch_counts()
 
     cf.reset_launch_counts()
     large = {}
@@ -679,44 +829,26 @@ def run(store) -> int:
                        before=before)[0]
 
     timings = {}
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
-    def device_ms(fn, *args):
-        # the card's busy time per call from torch.profiler, L2 flushed
-        # before each call (the flush's fill kernel is not counted): the
-        # kernels alone, which the host's launch gaps do not move
-        for _ in range(3):
-            fn(*args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                flush.fill_(1)
-                fn(*args)
-            torch.cuda.synchronize()
-        us = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                    "Fill" not in ev.key:
-                dt = getattr(ev, "self_device_time_total", None)
-                us += ev.self_cuda_time_total if dt is None else dt
-        return us / 1e3 / REPS if us else None
-
-    def kernel_row(label, kernel, plain, args, nbytes, flops, fft_flops,
-                   lib, plain_reps=REPS, bf16_flops=0):
-        # flops: the fp32 operations the kernel does and bf16_flops its
-        # tensor-core ones (its bound); fft_flops: the repo's 5 n log2 n
-        # convention for its levels (GFLOP/s)
+    def kernel_row(label, kernel, plain, args, nbytes, flops, lib,
+                   plain_reps=REPS, bf16_flops=0, bound_flops=None):
+        # flops: the float32 operations of the transform's levels, the
+        # repo's 5 per element a level (GFLOP/s, and the bound's: a
+        # kernel that rebuilds its twiddles does more than the transform
+        # needs); bound_flops, where given, the float32 operations of the
+        # bound instead, and bf16_flops its tensor-core ones
         ms = timed(kernel, *args)
         dev_ms = device_ms(kernel, *args)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0]
         lib_ms = timed(*lib) if lib is not None else None
-        bms, by = bound_ms(nbytes, flops, bf16_flops)
+        bms, by = bound_ms(nbytes, flops if bound_flops is None
+                           else bound_flops, bf16_flops)
         timings[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                           "plain_reps": plain_reps,
                           "library_ms": lib_ms, "bytes": nbytes,
                           "bound_ms": bms, "bound_by": by,
-                          "gflops": fft_flops / (ms * 1e-3) / 1e9}
+                          "gflops": flops / (ms * 1e-3) / 1e9}
         log(f"# phase 7 {label}: {ms:.4f} ms (device "
             f"{ms_text(dev_ms)} ms, "
             f"{timings[label]['gflops']:.1f} GFLOP/s, plain "
@@ -731,22 +863,21 @@ def run(store) -> int:
         xc = torch.complex(a[0], a[1])
         flops = 5 * rows * tile * int(np.log2(tile))
         kernel_row(label, cf.tile_fft, cf.tile_fft_plain, a,
-                   16 * rows * tile + 8 * (tile - 1), flops, flops,
+                   16 * rows * tile + 8 * (tile - 1), flops,
                    (torch.fft.fft, xc))
     a = cases["long_range_sep(1,64,16384)"]["args"]
     lev = int(np.log2(R))
     kernel_row("long_range_sep(1,64,16384)",
                lambda *t: cf.long_range_sep(*t, cf.DEFAULT_CB),
                cf.long_range_sep_plain, a,
-               16 * R * T + 8 * (R - 1 + lev * T), 8 * R * T * lev,
-               5 * R * T * lev, None)
+               16 * R * T + 8 * (R - 1 + lev * T), 5 * R * T * lev, None)
     for batch, rr, cc in LONG_RANGE_TIMED:
         label = f"long_range_sep({batch},{rr},{cc}) cb={cf.DEFAULT_CB}"
         lv = int(np.log2(rr))
         kernel_row(label, lambda *t: cf.long_range_sep(*t, cf.DEFAULT_CB),
                    cf.long_range_sep_plain, cases[label]["args"],
                    16 * batch * rr * cc + 8 * (rr - 1 + lv * cc),
-                   8 * batch * rr * cc * lv, 5 * batch * rr * cc * lv, None)
+                   5 * batch * rr * cc * lv, None)
 
     def fac_bytes(rows, cols):
         # separable factors: A (rows - 1) and B (levels x cols), re + im
@@ -758,17 +889,13 @@ def run(store) -> int:
                lambda *t: cf.long_range_dense(*t, cf.DEFAULT_CB),
                cf.long_range_dense_plain,
                cases["long_range_dense(1,64,16384)"]["args"],
-               16 * R * T + 8 * (R - 1) * T, 5 * R * T * lev,
-               5 * R * T * lev, None)
-    # fused at 2^20: 8 flop per element per long-range level (6 of them
-    # rebuilding the twiddle) and 5 per tile level; the planes once each
-    # way plus factors and tables (the carry stays in L2)
-    lev_f = int(np.log2(Rf))
+               16 * R * T + 8 * (R - 1) * T, 5 * R * T * lev, None)
+    # fused at 2^20: the planes once each way plus factors and tables
+    # (the carry stays in L2)
     nf = Rf * tf
     xcf = torch.complex(x2r, x2i)
     kernel_row(labelf, cf.fused, cf.fused_plain, fused_args,
                16 * nf + fac_bytes(Rf, tf) + 8 * (tf - 1),
-               nf * (8 * lev_f + 5 * int(np.log2(tf))),
                5 * nf * int(np.log2(nf)), (torch.fft.fft, xcf))
     # fused by phase-A block (qb) and phase-B cluster width (cw)
     fused_by = {}
@@ -785,33 +912,29 @@ def run(store) -> int:
         + ", ".join(f"{k}: {v['ms']:.4f} / {ms_text(v['device_ms'])} ms"
                     for k, v in fused_by.items()))
 
-    # fourstep at 2^24 and sixstep at 2^25 and 2^27: each element passes
-    # 8 flop per long-range level (6 of them rebuilding the twiddle) and 5
-    # per tile level; bytes are the planes once each way, factors, tables
+    # fourstep at 2^22 and 2^24 and sixstep at 2^25 and 2^27: bytes are
+    # the planes once each way, factors, tables
     def six_row(k):
         r1, r2, c1, c2 = six[k]["blocking"]
         lab = six[k]["label"]
         return (lab, [r1, r2], T, cases[lab]["args"],
                 lambda *a: cf.sixstep(*a, cb1=c1, cb2=c2), cf.sixstep_plain,
                 16 * r1 * r2 * T + fac_bytes(r1, r2 * T) + fac_bytes(r2, T)
-                + 8 * (T - 1), int(np.log2(r1 * r2)),
-                PLAIN_REPS_2_27 if k == 27 else REPS)
+                + 8 * (T - 1), PLAIN_REPS_2_27 if k == 27 else REPS)
 
     def four_row(k):
         tk, rk, _ = cf.fourstep_blocking(1 << k)
         lab = f"fourstep({rk},{tk})"
         return (lab, [rk], tk, cases[lab]["args"], cf.fourstep,
                 cf.fourstep_plain,
-                16 * rk * tk + fac_bytes(rk, tk) + 8 * (tk - 1),
-                int(np.log2(rk)), REPS)
+                16 * rk * tk + fac_bytes(rk, tk) + 8 * (tk - 1), REPS)
 
-    for label, rows, lib_tile, args, fn, plain, nbytes, lr_levels, reps in (
+    for label, rows, lib_tile, args, fn, plain, nbytes, reps in (
             four_row(22), four_row(24), six_row(25), six_row(27)):
         n = int(np.prod(rows)) * lib_tile
         xc = torch.complex(args[0], args[1]).reshape(n)
-        kernel_row(label, fn, plain, args, nbytes,
-                   n * (8 * lr_levels + 5 * int(np.log2(lib_tile))),
-                   5 * n * int(np.log2(n)), (torch.fft.fft, xc), reps)
+        kernel_row(label, fn, plain, args, nbytes, 5 * n * int(np.log2(n)),
+                   (torch.fft.fft, xc), reps)
         del xc
 
     paths = {}
@@ -948,10 +1071,10 @@ def run(store) -> int:
                    lambda *a, m=mode: cf.matmul_funnel(*a, precision=m),
                    lambda *a, m=mode: cf.matmul_funnel_plain(*a,
                                                              precision=m),
-                   mf_args[mode], mf_bytes, 14 * nm,
-                   5 * nm * int(np.log2(Rm)),
+                   mf_args[mode], mf_bytes, 5 * nm * int(np.log2(Rm)),
                    (lambda b, x, t: torch.matmul(b, x) * t, bm, xm, tm),
-                   bf16_flops=dot_passes(mode) * 8 * Rm * nm)
+                   bf16_flops=dot_passes(mode) * 8 * Rm * nm,
+                   bound_flops=14 * nm)
     del bm, tm, xm
 
     def mf_plain(xr, xi, mode="split3"):
@@ -983,8 +1106,7 @@ def run(store) -> int:
         xc = torch.complex(a[0], a[1])
         flops = 5 * rows * n * int(np.log2(n))
         kernel_row(label, cf.gpu_rows, cf.gpu_rows_plain, a,
-                   16 * rows * n + 8 * (n - 1), flops,
-                   flops, (torch.fft.fft, xc))
+                   16 * rows * n + 8 * (n - 1), flops, (torch.fft.fft, xc))
         if n <= cf.MAX_ROW_TILE:
             timings[label]["rows_ms"] = timed(
                 lambda p, q: cf.fft_rows_cuda(p, q, natural=False),
@@ -1015,6 +1137,48 @@ def run(store) -> int:
                         for br, v in row.items()))
     timings["gpu_rows blocking"] = blocking
 
+    # the bf16 storage instantiations at the shapes phase 3 checked them,
+    # beside the float32 rows above.  Bytes: the planes once each way at 2
+    # bytes a value (8 an element, in and out) and the tables at 2 bytes;
+    # operations: the transform's own, on float32 units.  No
+    # PyTorch call computes a bf16-storage FFT (library null); torch.fft's
+    # complex64 time on the same values stands beside it
+    def bf16_row(label, kernel, plain, nbytes, flops, n_rows, n,
+                 reps=REPS):
+        args = cases[label]["args"]
+        kernel_row(label, kernel, plain, args, nbytes, flops, None, reps)
+        xc = torch.complex(args[0].float(), args[1].float()).reshape(
+            n_rows, n)
+        timings[label]["torch_fft_fp32_ms"] = timed(torch.fft.fft, xc)
+        log(f"# phase 7 {label}: library null (no torch call computes a "
+            f"bf16-storage FFT); torch.fft.fft complex64 on the same values "
+            f"{timings[label]['torch_fft_fp32_ms']:.4f} ms")
+        del xc
+
+    for rows, tile in ((4096, 4096), (R, T)):
+        bf16_row(f"tile_fft_bf16({rows},{tile})", cf.tile_fft,
+                 cf.tile_fft_plain, 8 * rows * tile + 4 * (tile - 1),
+                 5 * rows * tile * int(np.log2(tile)), rows, tile)
+    bf16_row(f"long_range_sep_bf16(1,{R},{T})",
+             lambda *t: cf.long_range_sep(*t, cf.DEFAULT_CB),
+             cf.long_range_sep_plain,
+             8 * R * T + 4 * (R - 1 + lev * T), 5 * R * T * lev, 1, R * T)
+    for k in (22, 24):
+        tk, rk, _ = cf.fourstep_blocking(1 << k)
+        bf16_row(f"fourstep_bf16({rk},{tk})", cf.fourstep,
+                 cf.fourstep_plain,
+                 8 * rk * tk + fac_bytes(rk, tk) // 2 + 4 * (tk - 1),
+                 5 * k << k, 1, 1 << k)
+    for k in (25, 27):
+        r1, r2, c1, c2 = six[k]["blocking"]
+        bf16_row(f"sixstep_bf16({r1},{r2},{T})",
+                 lambda *a, c1=c1, c2=c2: cf.sixstep(*a, cb1=c1, cb2=c2),
+                 cf.sixstep_plain,
+                 8 * r1 * r2 * T + (fac_bytes(r1, r2 * T)
+                                    + fac_bytes(r2, T)) // 2 + 4 * (T - 1),
+                 5 * k << k, 1, 1 << k,
+                 PLAIN_REPS_2_27 if k == 27 else REPS)
+
     # phase 7b: device time of one natural-order large-n fft by kernel,
     # from torch.profiler, and the card's idle share of that call
     profiles = {}
@@ -1022,27 +1186,17 @@ def run(store) -> int:
         xl = large[k].pop("x")
         fft(xl)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fft(xl)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        seen, wall_ms = profiled(fft, xl, cpu=True)
         by_kernel = {}
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0) + us / 1e3
+        for key, (ms, _) in (seen or {}).items():
+            by_kernel[key[:60]] = by_kernel.get(key[:60], 0) + ms
         busy = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
         profiles[f"2^{k}"] = {"wall_ms": wall_ms, "device_ms": busy,
                               "idle_share": (1 - busy / wall_ms) if busy
                               else None, "kernels_ms": dict(top)}
         log(f"# phase 7b fft natural N=2^{k} ({variant}): device "
-            f"{busy:.4f} ms of {wall_ms:.4f} ms wall (profiled), "
+            f"{busy:.4f} ms of {ms_text(wall_ms)} ms wall (profiled), "
             + (f"idle share {1 - busy / wall_ms:.3f}; " if busy else
                "no device time seen: not measured; ")
             + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
@@ -1339,6 +1493,144 @@ def run(store) -> int:
                            "entries": [r.to_record()
                                        for r in tuned_gpu.tuning]}
 
+    # phase 11: the bf16 storage mode at full size, counted — each shape
+    # of BF16_PATHS through the plan layer in natural order (fft, or
+    # fft_planes_fast for config 3's rows) and pi order (Plan.execute),
+    # held to the bf16 budget against complex128, float32 out, each call
+    # one launch of each of its kernels' bf16 instantiations; then, after
+    # the counted run, each kernel's device time (profiler) and the
+    # call's (loop slope) in bf16 beside float32, and the precision race
+    # at 2^20 for a bf16 key
+    cf.reset_launch_counts()
+    bf16_path = {}
+    for label, shape, want in BF16_PATHS:
+        n = shape[-1]
+        x11r, x11i = random_complex(rng, shape, dev)
+        ref = torch.fft.fft(torch.complex(x11r, x11i).to(torch.complex128))
+        rev = torch.from_numpy(verify.bit_reverse_indices(n)).to(dev)
+        want_launches = {f"{k}_bf16": v
+                         for k, v in VARIANT_LAUNCHES[want].items()}
+        row = {}
+        for layout in ("natural", "pi"):
+            pl11 = plans.plan_for(shape, layout=layout, precision="bf16",
+                                  device=dev)
+            before = counts_all()
+            if layout == "pi":
+                y11 = torch.complex(*pl11.execute(x11r, x11i))
+            elif len(shape) == 1:
+                y11 = fft(torch.complex(x11r, x11i), precision="bf16")
+            else:
+                y11 = torch.complex(*fft_planes_fast(x11r, x11i,
+                                                     precision="bf16"))
+            torch.cuda.synchronize()
+            delta = {k: c - before[k] for k, c in counts_all().items()
+                     if c != before[k]}
+            e = rel_l2(y11, ref if layout == "natural" else ref[..., rev])
+            finite = bool(torch.isfinite(y11).all())
+            row[layout] = {"plan": pl11.variant, "rel_l2": e,
+                           "dtype": str(y11.real.dtype),
+                           "storage_bytes": pl11.storage_bytes(),
+                           "launches_per_call": delta}
+            log(f"# phase 11 bf16 {label} {layout}: plan {pl11.variant} "
+                f"{pl11.params} ({pl11.storage_bytes()} bytes a value), rel "
+                f"L2 {e:.3e} vs complex128 (budget {BF16_BUDGET}), output "
+                f"{y11.real.dtype}, finite {finite}, launches per call "
+                f"{delta}")
+            if not (pl11.variant == want and pl11.storage_bytes() == 2
+                    and e <= BF16_BUDGET and finite
+                    and y11.real.dtype == torch.float32
+                    and y11.shape == shape and delta == want_launches):
+                raise AssertionError(f"bf16 {label} {layout} failed")
+            del y11
+        bf16_path[label] = row
+        del x11r, x11i, ref
+    torch.cuda.synchronize()
+    bf16_launches = counts_all()
+    log(f"# bf16 path launches (phase 11): {bf16_launches}")
+    for name in ("tile_fft_bf16", "long_range_sep_bf16", "fourstep_bf16",
+                 "sixstep_bf16"):
+        if bf16_launches[name] < 1:
+            raise AssertionError(f"the bf16 path never launched {name}")
+        launches[name] = bf16_launches[name]
+    # the natural-order call's device time, bf16 beside the same variant
+    # and parameters in float32 on the same planes: each kernel's by the
+    # profiler, the call's by the race's loop slope (device time per
+    # call, no host work between calls).  Both capture or repeat calls,
+    # so they come after the counted run
+    from cs87project_msolano2_tpu_torch.hw.inventory import l2_bytes
+    from cs87project_msolano2_tpu_torch.utils.timing import (
+        loop_slope_ms,
+        rotation_copies,
+        slope_window,
+    )
+
+    for label, shape, _ in BF16_PATHS:
+        x11r, x11i = random_complex(rng, shape, dev)
+        # the race's rotation: enough copies that each call reads its
+        # planes cold
+        copies = [(x11r.clone(), x11i.clone()) for _ in range(
+            rotation_copies(8 * x11r.numel(), l2_bytes(dev)))]
+        pl16 = plans.plan_for(shape, precision="bf16", device=dev)
+        pl32 = Plan(plans.make_key(shape[-1], shape[:-1], device=dev),
+                    pl16.variant, dict(pl16.params))
+        row = bf16_path[label]
+        for mode, pl in (("bf16", pl16), ("fp32", pl32)):
+            row[f"device_ms_{mode}"], row[f"kernels_{mode}"] = device_ms(
+                pl.execute, x11r, x11i, reps=BF16_PROFILE_REPS,
+                by_kernel=True)
+            row[f"slope_ms_{mode}"] = loop_slope_ms(
+                pl.execute, copies, *slope_window(x11r.numel()))
+        log(f"# phase 11 bf16 {label} natural, plan {pl16.variant} "
+            f"{pl16.params}: call device ms (loop slope) bf16 "
+            f"{row['slope_ms_bf16']:.4f}, fp32 {row['slope_ms_fp32']:.4f}; "
+            f"profiler (device_ms, {BF16_PROFILE_REPS} calls, L2 flushed) "
+            f"bf16 {ms_text(row['device_ms_bf16'])}, fp32 "
+            f"{ms_text(row['device_ms_fp32'])}: ms a launch x launches a "
+            f"call, bf16 "
+            + ", ".join(f"{k} {v[0]:.4f} x {v[1]:g}"
+                        for k, v in row["kernels_bf16"].items())
+            + "; fp32 " + ", ".join(f"{k} {v[0]:.4f} x {v[1]:g}"
+                                    for k, v in row["kernels_fp32"].items()))
+        del x11r, x11i, copies
+    # the precision race at 2^20 for a bf16 key: every entry once per
+    # mode (bf16, then split3), the bf16 entries of fused, fused-alias and
+    # two-kernel refused before they run; mf is never raced, and refuses
+    # bf16 with the reference's message
+    cf.reset_launch_counts()
+    key16 = plans.make_key(n8, layout="pi", precision="bf16", device=dev)
+    tuned16 = plans.tune(key16, force=True)
+    race16 = []
+    for r in tuned16.tuning:
+        race16.append(r.to_record())
+        log(f"# phase 11 race N=2^20 pi bf16 key: {r.variant} {r.params}: "
+            f"{r.status}" + (f" slope {r.ms:.4f} ms" if r.ms is not None
+                             else "")
+            + (f" ({r.reason})" if r.status == "rejected" else ""))
+    try:
+        ladder.build_executor(key16, "mf", {"R": 128, "precision": "bf16"})
+    except ValueError as err:
+        log(f"# phase 11 race N=2^20 pi bf16 key: mf {{'precision': "
+            f"'bf16'}}: rejected (never raced; {err})")
+    else:
+        raise AssertionError("mf served bf16 storage")
+    rejected16 = {r.variant for r in tuned16.tuning
+                  if r.status == "rejected"
+                  and r.params.get("precision") == "bf16"}
+    timed16 = {(r.variant, r.params.get("precision")) for r in tuned16.tuning
+               if r.ms is not None}
+    log(f"# phase 11 race winner: {tuned16.variant} {tuned16.params} "
+        f"({tuned16.ms:.4f} ms), effective precision "
+        f"{tuned16.effective_precision()}, storage_bytes() "
+        f"{tuned16.storage_bytes()}; race launches captured (not counted "
+        f"in the kernels line): {counts_all()}")
+    if not ({"fused", "fused-alias", "two-kernel"} <= rejected16
+            and ("rql", "bf16") in timed16 and ("fused", "split3") in timed16):
+        raise AssertionError(f"the bf16 race: rejected {rejected16}, timed "
+                             f"{timed16}")
+    bf16_path["race_2^20_pi"] = {"winner": tuned16.describe(),
+                                 "storage_bytes": tuned16.storage_bytes(),
+                                 "entries": race16}
+
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
@@ -1359,7 +1651,17 @@ def run(store) -> int:
              src + "mf.cu", ref_src + "1915"),
             ("gpu_rows", "gpu_rows(4096,4096) block_rows=None",
              src + "gpu_rows.cu",
-             "cs87project_msolano2_tpu/hw/lowering.py:82")):
+             "cs87project_msolano2_tpu/hw/lowering.py:82"),
+            # the bf16 storage instantiations: the same TPU kernels'
+            # storage="bfloat16" (pallas_fft.py:1232, :1670 and :745)
+            ("tile_fft_bf16", bf16_labels["tile_fft_bf16"],
+             src + "tile_fft.cu", ref_src + "299"),
+            ("long_range_sep_bf16", bf16_labels["long_range_sep_bf16"],
+             src + "long_range.cu", ref_src + "519"),
+            ("fourstep_bf16", bf16_labels["fourstep_bf16"],
+             src + "fourstep.cu", ref_src + "1046"),
+            ("sixstep_bf16", bf16_labels["sixstep_bf16"],
+             src + "sixstep.cu", ref_src + "1354")):
         t = timings[label]
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -1377,6 +1679,7 @@ def run(store) -> int:
                     "set_aside": set_aside, "lookup_us": lookup_us,
                     "kernel_checks": checks, "mf_path": mf_path,
                     "gpu_backend": gpu_backend, "hw_probe": hw,
+                    "bf16": bf16_path,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),
                               "winner_natural": tuned_nat.describe(),

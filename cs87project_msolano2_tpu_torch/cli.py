@@ -80,8 +80,9 @@ def plan_main(argv) -> int:
     ap.add_argument("--layout", choices=("natural", "pi"), default="pi",
                     help="output order the plan is tuned for")
     ap.add_argument("--precision", choices=PRECISIONS, default=None,
-                    help="precision mode to tune for (bf16 storage is not "
-                         "ported yet)")
+                    help="precision mode to tune for (bf16: bf16 storage "
+                         "on rows/rql/fourstep/sixstep, raced beside "
+                         "split3)")
     ap.add_argument("--force", action="store_true",
                     help="warm/sweep: re-tune even on a cache hit")
     ap.add_argument("--backend", choices=("cuda", "gpu"), default=None,
@@ -177,7 +178,7 @@ def plan_main(argv) -> int:
             print(f"  {r.variant} {r.params}: {r.reason}", file=sys.stderr)
         return 1
     except (ValueError, NotImplementedError) as e:
-        # a key the port does not serve yet (bf16, real domains)
+        # a key the port does not serve yet (real domains, any-length n)
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"warmed {key.token()}\n  -> {plan.describe()}")

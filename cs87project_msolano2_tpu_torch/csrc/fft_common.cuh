@@ -15,10 +15,21 @@
 // a row spread over a thread-block cluster, and long-range passes of
 // three or four levels.  mf.cu, the tensor-core funnel, needs none of
 // them.
+//
+// Storage.  The planes in device memory and the twiddle tables are
+// float or __nv_bfloat16 (the bf16 storage mode of ops/precision.py: the
+// reference's as_storage / as_compute): the copy helpers and the loops
+// take the element type T of the device pointers as a template
+// parameter, deduced from the pointers.  A bf16 load upcasts once to
+// float, a bf16 store rounds once (__float2bfloat16_rn, round to nearest
+// even); shared memory, registers and every level stay float, as the
+// reference's kernels upcast at load and accumulate in fp32.  The float
+// overloads are the code every kernel ran before bf16 storage existed.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace pifft {
@@ -58,6 +69,42 @@ __device__ __forceinline__ void store_one(float* p, float v) {
   }
 }
 
+// bf16 storage: one 2-byte element, upcast at load, rounded at store
+template <Load kLoad>
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  if (kLoad == Load::kCoherent) return __bfloat162float(__ldcg(p));
+  if (kLoad == Load::kStreaming) return __bfloat162float(__ldcs(p));
+  return __bfloat162float(*p);
+}
+
+template <Store kStore>
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(v);
+  if (kStore == Store::kGlobal) {
+    __stcg(p, b);
+  } else if (kStore == Store::kStreaming) {
+    __stcs(p, b);
+  } else {
+    *p = b;
+  }
+}
+
+// A twiddle entry through the read-only path (ldg) or evict-first
+// (ldcs), as float whatever the table's storage.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ float ldcs_f32(const float* p) {
+  return __ldcs(p);
+}
+
+__device__ __forceinline__ float ldcs_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldcs(p));
+}
+
 // The two twiddle sources of the long-range levels of an n = R * C
 // transform viewed as (R, C).  Long-range level l pairs rows (r, r +
 // R/2^(l+1)) inside each group of R/2^l rows, and the difference is
@@ -65,51 +112,60 @@ __device__ __forceinline__ void store_one(float* p, float v) {
 // (0 <= j < R >> (l + 1)) and column col, o = R - (R >> l).
 
 // Separable factors: the outer product A[o + j] * B[l, col] of the
-// per-row factor A (R - 1 floats) and the per-level column factor B
+// per-row factor A (R - 1 entries) and the per-level column factor B
 // (levels x C) of long_range_factors(R, C), as the TPU kernel
-// _long_range_kernel_sep forms it.  Reads R + levels * C floats a plane.
-struct SeparableTwiddle {
-  const float* ar;
-  const float* ai;
-  const float* br;
-  const float* bi;
+// _long_range_kernel_sep forms it (in float from factors stored as T).
+// Reads R + levels * C entries a plane.
+template <class T>
+struct SeparableFactors {
+  const T* ar;
+  const T* ai;
+  const T* br;
+  const T* bi;
   size_t C;
 
   __device__ __forceinline__ void at(int l, int o, int j, size_t col,
                                      float& wr, float& wi) const {
-    const float a_r = __ldg(ar + o + j), a_i = __ldg(ai + o + j);
+    const float a_r = ldg_f32(ar + o + j), a_i = ldg_f32(ai + o + j);
     const size_t b = static_cast<size_t>(l) * C + col;
-    const float b_r = __ldg(br + b), b_i = __ldg(bi + b);
+    const float b_r = ldg_f32(br + b), b_i = ldg_f32(bi + b);
     wr = a_r * b_r - a_i * b_i;
     wi = a_r * b_i + a_i * b_r;
   }
 };
 
+// the float32 factors (the kernels' parameter type, named as before
+// bf16 storage existed)
+struct SeparableTwiddle : SeparableFactors<float> {};
+
 // Dense per-level tables: level l's (R >> (l + 1), C) table, the n-point
 // level-l table of twiddle_tables(R * C) reshaped (as the TPU kernel
 // _long_range_kernel reads it), stacked at rows [o, o + half) of one
 // (R - 1, C) array a plane (dense_long_range_tables).  Reads about n
-// floats a plane.  kStreaming reads them evict-first, for tables each
+// entries a plane.  kStreaming reads them evict-first, for tables each
 // of whose entries one block reads; otherwise through the read-only
 // path, for tables many blocks share.
-template <bool kStreaming>
-struct DenseTwiddle {
-  const float* wr;
-  const float* wi;
+template <bool kStreaming, class T>
+struct DenseTable {
+  const T* wr;
+  const T* wi;
   size_t C;
 
   __device__ __forceinline__ void at(int, int o, int j, size_t col,
                                      float& w_r, float& w_i) const {
     const size_t g = static_cast<size_t>(o + j) * C + col;
     if (kStreaming) {
-      w_r = __ldcs(wr + g);
-      w_i = __ldcs(wi + g);
+      w_r = ldcs_f32(wr + g);
+      w_i = ldcs_f32(wi + g);
     } else {
-      w_r = __ldg(wr + g);
-      w_i = __ldg(wi + g);
+      w_r = ldg_f32(wr + g);
+      w_i = ldg_f32(wi + g);
     }
   }
 };
+
+template <bool kStreaming>
+struct DenseTwiddle : DenseTable<kStreaming, float> {};
 
 // The (stages, n / 2) twiddle stack of the gpu-rows family
 // (twiddle_stack(n)): stack row s holds W_m^j for m = n >> s and
@@ -119,7 +175,8 @@ struct DenseTwiddle {
 // W_{n >> l}^{j * C + col}, entry j * C + col of stack row level0 + l;
 // as a row source (row_pass), level l's w[j] is entry j of stack row
 // level0 + l.  Read through the read-only path: every block of a
-// launch shares the stack.
+// launch shares the stack.  float32 only: the gpu backend has no
+// narrow storage (nor has the reference's).
 struct StackTwiddle {
   const float* wr;
   const float* wi;
@@ -146,18 +203,21 @@ struct StackTwiddle {
 // The per-level tables of twiddle_tables(tile) concatenated into one
 // array a plane (flat_tables): level l's w[j] at offset
 // tile - (tile >> l) + j.  The tile kernels' row source.
-struct FlatTwiddle {
-  const float* wr;
-  const float* wi;
+template <class T>
+struct FlatTable {
+  const T* wr;
+  const T* wi;
   int tile;
 
   __device__ __forceinline__ void row(int l, int j, float& w_r,
                                       float& w_i) const {
     const int g = tile - (tile >> l) + j;
-    w_r = __ldg(wr + g);
-    w_i = __ldg(wi + g);
+    w_r = ldg_f32(wr + g);
+    w_i = ldg_f32(wi + g);
   }
 };
+
+struct FlatTwiddle : FlatTable<float> {};
 
 // Everything a persistent cooperative launch needs: opt the kernel into
 // `smem` bytes of dynamic shared memory, size the grid to the blocks
@@ -269,6 +329,49 @@ __device__ __forceinline__ void store_four(float* p, float4 v) {
   }
 }
 
+// bf16 storage: the same four points as one 8-byte copy (two bf16 pairs,
+// the lower address in the low half of each word), so every routine
+// below moves four points a copy whatever the storage; the point offset
+// stays a multiple of 4, the address of 8 bytes.  A bf16 value is the
+// upper half of a float's bits, so the upcast is a shift, exact.
+template <Load kLoad>
+__device__ __forceinline__ float4 load_four(const __nv_bfloat16* p) {
+  const uint2* q = reinterpret_cast<const uint2*>(p);
+  uint2 v;
+  if (kLoad == Load::kCoherent) {
+    v = __ldcg(q);
+  } else if (kLoad == Load::kStreaming) {
+    v = __ldcs(q);
+  } else {
+    v = *q;
+  }
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  return static_cast<unsigned int>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned int>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+
+template <Store kStore>
+__device__ __forceinline__ void store_four(__nv_bfloat16* p, float4 v) {
+  uint2* q = reinterpret_cast<uint2*>(p);
+  const uint2 w = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  if (kStore == Store::kGlobal) {
+    __stcg(q, w);
+  } else if (kStore == Store::kStreaming) {
+    __stcs(q, w);
+  } else {
+    *q = w;
+  }
+}
+
 // K radix-2 DIF levels on the 2^K points (re, im) held in registers:
 // level q pairs (t, t + h), h = 2^(K-q-1), inside each group of 2h
 // points and multiplies the difference by the twiddle of its offset
@@ -315,13 +418,14 @@ __device__ __forceinline__ void dif_registers(float (&re)[1 << K],
 // base + t * 2^s_log, t < 2^K; twiddles tw.row(level + q, j).  kIn reads
 // them from device memory at x + g0 (else from the padded planes), kOut
 // writes them to y + g0 (else back to the planes); 2^K >= 4 points that
-// lie side by side move as float4s (g0 is then a multiple of 4 and the
-// planes 16-byte aligned: the wrappers check).  Ends in __syncthreads().
+// lie side by side move four at a time (load_four / store_four: a float4,
+// or 8 bytes of bf16; g0 is then a multiple of 4 and the planes 16-byte
+// aligned: the wrappers check).  Ends in __syncthreads().
 template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
-          class Twiddle>
+          class Twiddle, class T>
 __device__ __forceinline__ void row_pass(float* sr, float* si,
-                                         const float* xr, const float* xi,
-                                         float* yr, float* yi, size_t g0,
+                                         const T* xr, const T* xi,
+                                         T* yr, T* yi, size_t g0,
                                          int log2_total, int s_log,
                                          int level, const Twiddle& tw) {
   constexpr int P = 1 << K;
@@ -407,10 +511,10 @@ __device__ __forceinline__ void row_pass(float* sr, float* si,
 // (kIn) or the planes, into the planes, or straight to device memory
 // (kOut) when they are all the row has.
 template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
-          class Twiddle>
+          class Twiddle, class T>
 __device__ __forceinline__ void row_first_pass(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t g0, int log2_total, int log2_n, int level,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t g0, int log2_total, int log2_n, int level,
     const Twiddle& tw) {
   if (K == log2_n) {
     row_pass<K, kIn, kOut, kLoad, kStore>(sr, si, xr, xi, yr, yi, g0,
@@ -429,10 +533,11 @@ __device__ __forceinline__ void row_first_pass(
 // planes (sr, si), and go to y + g0 (kOut) or back to the planes.
 // Level l's twiddles are tw.row(level + l, j): `level` > 0 runs the
 // trailing levels of a longer row whose 2^log2_n-point segment this is.
-template <bool kIn, bool kOut, Load kLoad, Store kStore, class Twiddle>
+template <bool kIn, bool kOut, Load kLoad, Store kStore, class Twiddle,
+          class T>
 __device__ __forceinline__ void row_levels_radix(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t g0, int log2_total, int log2_n, int level,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t g0, int log2_total, int log2_n, int level,
     const Twiddle& tw) {
   const int k1 = ((log2_n - 1) & 3) + 1;
   switch (k1) {
@@ -475,10 +580,10 @@ __device__ __forceinline__ void row_levels_radix(
 // or writes 32 neighbouring columns of one row).  Ends in
 // __syncthreads().
 template <int K, bool kIn, bool kOut, Load kLoad, Store kStore,
-          class Twiddle>
+          class Twiddle, class T>
 __device__ __forceinline__ void long_range_pass(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb, int l0,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t c0, size_t stride, int log2_r, int log2_cb, int l0,
     const Twiddle& tw) {
   const int R = 1 << log2_r;
   const int s_log = log2_r - l0 - K;
@@ -532,10 +637,10 @@ __device__ __forceinline__ void long_range_pass(
   __syncthreads();
 }
 
-template <int K, Load kLoad, Store kStore, class Twiddle>
+template <int K, Load kLoad, Store kStore, class Twiddle, class T>
 __device__ __forceinline__ void long_range_first_pass(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
     const Twiddle& tw) {
   if (K == log2_r) {
     long_range_pass<K, true, true, kLoad, kStore>(
@@ -551,10 +656,10 @@ __device__ __forceinline__ void long_range_first_pass(
 // memory through the padded planes: the long-range levels in passes of
 // 3 levels (radix 8: an R = 64, cb = 32 block gives 256 thread
 // items a pass), the first pass taking the 1..3 left over.
-template <Load kLoad, Store kStore, class Twiddle>
+template <Load kLoad, Store kStore, class Twiddle, class T>
 __device__ __forceinline__ void long_range_levels_radix(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
     const Twiddle& tw) {
   const int k1 = (log2_r - 1) % 3 + 1;
   switch (k1) {
@@ -601,10 +706,10 @@ __device__ __forceinline__ void long_range_levels_radix(
 // row); the second after every remote write and before the local
 // levels, so no block touches another's buffer after it and a block may
 // go on to its next row or exit.
-template <int LOG2K, Load kLoad, Store kStore, class Twiddle>
+template <int LOG2K, Load kLoad, Store kStore, class Twiddle, class T>
 __device__ __forceinline__ void cluster_row_levels(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t row, int log2_seg, const Twiddle& tw) {
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t row, int log2_seg, const Twiddle& tw) {
   namespace cg = cooperative_groups;
   constexpr int K = 1 << LOG2K;
   // columns a thread takes at once: 16 points in flight whatever K is
@@ -676,10 +781,10 @@ __device__ __forceinline__ void cluster_row_levels(
 // One long_range_pass of k levels from level l0, k (1..KMAX) picked at
 // run time.
 template <int KMAX, bool kIn, bool kOut, Load kLoad, Store kStore,
-          class Twiddle>
+          class Twiddle, class T>
 __device__ __forceinline__ void long_range_pass_k(
-    int k, float* sr, float* si, const float* xr, const float* xi,
-    float* yr, float* yi, size_t c0, size_t stride, int log2_r,
+    int k, float* sr, float* si, const T* xr, const T* xi,
+    T* yr, T* yi, size_t c0, size_t stride, int log2_r,
     int log2_cb, int l0, const Twiddle& tw) {
   switch (k) {
     case 1:
@@ -707,10 +812,10 @@ __device__ __forceinline__ void long_range_pass_k(
 // block at column c0 (row stride `stride`), from x to y in device memory
 // through the padded planes: the long-range levels, in the passes
 // described above.
-template <int KMAX, Load kLoad, Store kStore, class Twiddle>
+template <int KMAX, Load kLoad, Store kStore, class Twiddle, class T>
 __device__ __forceinline__ void long_range_levels_deep(
-    float* sr, float* si, const float* xr, const float* xi, float* yr,
-    float* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
+    float* sr, float* si, const T* xr, const T* xi, T* yr,
+    T* yi, size_t c0, size_t stride, int log2_r, int log2_cb,
     const Twiddle& tw) {
   const int passes = (log2_r + KMAX - 1) / KMAX;
   const int base = log2_r / passes, extra = log2_r % passes;

@@ -63,8 +63,18 @@
 // the 32 moved: far below the card's fp32 ridge of about 20.  The floor
 // is therefore 16 n bytes over HBM bandwidth, and the carry caps this
 // design at half of it (the reference's one-carry roofline ceiling).
+//
+// bf16 storage (pifft_fourstep_bf16, pifft_fourstep_dense_bf16; the
+// reference's storage="bfloat16": planes, carry, factors or dense
+// tables and tile tables at st_dt, l.1263-1341).  The same kernel
+// instantiated on __nv_bfloat16: each point upcast once as it is read
+// and rounded once as it is written, so the carry between phases A and
+// B is held in bf16 and every round trip moves half the bytes; shared
+// memory and every level stay float.  Half the floor of the float32
+// kernel.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -104,14 +114,16 @@ struct Layout {
   }
 };
 
-template <int LOG2CW, class Twiddle>
-__global__ void __launch_bounds__(kThreads, 2)
-fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                float* yr, float* yi,  // output and carry: not restrict
-                Twiddle tw,
-                const float* __restrict__ twr, const float* __restrict__ twi,
-                int log2_r, int log2_tile, int log2_cb) {
-  extern __shared__ __align__(16) float smem[];
+// The kernel's body for planes, carry and tables stored as T (float, or
+// __nv_bfloat16: each point upcast once at a load, rounded once at a
+// store, so the carry between the phases is held at the storage dtype,
+// as the reference's (R, Q, LANE) carry at st_dt, l.1337).
+template <int LOG2CW, class T, class Twiddle>
+__device__ __forceinline__ void fourstep_body(
+    float* smem, const T* __restrict__ xr, const T* __restrict__ xi,
+    T* yr, T* yi,  // output and carry: not restrict
+    const Twiddle& tw, const T* __restrict__ twr,
+    const T* __restrict__ twi, int log2_r, int log2_tile, int log2_cb) {
   const int log2_seg = log2_tile - LOG2CW;
   const Layout lay(log2_r, log2_cb, log2_seg);
   const size_t tile = static_cast<size_t>(1) << log2_tile;
@@ -136,7 +148,7 @@ fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   if constexpr (kPhaseB) {
     const long long rows = 1LL << log2_r;
     const long long clusters = gridDim.x >> LOG2CW;
-    const pifft::FlatTwiddle ftw{twr, twi, 1 << log2_tile};
+    const pifft::FlatTable<T> ftw{twr, twi, 1 << log2_tile};
     float* sr = smem;
     float* si = smem + lay.plane_b;
     for (long long r = blockIdx.x >> LOG2CW; r < rows; r += clusters) {
@@ -154,15 +166,50 @@ fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// Two overloads: float planes and tables, and the bf16 storage
+// instantiation (bf16 planes, carry, factors or dense tables, and tile
+// tables).
+template <int LOG2CW, class Twiddle>
+__global__ void __launch_bounds__(kThreads, 2)
+fourstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* yr, float* yi,  // output and carry: not restrict
+                Twiddle tw,
+                const float* __restrict__ twr, const float* __restrict__ twi,
+                int log2_r, int log2_tile, int log2_cb) {
+  extern __shared__ __align__(16) float smem[];
+  fourstep_body<LOG2CW>(smem, xr, xi, yr, yi, tw, twr, twi, log2_r,
+                        log2_tile, log2_cb);
+}
+
+template <int LOG2CW, class Twiddle>
+__global__ void __launch_bounds__(kThreads, 2)
+fourstep_kernel(const __nv_bfloat16* __restrict__ xr,
+                const __nv_bfloat16* __restrict__ xi, __nv_bfloat16* yr,
+                __nv_bfloat16* yi, Twiddle tw,
+                const __nv_bfloat16* __restrict__ twr,
+                const __nv_bfloat16* __restrict__ twi, int log2_r,
+                int log2_tile, int log2_cb) {
+  extern __shared__ __align__(16) float smem[];
+  fourstep_body<LOG2CW>(smem, xr, xi, yr, yi, tw, twr, twi, log2_r,
+                        log2_tile, log2_cb);
+}
+
+// fourstep_kernel<LOG2CW, Twiddle> for planes stored as T
+template <int LOG2CW, class T, class Twiddle>
+const void* kernel_for() {
+  void (*kernel)(const T*, const T*, T*, T*, Twiddle, const T*, const T*,
+                 int, int, int) = fourstep_kernel<LOG2CW, Twiddle>;
+  return reinterpret_cast<const void*>(kernel);
+}
+
 // The blocks of fourstep_kernel<LOG2CW, ...> the card holds at once
 // with `smem` bytes of shared memory each: blocks per SM times SMs for
 // cw = 1, the most active clusters (cudaOccupancyMaxActiveClusters)
 // times cw otherwise.  Opts the kernel into `smem` first (once per
 // card).  A card without cooperative launch is refused.
-template <int LOG2CW, class Twiddle>
+template <int LOG2CW, class T, class Twiddle>
 cudaError_t resident_blocks(int smem, int device, long long* resident) {
-  const void* kernel =
-      reinterpret_cast<const void*>(fourstep_kernel<LOG2CW, Twiddle>);
+  const void* kernel = kernel_for<LOG2CW, T, Twiddle>();
   static pifft::SmemOptIn opted;
   cudaError_t err = pifft::opt_in_smem(kernel, smem, device, opted);
   if (err != cudaSuccess) return err;
@@ -205,7 +252,7 @@ cudaError_t resident_blocks(int smem, int device, long long* resident) {
 // (resident_blocks, asked once per card and size), capped at the larger
 // phase's work and counted in whole clusters.  A card that holds none,
 // or has no cooperative launch, is refused, never run another way.
-template <int LOG2CW, class Twiddle>
+template <int LOG2CW, class T, class Twiddle>
 cudaError_t launch_fourstep(void** args, int smem, long long work,
                             int device, cudaStream_t stream) {
   // what the card answered at the last launch of this instantiation,
@@ -215,7 +262,7 @@ cudaError_t launch_fourstep(void** args, int smem, long long work,
   if (device != cached_device || smem != cached_smem) {
     long long resident = 0;
     const cudaError_t err =
-        resident_blocks<LOG2CW, Twiddle>(smem, device, &resident);
+        resident_blocks<LOG2CW, T, Twiddle>(smem, device, &resident);
     if (err != cudaSuccess) return err;
     if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
     cached_device = device;
@@ -238,19 +285,16 @@ cudaError_t launch_fourstep(void** args, int smem, long long work,
   config.stream = stream;
   config.attrs = attrs;
   config.numAttrs = LOG2CW ? 2 : 1;
-  const cudaError_t err = cudaLaunchKernelExC(
-      &config,
-      reinterpret_cast<const void*>(fourstep_kernel<LOG2CW, Twiddle>),
-      args);
+  const cudaError_t err =
+      cudaLaunchKernelExC(&config, kernel_for<LOG2CW, T, Twiddle>(), args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <class Twiddle>
-int launch(const float* xr, const float* xi, float* yr, float* yi,
-           Twiddle tw, const float* twr, const float* twi, int log2_r,
-           int log2_tile, int log2_cb, int log2_cw, int device,
-           void* stream) {
+template <class T, class Twiddle>
+int launch(const T* xr, const T* xi, T* yr, T* yi, Twiddle tw,
+           const T* twr, const T* twi, int log2_r, int log2_tile,
+           int log2_cb, int log2_cw, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = Layout(log2_r, log2_cb, log2_tile - log2_cw).bytes();
@@ -261,11 +305,14 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
                   &log2_r, &log2_tile, &log2_cb};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log2_cw) {
-    case 0: err = launch_fourstep<0, Twiddle>(args, smem, work, device, s);
+    case 0:
+      err = launch_fourstep<0, T, Twiddle>(args, smem, work, device, s);
       break;
-    case 1: err = launch_fourstep<1, Twiddle>(args, smem, work, device, s);
+    case 1:
+      err = launch_fourstep<1, T, Twiddle>(args, smem, work, device, s);
       break;
-    case 2: err = launch_fourstep<2, Twiddle>(args, smem, work, device, s);
+    case 2:
+      err = launch_fourstep<2, T, Twiddle>(args, smem, work, device, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -288,8 +335,24 @@ extern "C" int pifft_fourstep(const float* xr, const float* xi, float* yr,
                               const float* twr, const float* twi, int log2_r,
                               int log2_tile, int log2_cb, int log2_cw,
                               int device, void* stream) {
-  const pifft::SeparableTwiddle tw{ar, ai, br, bi,
-                                   static_cast<size_t>(1) << log2_tile};
+  const pifft::SeparableTwiddle tw{
+      {ar, ai, br, bi, static_cast<size_t>(1) << log2_tile}};
+  return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
+                log2_cw, device, stream);
+}
+
+// The same transform on bf16 planes, factors (device_factors(R, tile,
+// storage="bfloat16")) and tables (flat_tables(tile,
+// storage="bfloat16")), its carry in bf16: the bf16 storage
+// instantiation.
+extern "C" int pifft_fourstep_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* ar, const __nv_bfloat16* ai,
+    const __nv_bfloat16* br, const __nv_bfloat16* bi,
+    const __nv_bfloat16* twr, const __nv_bfloat16* twi, int log2_r,
+    int log2_tile, int log2_cb, int log2_cw, int device, void* stream) {
+  const pifft::SeparableFactors<__nv_bfloat16> tw{
+      ar, ai, br, bi, static_cast<size_t>(1) << log2_tile};
   return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
                 log2_cw, device, stream);
 }
@@ -304,8 +367,22 @@ extern "C" int pifft_fourstep_dense(const float* xr, const float* xi,
                                     const float* twi, int log2_r,
                                     int log2_tile, int log2_cb, int log2_cw,
                                     int device, void* stream) {
-  const pifft::DenseTwiddle<true> tw{wr, wi,
-                                     static_cast<size_t>(1) << log2_tile};
+  const pifft::DenseTwiddle<true> tw{
+      {wr, wi, static_cast<size_t>(1) << log2_tile}};
+  return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
+                log2_cw, device, stream);
+}
+
+// The dense transform on bf16 planes, tables (dense_long_range_tables(R,
+// tile, storage="bfloat16"), flat_tables(tile, storage="bfloat16")) and
+// carry.
+extern "C" int pifft_fourstep_dense_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* wr, const __nv_bfloat16* wi,
+    const __nv_bfloat16* twr, const __nv_bfloat16* twi, int log2_r,
+    int log2_tile, int log2_cb, int log2_cw, int device, void* stream) {
+  const pifft::DenseTable<true, __nv_bfloat16> tw{
+      wr, wi, static_cast<size_t>(1) << log2_tile};
   return launch(xr, xi, yr, yi, tw, twr, twi, log2_r, log2_tile, log2_cb,
                 log2_cw, device, stream);
 }
@@ -322,14 +399,14 @@ extern "C" long long pifft_fourstep_resident_blocks(int log2_r,
   const int smem = Layout(log2_r, log2_cb, log2_tile - log2_cw).bytes();
   long long resident = 0;
   switch (log2_cw) {
-    case 0: err = resident_blocks<0, pifft::SeparableTwiddle>(smem, device,
-                                                              &resident);
+    case 0: err = resident_blocks<0, float, pifft::SeparableTwiddle>(
+                  smem, device, &resident);
       break;
-    case 1: err = resident_blocks<1, pifft::SeparableTwiddle>(smem, device,
-                                                              &resident);
+    case 1: err = resident_blocks<1, float, pifft::SeparableTwiddle>(
+                  smem, device, &resident);
       break;
-    case 2: err = resident_blocks<2, pifft::SeparableTwiddle>(smem, device,
-                                                              &resident);
+    case 2: err = resident_blocks<2, float, pifft::SeparableTwiddle>(
+                  smem, device, &resident);
       break;
     default: err = cudaErrorInvalidValue;
   }

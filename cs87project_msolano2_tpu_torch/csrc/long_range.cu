@@ -52,7 +52,18 @@
 // flop per element each with the separable factors (6 of them
 // rebuilding the twiddle), 5 with the dense tables: below the card's
 // fp32 ridge, so bytes over HBM bandwidth is the floor.
+//
+// bf16 storage (pifft_long_range_sep_bf16; the reference's
+// storage="bfloat16" on the rql path, its planes and factors at st_dt,
+// upcast at load).  The separable kernel instantiated on __nv_bfloat16
+// planes and factors: every point and factor is upcast once as it is
+// read, every point rounded once as it is written (y is rql's
+// intermediate, stored in bf16 as the reference's is); the twiddle is
+// rebuilt and every level runs in float.  Half the bytes, so half the
+// floor.  The dense tables have no bf16 instantiation here: the
+// two-kernel entry refuses bf16 until one is written.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -64,11 +75,12 @@ namespace {
 constexpr int kDeepThreads = 256;
 
 // The levels of one R x cb column block of one transform, from x to y
-// through the padded planes, twiddles from `tw`.
-template <int KMAX, class Twiddle>
+// through the padded planes, twiddles from `tw`; planes stored as T
+// (float, or __nv_bfloat16: upcast at load, rounded at store).
+template <int KMAX, class T, class Twiddle>
 __device__ __forceinline__ void long_range_block(
-    const float* __restrict__ xr, const float* __restrict__ xi,
-    float* __restrict__ yr, float* __restrict__ yi, const Twiddle& tw,
+    const T* __restrict__ xr, const T* __restrict__ xi,
+    T* __restrict__ yr, T* __restrict__ yi, const Twiddle& tw,
     int log2_r, int C, int log2_cb) {
   extern __shared__ float smem[];
   float* sr = smem;
@@ -92,6 +104,18 @@ long_range_sep_kernel(const float* __restrict__ xr,
   long_range_block<KMAX>(xr, xi, yr, yi, tw, log2_r, C, log2_cb);
 }
 
+// the bf16 storage instantiation: planes and factors in bf16
+template <int KMAX>
+__global__ void __launch_bounds__(kDeepThreads, KMAX == 3 ? 4 : 2)
+long_range_sep_kernel(const __nv_bfloat16* __restrict__ xr,
+                      const __nv_bfloat16* __restrict__ xi,
+                      __nv_bfloat16* __restrict__ yr,
+                      __nv_bfloat16* __restrict__ yi,
+                      pifft::SeparableFactors<__nv_bfloat16> tw, int log2_r,
+                      int C, int log2_cb) {
+  long_range_block<KMAX>(xr, xi, yr, yi, tw, log2_r, C, log2_cb);
+}
+
 template <int KMAX>
 __global__ void __launch_bounds__(kDeepThreads, KMAX == 3 ? 4 : 2)
 long_range_dense_kernel(const float* __restrict__ xr,
@@ -102,16 +126,16 @@ long_range_dense_kernel(const float* __restrict__ xr,
   long_range_block<KMAX>(xr, xi, yr, yi, tw, log2_r, C, log2_cb);
 }
 
-// One launch of `kernel` (either kernel above, at one KMAX): a block per
-// transform and column block, (R x cb) / 8 threads (32 to kDeepThreads),
-// two padded planes of shared memory, opted into once per card (`opted`,
-// one per kernel).
-template <class Twiddle>
-int launch_deep(void (*kernel)(const float*, const float*, float*, float*,
-                               Twiddle, int, int, int),
-                pifft::SmemOptIn& opted, const float* xr, const float* xi,
-                float* yr, float* yi, Twiddle tw, long long batch,
-                int log2_r, int C, int log2_cb, int device, void* stream) {
+// One launch of `kernel` (either kernel above, at one KMAX, for planes
+// stored as T): a block per transform and column block, (R x cb) / 8
+// threads (32 to kDeepThreads), two padded float planes of shared
+// memory, opted into once per card (`opted`, one per kernel).
+template <class T, class Twiddle>
+int launch_deep(void (*kernel)(const T*, const T*, T*, T*, Twiddle, int,
+                               int, int),
+                pifft::SmemOptIn& opted, const T* xr, const T* xi, T* yr,
+                T* yi, Twiddle tw, long long batch, int log2_r, int C,
+                int log2_cb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int total = (1 << log2_r) << log2_cb;
@@ -130,6 +154,24 @@ int launch_deep(void (*kernel)(const float*, const float*, float*, float*,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The separable launch for planes and factors stored as T.
+template <class T, class Twiddle>
+int launch_sep(const T* xr, const T* xi, T* yr, T* yi, Twiddle tw,
+               long long batch, int log2_r, int C, int log2_cb, int device,
+               void* stream) {
+  static pifft::SmemOptIn opted3, opted4;
+  void (*kernel3)(const T*, const T*, T*, T*, Twiddle, int, int, int) =
+      long_range_sep_kernel<3>;
+  void (*kernel4)(const T*, const T*, T*, T*, Twiddle, int, int, int) =
+      long_range_sep_kernel<4>;
+  if (log2_r % 3 == 0) {
+    return launch_deep(kernel3, opted3, xr, xi, yr, yi, tw, batch, log2_r,
+                       C, log2_cb, device, stream);
+  }
+  return launch_deep(kernel4, opted4, xr, xi, yr, yi, tw, batch, log2_r, C,
+                     log2_cb, device, stream);
+}
+
 }  // namespace
 
 // Launch the long-range levels over `batch` transforms of (2^log2_r, C)
@@ -142,14 +184,22 @@ extern "C" int pifft_long_range_sep(const float* xr, const float* xi,
                                     const float* bi, long long batch,
                                     int log2_r, int C, int log2_cb,
                                     int device, void* stream) {
-  static pifft::SmemOptIn opted3, opted4;
-  const pifft::SeparableTwiddle tw{ar, ai, br, bi, static_cast<size_t>(C)};
-  if (log2_r % 3 == 0) {
-    return launch_deep(long_range_sep_kernel<3>, opted3, xr, xi, yr, yi, tw,
-                       batch, log2_r, C, log2_cb, device, stream);
-  }
-  return launch_deep(long_range_sep_kernel<4>, opted4, xr, xi, yr, yi, tw,
-                     batch, log2_r, C, log2_cb, device, stream);
+  const pifft::SeparableTwiddle tw{{ar, ai, br, bi, static_cast<size_t>(C)}};
+  return launch_sep(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                    stream);
+}
+
+// The same launch on bf16 planes and factors (device_factors(R, C,
+// storage="bfloat16")): the bf16 storage instantiation.
+extern "C" int pifft_long_range_sep_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* ar, const __nv_bfloat16* ai,
+    const __nv_bfloat16* br, const __nv_bfloat16* bi, long long batch,
+    int log2_r, int C, int log2_cb, int device, void* stream) {
+  const pifft::SeparableFactors<__nv_bfloat16> tw{
+      ar, ai, br, bi, static_cast<size_t>(C)};
+  return launch_sep(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                    stream);
 }
 
 // The same levels with the twiddles read from the (R - 1, C) dense
@@ -160,7 +210,7 @@ extern "C" int pifft_long_range_dense(const float* xr, const float* xi,
                                       int log2_r, int C, int log2_cb,
                                       int device, void* stream) {
   static pifft::SmemOptIn opted3, opted4;
-  const pifft::DenseTwiddle<true> tw{wr, wi, static_cast<size_t>(C)};
+  const pifft::DenseTwiddle<true> tw{{wr, wi, static_cast<size_t>(C)}};
   if (log2_r % 3 == 0) {
     return launch_deep(long_range_dense_kernel<3>, opted3, xr, xi, yr, yi,
                        tw, batch, log2_r, C, log2_cb, device, stream);

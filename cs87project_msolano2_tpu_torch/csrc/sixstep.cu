@@ -64,8 +64,17 @@
 // element at n = 2^27 against 48 bytes moved: under the fp32 ridge.  The
 // floor is 16 n bytes over HBM bandwidth, and the two carries cap this
 // design at a third of it (the reference's two-carry ceiling).
+//
+// bf16 storage (pifft_sixstep_bf16, pifft_sixstep_dense_bf16; the
+// reference's storage="bfloat16": planes, both carries, twiddles and
+// tile tables at st_dt, l.1749-1836).  The same kernel instantiated on
+// __nv_bfloat16: each point upcast once as it is read and rounded once
+// as it is written, so both carries (after A and after B1) are held in
+// bf16 and every pass moves half the bytes; shared memory and every
+// level stay float.  Half the floor of the float32 kernel.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -100,15 +109,17 @@ __host__ __device__ __forceinline__ int plane_floats(int log2_r1,
   return b2 > f ? b2 : f;
 }
 
-template <int LOG2CW, class Outer, class Inner>
-__global__ void __launch_bounds__(kThreads, 2)
-sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-               float* yr, float* yi,  // output and carry: not restrict
-               Outer tw1, Inner tw2,
-               const float* __restrict__ twr, const float* __restrict__ twi,
-               int log2_r1, int log2_r2, int log2_tile, int log2_cb1,
-               int log2_cb2) {
-  extern __shared__ float smem[];
+// The kernel's body for planes, carries and tables stored as T (float,
+// or __nv_bfloat16: each point upcast once at a load and rounded once at
+// a store, so both carries are held at the storage dtype, as the
+// reference's are at st_dt, l.1490).
+template <int LOG2CW, class T, class Outer, class Inner>
+__device__ __forceinline__ void sixstep_body(
+    float* smem, const T* __restrict__ xr, const T* __restrict__ xi,
+    T* yr, T* yi,  // output and carry: not restrict
+    const Outer& tw1, const Inner& tw2, const T* __restrict__ twr,
+    const T* __restrict__ twi, int log2_r1, int log2_r2, int log2_tile,
+    int log2_cb1, int log2_cb2) {
   const int log2_seg = log2_tile - LOG2CW;
   float* sr = smem;
   float* si = smem + plane_floats(log2_r1, log2_cb1, log2_r2, log2_cb2,
@@ -141,8 +152,8 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     const size_t group = static_cast<size_t>(it >> log2_q2) << log2_m;
     const size_t c0 = static_cast<size_t>(it & ((1LL << log2_q2) - 1))
                       << log2_cb2;
-    float* gr = yr + group;
-    float* gi = yi + group;
+    T* gr = yr + group;
+    T* gi = yi + group;
     pifft::long_range_levels_radix<pifft::Load::kCoherent,
                                    pifft::Store::kGlobal>(
         sr, si, gr, gi, gr, gi, c0, tile, log2_r2, log2_cb2, tw2);
@@ -154,7 +165,7 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   // cluster of 2^LOG2CW blocks, block rank r ending with segment r
   const long long rows = 1LL << (log2_r1 + log2_r2);
   const long long clusters = gridDim.x >> LOG2CW;
-  const pifft::FlatTwiddle ftw{twr, twi, 1 << log2_tile};
+  const pifft::FlatTable<T> ftw{twr, twi, 1 << log2_tile};
   for (long long r = blockIdx.x >> LOG2CW; kPhaseB2 && r < rows;
        r += clusters) {
     const size_t row = static_cast<size_t>(r) << log2_tile;
@@ -170,6 +181,35 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// Two overloads: float planes and tables, and the bf16 storage
+// instantiation (bf16 planes, carries, long-range twiddles and tile
+// tables).
+template <int LOG2CW, class Outer, class Inner>
+__global__ void __launch_bounds__(kThreads, 2)
+sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+               float* yr, float* yi,  // output and carry: not restrict
+               Outer tw1, Inner tw2,
+               const float* __restrict__ twr, const float* __restrict__ twi,
+               int log2_r1, int log2_r2, int log2_tile, int log2_cb1,
+               int log2_cb2) {
+  extern __shared__ float smem[];
+  sixstep_body<LOG2CW>(smem, xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1,
+                       log2_r2, log2_tile, log2_cb1, log2_cb2);
+}
+
+template <int LOG2CW, class Outer, class Inner>
+__global__ void __launch_bounds__(kThreads, 2)
+sixstep_kernel(const __nv_bfloat16* __restrict__ xr,
+               const __nv_bfloat16* __restrict__ xi, __nv_bfloat16* yr,
+               __nv_bfloat16* yi, Outer tw1, Inner tw2,
+               const __nv_bfloat16* __restrict__ twr,
+               const __nv_bfloat16* __restrict__ twi, int log2_r1,
+               int log2_r2, int log2_tile, int log2_cb1, int log2_cb2) {
+  extern __shared__ float smem[];
+  sixstep_body<LOG2CW>(smem, xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1,
+                       log2_r2, log2_tile, log2_cb1, log2_cb2);
+}
+
 // One cooperative launch of sixstep_kernel<LOG2CW, ...> on clusters of
 // 2^LOG2CW blocks, both as attributes of this launch
 // (cudaLaunchKernelExC).  The grid is what the card holds at once —
@@ -177,11 +217,13 @@ sixstep_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // (cudaOccupancyMaxActiveClusters) times cw otherwise — capped at the
 // largest phase's work and counted in whole clusters.  A card that holds
 // none, or has no cooperative launch, is refused, never run another way.
-template <int LOG2CW, class Outer, class Inner>
+template <int LOG2CW, class T, class Outer, class Inner>
 cudaError_t launch_sixstep(void** args, int smem, long long work,
                            int device, cudaStream_t stream) {
-  const void* kernel =
-      reinterpret_cast<const void*>(sixstep_kernel<LOG2CW, Outer, Inner>);
+  void (*typed)(const T*, const T*, T*, T*, Outer, Inner, const T*,
+                const T*, int, int, int, int, int) =
+      sixstep_kernel<LOG2CW, Outer, Inner>;
+  const void* kernel = reinterpret_cast<const void*>(typed);
   // what the card answered at the last launch of this instantiation,
   // reused while the device and the shared memory stay the same
   static pifft::SmemOptIn opted;
@@ -242,11 +284,11 @@ cudaError_t launch_sixstep(void** args, int smem, long long work,
   return cudaGetLastError();
 }
 
-template <class Outer, class Inner>
-int launch(const float* xr, const float* xi, float* yr, float* yi,
-           Outer tw1, Inner tw2, const float* twr, const float* twi,
-           int log2_r1, int log2_r2, int log2_tile, int log2_cb1,
-           int log2_cb2, int log2_cw, int device, void* stream) {
+template <class T, class Outer, class Inner>
+int launch(const T* xr, const T* xi, T* yr, T* yi, Outer tw1, Inner tw2,
+           const T* twr, const T* twi, int log2_r1, int log2_r2,
+           int log2_tile, int log2_cb1, int log2_cb2, int log2_cw,
+           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int smem = 2 *
@@ -263,12 +305,12 @@ int launch(const float* xr, const float* xi, float* yr, float* yi,
                   &log2_tile, &log2_cb1, &log2_cb2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log2_cw) {
-    case 0: err = launch_sixstep<0, Outer, Inner>(args, smem, work, device,
-                                                  s); break;
-    case 1: err = launch_sixstep<1, Outer, Inner>(args, smem, work, device,
-                                                  s); break;
-    case 2: err = launch_sixstep<2, Outer, Inner>(args, smem, work, device,
-                                                  s); break;
+    case 0: err = launch_sixstep<0, T, Outer, Inner>(args, smem, work,
+                                                     device, s); break;
+    case 1: err = launch_sixstep<1, T, Outer, Inner>(args, smem, work,
+                                                     device, s); break;
+    case 2: err = launch_sixstep<2, T, Outer, Inner>(args, smem, work,
+                                                     device, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -295,8 +337,29 @@ extern "C" int pifft_sixstep(const float* xr, const float* xi, float* yr,
                              int log2_cb2, int log2_cw, int device,
                              void* stream) {
   const size_t tile = static_cast<size_t>(1) << log2_tile;
-  const pifft::SeparableTwiddle tw1{a1r, a1i, b1r, b1i, tile << log2_r2};
-  const pifft::SeparableTwiddle tw2{a2r, a2i, b2r, b2i, tile};
+  const pifft::SeparableTwiddle tw1{{a1r, a1i, b1r, b1i, tile << log2_r2}};
+  const pifft::SeparableTwiddle tw2{{a2r, a2i, b2r, b2i, tile}};
+  return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
+                log2_tile, log2_cb1, log2_cb2, log2_cw, device, stream);
+}
+
+// The same transform on bf16 planes, factors (device_factors(...,
+// storage="bfloat16")) and tables (flat_tables(tile,
+// storage="bfloat16")), both carries in bf16: the bf16 storage
+// instantiation.
+extern "C" int pifft_sixstep_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* a1r, const __nv_bfloat16* a1i,
+    const __nv_bfloat16* b1r, const __nv_bfloat16* b1i,
+    const __nv_bfloat16* a2r, const __nv_bfloat16* a2i,
+    const __nv_bfloat16* b2r, const __nv_bfloat16* b2i,
+    const __nv_bfloat16* twr, const __nv_bfloat16* twi, int log2_r1,
+    int log2_r2, int log2_tile, int log2_cb1, int log2_cb2, int log2_cw,
+    int device, void* stream) {
+  using Factors = pifft::SeparableFactors<__nv_bfloat16>;
+  const size_t tile = static_cast<size_t>(1) << log2_tile;
+  const Factors tw1{a1r, a1i, b1r, b1i, tile << log2_r2};
+  const Factors tw2{a2r, a2i, b2r, b2i, tile};
   return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
                 log2_tile, log2_cb1, log2_cb2, log2_cw, device, stream);
 }
@@ -315,8 +378,24 @@ extern "C" int pifft_sixstep_dense(const float* xr, const float* xi,
                                    int log2_cb2, int log2_cw, int device,
                                    void* stream) {
   const size_t tile = static_cast<size_t>(1) << log2_tile;
-  const pifft::DenseTwiddle<true> tw1{w1r, w1i, tile << log2_r2};
-  const pifft::DenseTwiddle<false> tw2{w2r, w2i, tile};
+  const pifft::DenseTwiddle<true> tw1{{w1r, w1i, tile << log2_r2}};
+  const pifft::DenseTwiddle<false> tw2{{w2r, w2i, tile}};
+  return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
+                log2_tile, log2_cb1, log2_cb2, log2_cw, device, stream);
+}
+
+// The dense transform on bf16 planes, tables and carries.
+extern "C" int pifft_sixstep_dense_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* w1r, const __nv_bfloat16* w1i,
+    const __nv_bfloat16* w2r, const __nv_bfloat16* w2i,
+    const __nv_bfloat16* twr, const __nv_bfloat16* twi, int log2_r1,
+    int log2_r2, int log2_tile, int log2_cb1, int log2_cb2, int log2_cw,
+    int device, void* stream) {
+  const size_t tile = static_cast<size_t>(1) << log2_tile;
+  const pifft::DenseTable<true, __nv_bfloat16> tw1{w1r, w1i,
+                                                   tile << log2_r2};
+  const pifft::DenseTable<false, __nv_bfloat16> tw2{w2r, w2i, tile};
   return launch(xr, xi, yr, yi, tw1, tw2, twr, twi, log2_r1, log2_r2,
                 log2_tile, log2_cb1, log2_cb2, log2_cw, device, stream);
 }

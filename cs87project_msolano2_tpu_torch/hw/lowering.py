@@ -20,9 +20,12 @@ follows the kernel for natural order); the static default takes it up to
 GPU_ROWS_STATIC_MAX_N on any device, and up to GPU_ROWS_MAX_N for a key
 that names a card, and ``gpu-stages`` for a larger natural-order key
 (or a longer one offline).  A pi-layout key that no ``gpu-rows`` serves
-raises.  Real domains, non-power-of-two n and bf16 storage raise as the
-``cuda`` family does; the reference's ``cpu-native`` family is not
-ported (``plans.core`` refuses the backend).
+raises.  Real domains and non-power-of-two n raise as the ``cuda``
+family does.  A key in bf16 mode gets what the reference's gpu family
+gives it: the same candidates and default, run in float32 (the gpu
+family has no narrow storage, so ``Plan.storage_bytes`` charges 4
+bytes); the reference's ``cpu-native`` family is not ported
+(``plans.core`` refuses the backend).
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from ..ops.cuda_fft import (
     gpu_rows_blocking,
     gpu_rows_plain,
 )
-from ..ops.precision import ported_storage
 from ..plans.core import PlanKey, offline_kind
 
 #: above this n the static default serves ``gpu-rows`` only to a key
@@ -109,7 +111,8 @@ def _nrows(key: PlanKey) -> int:
 
 
 def _check_key(key: PlanKey) -> None:
-    ported_storage(key.precision)
+    # the precision mode is not checked: the gpu family serves every
+    # mode in float32, as the reference's does
     if key.domain != "c2c":
         raise ValueError(f"domain {key.domain!r} is not ported yet")
     if not is_power_of_two(key.n):

@@ -36,6 +36,18 @@ kernel for CUDA tensors (or raises) and counts the launch on its
 ``launches`` attribute; a CPU tensor goes to the plain version, which is
 also the yardstick the kernel is held against on the card.
 
+bf16 storage (``ops.precision``): ``tile_fft``, ``long_range_sep``,
+``fourstep`` and ``sixstep`` also take bfloat16 planes with bfloat16
+twiddle operands (``twiddle``'s ``storage="bfloat16"``) and launch their
+kernel's bf16 instantiation, counted apart on ``launches_bf16``; every
+operand must have the planes' dtype, nothing is converted in silence.
+Their plain versions upcast, run the float32 levels and round the result
+to the planes' dtype, which is where the kernel stores: the input and
+tables arrive rounded, and each kernel's (and each kernel phase's)
+output is rounded once.  The compositions take ``storage=`` as the
+reference's entry points do: float32 in, rounded once at entry, float32
+out, upcast once at the boundary.
+
 Blocking follows Hopper's budget, not the TPU's 16 MB scoped VMEM: a
 block may opt into 227 KB (232,448 bytes) of shared memory, so a tile
 of re+im float32 holds at most 2^14 points, and a long-range block
@@ -53,7 +65,14 @@ import torch
 from ..hw.inventory import sm_count
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
-from .precision import bf16_split, planes_dot, split_levels, storage_dtype
+from .precision import (
+    as_compute,
+    as_storage,
+    bf16_split,
+    planes_dot,
+    split_levels,
+    storage_dtype,
+)
 from .twiddle import (
     FUNNEL_TILE_K,
     FUNNEL_TILE_ROWS,
@@ -429,30 +448,56 @@ def rows_plan_feasible(nrows: int, n: int) -> bool:
 # --- shared operand checks and launch -------------------------------------
 
 
-def _check_planes(xr, xi, ndim: int, name: str) -> None:
+#: the plane dtypes of the kernels with a bf16 storage instantiation
+PLANE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_planes(xr, xi, ndim: int, name: str,
+                  dtypes=(torch.float32,)) -> None:
     for t in (xr, xi):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: planes must be tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: planes must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: planes must be "
+                            f"{' or '.join(str(d) for d in dtypes)}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: planes must be contiguous")
+    if xi.dtype != xr.dtype:
+        raise TypeError(f"{name}: re/im planes must share one dtype, got "
+                        f"{xr.dtype} / {xi.dtype}")
     if xr.shape != xi.shape or xr.dim() != ndim:
         raise ValueError(f"{name}: re/im planes must share one {ndim}-D "
                          f"shape, got {tuple(xr.shape)} / "
                          f"{tuple(xi.shape)}")
 
 
-def _check_operands(name, device, *tensors_and_shapes) -> None:
+def _check_operands(name, device, *tensors_and_shapes,
+                    dtype=torch.float32) -> None:
     for t, shape in tensors_and_shapes:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous float32")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous {dtype} "
+                             f"(the planes' dtype), got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: operand shape {tuple(t.shape)} != "
                              f"{shape}")
         if t.device != device:
             raise ValueError(f"{name}: operand on {t.device}, planes on "
                              f"{device}")
+
+
+def _entry(fn: str, dtype) -> str:
+    """The C entry of kernel `fn` for planes of `dtype`: the bf16
+    storage instantiation is ``<fn>_bf16``."""
+    return fn + "_bf16" if dtype == torch.bfloat16 else fn
+
+
+def _count(kernel, dtype) -> None:
+    """One more launch of `kernel`'s instantiation for `dtype`."""
+    if dtype == torch.bfloat16:
+        kernel.launches_bf16 += 1
+    else:
+        kernel.launches += 1
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
@@ -534,43 +579,50 @@ def _card_tile_blocking(rows: int, tile: int, device: torch.device):
 
 def tile_fft_plain(xr, xi, twr, twi):
     """Plain version of ``tile_fft``: log2(tile) ``stage_full`` levels
-    over the same flat tables."""
+    over the same flat tables, in float32 (bf16 planes and tables
+    upcast), the result in the planes' dtype (rounded once for bf16,
+    where the kernel stores)."""
+    dt = xr.dtype
+    xr, xi, twr, twi = (as_compute(t) for t in (xr, xi, twr, twi))
     tile = xr.shape[-1]
     for l in range(ilog2(tile)):
         off = tile - (tile >> l)
         half = tile >> (l + 1)
         xr, xi = stage_full(xr, xi, twr[off:off + half], twi[off:off + half])
-    return xr, xi
+    return xr.to(dt), xi.to(dt)
 
 
 def tile_fft(xr, xi, twr, twi):
-    """pi-layout DIF of each row of (rows, tile) float32 planes.
+    """pi-layout DIF of each row of (rows, tile) float32 or bfloat16
+    planes.
 
     twr/twi: the (tile - 1,) concatenated per-level tables of
-    ``twiddle_tables(tile)`` (``twiddle.flat_tables``).  CUDA tensors
-    launch the kernel (csrc/tile_fft.cu) once, blocked by
-    ``tile_blocking`` for the card's SM count; the planes must be
-    16-byte aligned (ValueError otherwise).  CPU tensors take
-    ``tile_fft_plain``.  Returns new (rows, tile) planes."""
-    _check_planes(xr, xi, 2, "tile_fft")
+    ``twiddle_tables(tile)`` (``twiddle.flat_tables``) in the planes'
+    dtype.  CUDA tensors launch the kernel (csrc/tile_fft.cu; its bf16
+    instantiation for bf16 planes) once, blocked by ``tile_blocking``
+    for the card's SM count; the planes must be 16-byte aligned
+    (ValueError otherwise).  CPU tensors take ``tile_fft_plain``.
+    Returns new (rows, tile) planes of the same dtype."""
+    _check_planes(xr, xi, 2, "tile_fft", PLANE_DTYPES)
     rows, tile = xr.shape
     check_tile(tile)
     _check_operands("tile_fft", xr.device,
-                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+                    (twr, (tile - 1,)), (twi, (tile - 1,)), dtype=xr.dtype)
     if xr.device.type == "cpu":
         return tile_fft_plain(xr, xi, twr, twi)
     block_rows, cw = _card_tile_blocking(rows, tile, xr.device)
     _check_aligned("tile_fft", xr, xi)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if rows:
-        _launch("tile_fft", "pifft_tile_fft", xr.device,
+        _launch("tile_fft", _entry("pifft_tile_fft", xr.dtype), xr.device,
                 xr, xi, yr, yi, twr, twi, rows, ilog2(tile),
                 ilog2(block_rows), ilog2(cw))
-        tile_fft.launches += 1
+        _count(tile_fft, xr.dtype)
     return yr, yi
 
 
 tile_fft.launches = 0
+tile_fft.launches_bf16 = 0
 
 
 # --- kernel 2: long_range_sep ----------------------------------------------
@@ -595,7 +647,12 @@ def _long_range_stage(xr, xi, half, wr, wi):
 
 def long_range_sep_plain(xr, xi, ar, ai, br, bi):
     """Plain version of ``long_range_sep``: the log2(R) levels as
-    reshape/stack stages, twiddle = outer product A[o:o+half] x B[l]."""
+    reshape/stack stages, twiddle = outer product A[o:o+half] x B[l], in
+    float32 (bf16 planes and factors upcast), the result in the planes'
+    dtype (rounded once for bf16, where the kernel stores)."""
+    dt = xr.dtype
+    xr, xi, ar, ai, br, bi = (as_compute(t)
+                              for t in (xr, xi, ar, ai, br, bi))
     R = xr.shape[1]
     for l in range(ilog2(R)):
         half = R >> (l + 1)
@@ -606,17 +663,19 @@ def long_range_sep_plain(xr, xi, ar, ai, br, bi):
         wr = a_r * b_r - a_i * b_i  # (half, C)
         wi = a_r * b_i + a_i * b_r
         xr, xi = _long_range_stage(xr, xi, half, wr, wi)
-    return xr, xi
+    return xr.to(dt), xi.to(dt)
 
 
 def long_range_sep(xr, xi, ar, ai, br, bi, cb: int = DEFAULT_CB):
     """First log2(R) DIF levels of each transform of (batch, R, C)
-    float32 planes (n = R*C each), twiddles rebuilt from the separable
-    factors of ``twiddle.long_range_factors(R, C)`` (A (R-1,), B
-    (levels, C) — ``twiddle.device_factors``).  CUDA tensors launch the
-    kernel (csrc/long_range.cu) in column blocks of `cb`; CPU tensors
-    take ``long_range_sep_plain``.  Returns new planes."""
-    _check_planes(xr, xi, 3, "long_range_sep")
+    float32 or bfloat16 planes (n = R*C each), twiddles rebuilt from the
+    separable factors of ``twiddle.long_range_factors(R, C)`` (A (R-1,),
+    B (levels, C) — ``twiddle.device_factors``) in the planes' dtype.
+    CUDA tensors launch the kernel (csrc/long_range.cu; its bf16
+    instantiation for bf16 planes) in column blocks of `cb`; CPU tensors
+    take ``long_range_sep_plain``.  Returns new planes of the same
+    dtype."""
+    _check_planes(xr, xi, 3, "long_range_sep", PLANE_DTYPES)
     batch, R, C = xr.shape
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"long_range_sep: R={R} must be a power of two "
@@ -627,7 +686,7 @@ def long_range_sep(xr, xi, ar, ai, br, bi, cb: int = DEFAULT_CB):
     levels = ilog2(R)
     _check_operands("long_range_sep", xr.device,
                     (ar, (R - 1,)), (ai, (R - 1,)),
-                    (br, (levels, C)), (bi, (levels, C)))
+                    (br, (levels, C)), (bi, (levels, C)), dtype=xr.dtype)
     if xr.device.type == "cpu":
         return long_range_sep_plain(xr, xi, ar, ai, br, bi)
     if batch * (C // cb) > _MAX_BLOCKS:
@@ -635,14 +694,15 @@ def long_range_sep(xr, xi, ar, ai, br, bi, cb: int = DEFAULT_CB):
                          "limit")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if batch:
-        _launch("long_range_sep", "pifft_long_range_sep", xr.device,
-                xr, xi, yr, yi, ar, ai, br, bi, batch, levels, C,
-                ilog2(cb))
-        long_range_sep.launches += 1
+        _launch("long_range_sep", _entry("pifft_long_range_sep", xr.dtype),
+                xr.device, xr, xi, yr, yi, ar, ai, br, bi, batch, levels,
+                C, ilog2(cb))
+        _count(long_range_sep, xr.dtype)
     return yr, yi
 
 
 long_range_sep.launches = 0
+long_range_sep.launches_bf16 = 0
 
 
 # --- kernel 3: long_range_dense ---------------------------------------------
@@ -651,14 +711,17 @@ long_range_sep.launches = 0
 def long_range_dense_plain(xr, xi, wr, wi):
     """Plain version of ``long_range_dense``: the log2(R) levels as
     reshape/stack stages, twiddle = rows [o, o + half) of the dense
-    (R - 1, C) tables."""
+    (R - 1, C) tables, in float32, the result in the planes' dtype (the
+    dense phases of fourstep and sixstep in bf16 storage)."""
+    dt = xr.dtype
+    xr, xi, wr, wi = (as_compute(t) for t in (xr, xi, wr, wi))
     R = xr.shape[1]
     for l in range(ilog2(R)):
         half = R >> (l + 1)
         o = R - (R >> l)
         xr, xi = _long_range_stage(xr, xi, half, wr[o:o + half],
                                    wi[o:o + half])
-    return xr, xi
+    return xr.to(dt), xi.to(dt)
 
 
 def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
@@ -732,7 +795,9 @@ def _split_operands(name: str, operands, groups: int, separable: bool):
 
 def fourstep_plain(xr, xi, *operands, separable: bool = True):
     """Plain version of ``fourstep``: the long-range plain version on the
-    (1, R, tile) view, then ``tile_fft_plain`` on the R rows."""
+    (1, R, tile) view, then ``tile_fft_plain`` on the R rows.  On bf16
+    planes each of the two rounds its result to bf16: the carry after
+    phase A and the output, where the kernel stores."""
     R, tile = xr.shape
     (lr,), (twr, twi) = _split_operands("fourstep", operands, 1, separable)
     yr, yi = _long_range_plain(xr.reshape(1, R, tile),
@@ -743,17 +808,20 @@ def fourstep_plain(xr, xi, *operands, separable: bool = True):
 def fourstep(xr, xi, *operands, cb: int | None = None,
              separable: bool = True):
     """The whole pi-layout DIF of one n = R * tile transform held as
-    (R, tile) float32 planes: the log2(R) long-range levels in R x cb
-    column blocks, then the tile DIF of every row, each on a cluster of
-    ``row_cluster_width(tile)`` blocks.  `operands` are the long-range
-    twiddles, then the tile tables (twr, twi) of
-    ``twiddle.flat_tables(tile)``: with `separable` the factors (ar, ai,
-    br, bi) of ``twiddle.device_factors(R, tile)``, otherwise the dense
-    (wr, wi) of ``twiddle.dense_long_range_tables(R, tile)``.  cb None
-    takes ``fourstep_auto_cb``.  CUDA tensors launch the kernel
-    (csrc/fourstep.cu) once, as one cooperative launch; CPU tensors
-    take ``fourstep_plain``.  Returns new (R, tile) planes."""
-    _check_planes(xr, xi, 2, "fourstep")
+    (R, tile) float32 or bfloat16 planes: the log2(R) long-range levels
+    in R x cb column blocks, then the tile DIF of every row, each on a
+    cluster of ``row_cluster_width(tile)`` blocks.  `operands`, in the
+    planes' dtype, are the long-range twiddles, then the tile tables
+    (twr, twi) of ``twiddle.flat_tables(tile)``: with `separable` the
+    factors (ar, ai, br, bi) of ``twiddle.device_factors(R, tile)``,
+    otherwise the dense (wr, wi) of
+    ``twiddle.dense_long_range_tables(R, tile)``.  cb None takes
+    ``fourstep_auto_cb``.  CUDA tensors launch the kernel
+    (csrc/fourstep.cu; its bf16 instantiation, carry in bf16, for bf16
+    planes) once, as one cooperative launch; CPU tensors take
+    ``fourstep_plain``.  Returns new (R, tile) planes of the same
+    dtype."""
+    _check_planes(xr, xi, 2, "fourstep", PLANE_DTYPES)
     R, tile = xr.shape
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"fourstep: R={R} must be a power of two >= 2")
@@ -761,19 +829,22 @@ def fourstep(xr, xi, *operands, cb: int | None = None,
     (lr,), tw = _split_operands("fourstep", operands, 1, separable)
     _check_operands("fourstep", xr.device,
                     *zip(lr, _long_range_shapes(R, tile, separable)),
-                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)))
+                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)),
+                    dtype=xr.dtype)
     if xr.device.type == "cpu":
         return fourstep_plain(xr, xi, *operands, separable=separable)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("fourstep",
-            "pifft_fourstep" if separable else "pifft_fourstep_dense",
+            _entry("pifft_fourstep" if separable else "pifft_fourstep_dense",
+                   xr.dtype),
             xr.device, xr, xi, yr, yi, *lr, *tw, ilog2(R), ilog2(tile),
             ilog2(cb), ilog2(row_cluster_width(tile)))
-    fourstep.launches += 1
+    _count(fourstep, xr.dtype)
     return yr, yi
 
 
 fourstep.launches = 0
+fourstep.launches_bf16 = 0
 
 
 def fourstep_resident_blocks(device, n: int, tile: int | None = None,
@@ -800,7 +871,9 @@ def fourstep_resident_blocks(device, n: int, tile: int | None = None,
 def sixstep_plain(xr, xi, *operands, separable: bool = True):
     """Plain version of ``sixstep``: the long-range plain version on the
     (1, R1, m) view with the outer twiddles, then on the (R1, R2, tile)
-    view with the inner ones, then ``tile_fft_plain`` on the rows."""
+    view with the inner ones, then ``tile_fft_plain`` on the rows.  On
+    bf16 planes each of the three rounds its result to bf16: the carries
+    after phases A and B1 and the output, where the kernel stores."""
     R1, R2, tile = xr.shape
     m = R2 * tile
     (outer, inner), (twr, twi) = _split_operands("sixstep", operands, 2,
@@ -817,7 +890,9 @@ def sixstep_plain(xr, xi, *operands, separable: bool = True):
 def sixstep(xr, xi, *operands, cb1: int | None = None,
             cb2: int | None = None, separable: bool = True):
     """The whole pi-layout DIF of one n = R1 * R2 * tile transform held
-    as (R1, R2, tile) float32 planes: the outer log2(R1) levels on the
+    as (R1, R2, tile) float32 or bfloat16 planes (operands in the same
+    dtype; bf16 launches the kernel's bf16 instantiation, both carries in
+    bf16): the outer log2(R1) levels on the
     (R1, m = R2 * tile) view in R1 x cb1 blocks, the inner log2(R2)
     levels of each group on its (R2, tile) view in R2 x cb2 blocks, then
     the tile DIF of every row, each on a cluster of
@@ -829,7 +904,7 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
     take ``sixstep_auto_cbs``.  CUDA tensors launch the kernel
     (csrc/sixstep.cu) once, as one cooperative launch; CPU tensors take
     ``sixstep_plain``.  Returns new (R1, R2, tile) planes."""
-    _check_planes(xr, xi, 3, "sixstep")
+    _check_planes(xr, xi, 3, "sixstep", PLANE_DTYPES)
     R1, R2, tile = xr.shape
     if min(R1, R2) < 2 or not (is_power_of_two(R1)
                                and is_power_of_two(R2)):
@@ -841,20 +916,23 @@ def sixstep(xr, xi, *operands, cb1: int | None = None,
     _check_operands("sixstep", xr.device,
                     *zip(outer, _long_range_shapes(R1, m, separable)),
                     *zip(inner, _long_range_shapes(R2, tile, separable)),
-                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)))
+                    (tw[0], (tile - 1,)), (tw[1], (tile - 1,)),
+                    dtype=xr.dtype)
     if xr.device.type == "cpu":
         return sixstep_plain(xr, xi, *operands, separable=separable)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     _launch("sixstep",
-            "pifft_sixstep" if separable else "pifft_sixstep_dense",
+            _entry("pifft_sixstep" if separable else "pifft_sixstep_dense",
+                   xr.dtype),
             xr.device, xr, xi, yr, yi, *outer, *inner, *tw, ilog2(R1),
             ilog2(R2), ilog2(tile), ilog2(cb1), ilog2(cb2),
             ilog2(row_cluster_width(tile)))
-    sixstep.launches += 1
+    _count(sixstep, xr.dtype)
     return yr, yi
 
 
 sixstep.launches = 0
+sixstep.launches_bf16 = 0
 
 
 # --- kernel 6: fused --------------------------------------------------------
@@ -1268,37 +1346,62 @@ gpu_rows.launches = 0
 #: every kernel wrapper of this module, each counting its launches
 KERNELS = (tile_fft, long_range_sep, long_range_dense, fourstep, sixstep,
            fused, matmul_funnel, gpu_rows)
+#: the wrappers with a bf16 storage instantiation, whose launches they
+#: count apart on ``launches_bf16``
+BF16_KERNELS = (tile_fft, long_range_sep, fourstep, sixstep)
 
 
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+    for kernel in BF16_KERNELS:
+        kernel.launches_bf16 = 0
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} of every kernel instantiation: the wrappers'
+    names for float32 planes, ``<name>_bf16`` for the bf16 storage
+    instantiations."""
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts.update({f"{k.__name__}_bf16": k.launches_bf16
+                   for k in BF16_KERNELS})
+    return counts
 
 
 # --- compositions -----------------------------------------------------------
 
 
+def _to_storage(xr, xi, storage):
+    """The planes, contiguous, in `storage` (None: float32): the entry
+    points' one downcast."""
+    return (as_storage(xr.contiguous(), storage),
+            as_storage(xi.contiguous(), storage))
+
+
 def fft_pi_layout_cuda_rql(xr, xi, tile: int | None = None,
-                           cb: int | None = None):
+                           cb: int | None = None,
+                           storage: str | None = None):
     """pi-layout n-point DIF of every length-n row of (..., n) planes:
     ``long_range_sep`` on the (rows, R, tile) view (skipped when R = 1),
     then ``tile_fft`` on the (rows * R, tile) view — two launches, no
     copy between them (the reference's rql, pallas_fft.py:742, batched
-    over leading axes).  Validates tile/cb before any launch."""
+    over leading axes).  `storage` "bfloat16" rounds the input once and
+    runs both kernels' bf16 instantiations on bf16 planes and tables
+    (the intermediate in bf16); the result is float32 either way.
+    Validates tile/cb before any launch."""
     n = xr.shape[-1]
     tile, R, cb = rql_blocking(n, tile, cb)
     lead = xr.shape[:-1]
     dev = xr.device
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+    xr, xi = _to_storage(xr, xi, storage)
     if R > 1:
-        ar, ai, br, bi = device_factors(R, tile, dev)
+        ar, ai, br, bi = device_factors(R, tile, dev, storage)
         xr, xi = long_range_sep(xr.reshape(-1, R, tile),
                                 xi.reshape(-1, R, tile),
                                 ar, ai, br, bi, cb)
-    twr, twi = flat_tables(tile, dev)
+    twr, twi = flat_tables(tile, dev, storage)
     yr, yi = tile_fft(xr.reshape(-1, tile), xi.reshape(-1, tile), twr, twi)
-    return yr.reshape(*lead, n), yi.reshape(*lead, n)
+    return as_compute(yr).reshape(*lead, n), as_compute(yi).reshape(*lead, n)
 
 
 def fft_pi_layout_cuda2(xr, xi, tile: int | None = None,
@@ -1356,50 +1459,58 @@ def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
 
 def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,
                                 cb: int | None = None,
-                                separable: bool = True):
+                                separable: bool = True,
+                                storage: str | None = None):
     """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
     fourstep kernel (the reference's fft_pi_layout_pallas_fourstep,
     pallas_fft.py:1228), its long-range twiddles separable factors or
-    (``separable=False``) dense tables.  R = n/tile < 2 takes the tile
-    kernel, as the reference does.  Validates tile/cb before any
-    launch."""
+    (``separable=False``) dense tables.  `storage` "bfloat16" rounds the
+    input once and runs the kernel's bf16 instantiation (planes, carry
+    and tables in bf16); the result is float32 either way.  R = n/tile
+    < 2 takes the tile kernel, as the reference does.  Validates tile/cb
+    before any launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fourstep")
     tile, R, cb = fourstep_blocking(n, tile, cb)
     dev = xr.device
-    xr = xr.contiguous().reshape(R, tile)
-    xi = xi.contiguous().reshape(R, tile)
-    twr, twi = flat_tables(tile, dev)
+    xr, xi = _to_storage(xr, xi, storage)
+    xr = xr.reshape(R, tile)
+    xi = xi.reshape(R, tile)
+    twr, twi = flat_tables(tile, dev, storage)
     if R < 2:
         yr, yi = tile_fft(xr, xi, twr, twi)
     else:
-        lr = device_factors(R, tile, dev) if separable \
-            else dense_long_range_tables(R, tile, dev)
+        lr = device_factors(R, tile, dev, storage) if separable \
+            else dense_long_range_tables(R, tile, dev, storage)
         yr, yi = fourstep(xr, xi, *lr, twr, twi, cb=cb, separable=separable)
-    return yr.reshape(n), yi.reshape(n)
+    return as_compute(yr).reshape(n), as_compute(yi).reshape(n)
 
 
 def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
                                r2: int | None = None,
                                cb1: int | None = None,
                                cb2: int | None = None,
-                               separable: bool = True):
+                               separable: bool = True,
+                               storage: str | None = None):
     """pi-layout n-point DIF of (n,) float32 planes in ONE launch of the
     sixstep kernel (the reference's fft_pi_layout_pallas_sixstep,
     pallas_fft.py:1664): n = R1 * R2 * tile, `r2` the inner radix (None
     = the balanced split), `cb1`/`cb2` the outer/inner column blocks
     (None = the widest that fit), `separable` the twiddle mode of both
-    long-range phases.  Needs R = n/tile >= 4; validates every parameter
-    before any launch."""
+    long-range phases.  `storage` "bfloat16" rounds the input once and
+    runs the kernel's bf16 instantiation (planes, both carries and
+    tables in bf16); the result is float32 either way.  Needs R = n/tile
+    >= 4; validates every parameter before any launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_sixstep")
     tile, R1, R2, cb1, cb2 = sixstep_blocking(n, tile, r2, cb1, cb2)
     dev = xr.device
     lr = device_factors if separable else dense_long_range_tables
-    yr, yi = sixstep(xr.contiguous().reshape(R1, R2, tile),
-                     xi.contiguous().reshape(R1, R2, tile),
-                     *lr(R1, R2 * tile, dev), *lr(R2, tile, dev),
-                     *flat_tables(tile, dev), cb1=cb1, cb2=cb2,
+    xr, xi = _to_storage(xr, xi, storage)
+    yr, yi = sixstep(xr.reshape(R1, R2, tile), xi.reshape(R1, R2, tile),
+                     *lr(R1, R2 * tile, dev, storage),
+                     *lr(R2, tile, dev, storage),
+                     *flat_tables(tile, dev, storage), cb1=cb1, cb2=cb2,
                      separable=separable)
-    return yr.reshape(n), yi.reshape(n)
+    return as_compute(yr).reshape(n), as_compute(yi).reshape(n)
 
 
 def fft_pi_layout_cuda_mf(xr, xi, R: int = LANE, cb: int | None = None,
@@ -1425,18 +1536,21 @@ def fft_pi_layout_cuda_mf(xr, xi, R: int = LANE, cb: int | None = None,
     return yr.reshape(n), yi.reshape(n)
 
 
-def fft_rows_cuda(xr, xi, natural: bool = True):
+def fft_rows_cuda(xr, xi, natural: bool = True,
+                  storage: str | None = None):
     """FFT of every length-n row of (..., n) float planes, n a power of
     two in 128..2^16 (the reference's fft_rows_pallas, l.2070).  Rows up
     to MAX_SMEM_TILE are one ``tile_fft`` launch; rows of 2^15 and 2^16
     run as a per-row rql (``long_range_sep`` then ``tile_fft``).
-    `natural=False` returns pi layout (per-row bit-reversed)."""
+    `natural=False` returns pi layout (per-row bit-reversed).  `storage`
+    as ``fft_pi_layout_cuda_rql``'s; the natural-order gather runs on
+    the float32 result."""
     n = xr.shape[-1]
     if n < LANE or n > MAX_ROW_TILE or not is_power_of_two(n):
         raise ValueError(
             f"fft_rows_cuda needs power-of-two {LANE} <= n <= "
             f"{MAX_ROW_TILE}, got {n}")
-    yr, yi = fft_pi_layout_cuda_rql(xr, xi)
+    yr, yi = fft_pi_layout_cuda_rql(xr, xi, storage=storage)
     return to_natural(yr, yi) if natural else (yr, yi)
 
 

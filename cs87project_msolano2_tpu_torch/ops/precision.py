@@ -30,8 +30,16 @@ another order.  The kernel takes the DFT matrix already cut
 is the plain sum over planes given.
 
 Every other level of the port runs as float32 butterflies, which meet
-the tightest fp32-storage budget in every mode.  bf16 storage is not
-ported yet (``ported_storage`` raises).
+the tightest fp32-storage budget in every mode.
+
+Storage is the other axis: in ``bf16`` mode the planes, the carries
+between kernel phases and the twiddle tables are held in device memory
+as bfloat16 (``as_storage``, round to nearest even, as jax's ``astype``)
+and every kernel upcasts each value once at its load (``as_compute``)
+and computes in float32, as the reference does.  The kernels of the
+static ladder (``rows``, ``rql``, ``fourstep``, ``sixstep``) have a bf16
+instantiation; the entry points take float32 in, round once at entry
+and return float32, upcast once at their boundary.
 """
 
 from __future__ import annotations
@@ -63,6 +71,10 @@ ERROR_BUDGETS = {
 #: every plan-level precision mode
 PRECISIONS = tuple(STORAGE_DTYPES)
 
+#: bytes per stored element of each storage dtype (the reference's
+#: ops/precision.py:_DTYPE_BYTES)
+_DTYPE_BYTES = {"float32": 4, "bfloat16": 2}
+
 #: quality-direction promotion chain, loosest budget first: a mode over
 #: its budget promotes to the next entry; "highest" is fp32's twin
 PROMOTE_CHAIN = ("bf16", "default", "split3", "fp32")
@@ -82,7 +94,7 @@ SPLIT_LEVELS = {
 #: modes a tuning race for a requested mode may pin per candidate: the
 #: request is an error-budget floor, so a tighter-budget storage rides
 #: in the same race, never a looser one (the reference's
-#: RACE_ALTERNATES; only bf16 expands, and bf16 storage is not ported)
+#: RACE_ALTERNATES; only bf16 expands)
 RACE_ALTERNATES = {"bf16": ("bf16", "split3")}
 
 
@@ -96,6 +108,46 @@ def _check_mode(mode: str) -> str:
 def storage_dtype(mode: str) -> str:
     """The dtype planes and twiddle tables are STORED as for `mode`."""
     return STORAGE_DTYPES[_check_mode(mode)]
+
+
+def storage_bytes(mode: str) -> int:
+    """Bytes per stored plane element for `mode` — what the roofline
+    traffic model charges: 2 for bf16 storage, 4 for every fp32-storage
+    mode."""
+    return _DTYPE_BYTES[storage_dtype(mode)]
+
+
+def dtype_bytes(dtype: str) -> int:
+    """Bytes per element of a storage dtype name."""
+    return _DTYPE_BYTES[dtype]
+
+
+def torch_dtype(storage: Optional[str]):
+    """The torch dtype of a storage dtype name (None: float32)."""
+    import torch
+
+    name = storage or "float32"
+    if name not in _DTYPE_BYTES:
+        raise ValueError(f"unknown storage dtype {name!r} (storage dtypes: "
+                         f"{tuple(_DTYPE_BYTES)})")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def as_storage(x, storage: Optional[str]):
+    """Planes or tables cast to their storage dtype (None: float32),
+    round to nearest even for bfloat16 — the same rounding as jax's
+    ``astype``.  A no-op (the same tensor) when already there: the one
+    storage downcast, made at an entry point's boundary."""
+    dt = torch_dtype(storage)
+    return x if x.dtype == dt else x.to(dt)
+
+
+def as_compute(x):
+    """Planes upcast to the float32 compute dtype (exact from bfloat16);
+    a no-op on float32."""
+    import torch
+
+    return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
 def split_levels(mode: str) -> int:
@@ -175,22 +227,15 @@ def make_dot(mode: str):
     return dot
 
 
-def ported_storage(mode: str) -> str:
-    """``storage_dtype(mode)`` for the modes this port serves; raises
-    NotImplementedError for bf16 storage."""
-    storage = storage_dtype(mode)
-    if storage != "float32":
-        raise NotImplementedError("bf16 storage is not ported yet")
-    return storage
-
-
 def rel_err(got_r, got_i, ref_r, ref_i) -> float:
     """L2 relative error of split-plane output vs a (float64)
     reference — the budget contract's metric.  Accepts numpy arrays or
-    tensors (on any device)."""
+    tensors (on any device, bfloat16 included)."""
     def f64(a):
         if hasattr(a, "detach"):
-            a = a.detach().cpu().numpy()
+            import torch
+
+            a = a.detach().cpu().to(torch.float64).numpy()
         return np.asarray(a, dtype=np.float64)
 
     gr, gi, rr, ri = f64(got_r), f64(got_i), f64(ref_r), f64(ref_i)

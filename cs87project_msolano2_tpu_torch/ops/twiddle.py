@@ -14,6 +14,14 @@ The matmul funnel (``mf``) takes the bit-reversed R-point DFT matrix
 (``device_funnel_b_tiles``), and the separable factors of its (R, n/R)
 twiddle grid (``dft_funnel_factors``).
 
+The kernel operands (``flat_tables``, ``device_factors``,
+``dense_long_range_tables``) come in the two storage dtypes of
+``ops.precision``: float32, and bfloat16 for the bf16 storage mode —
+the float32 tables rounded to nearest even, bit-identical to the
+reference's ``jnp.asarray(t, jnp.bfloat16)`` of the same tables (and to
+its ``twiddle_tables(n, dtype="bfloat16")``, which rounds through
+float32 as well).
+
 The host tables are bit-identical to the reference package's
 (``ops/twiddle.py:twiddle_tables``,
 ``ops/pallas_fft.py:_long_range_factors``, ``dft_funnel_b`` and
@@ -31,7 +39,7 @@ import numpy as np
 import torch
 
 from .bits import bit_reverse_indices, ilog2
-from .precision import bf16_split
+from .precision import as_storage, bf16_split
 
 #: lane width of the funnel's (R, Q, LANE) column view
 LANE = 128
@@ -110,37 +118,65 @@ def device_tables(n: int, device: torch.device) -> tuple:
     return tables_from_reference(twiddle_tables(n), device)
 
 
-@lru_cache(maxsize=32)
-def flat_tables(n: int, device: torch.device):
+def _stored(tensors, storage: str, device) -> tuple:
+    """Float32 CPU `tensors` in `storage` on `device`: rounded to
+    bfloat16 (nearest even) on the host, then moved."""
+    return tuple(as_storage(t, storage).to(device) for t in tensors)
+
+
+def flat_tables(n: int, device: torch.device, storage: str | None = None):
     """All levels of ``twiddle_tables(n)`` concatenated into one (n-1,)
     re and one im tensor — the tile kernel's operand layout: level l
-    starts at offset n - (n >> l)."""
-    tabs = twiddle_tables(n)
-    return (_f32(np.concatenate([t[0] for t in tabs]), device),
-            _f32(np.concatenate([t[1] for t in tabs]), device))
+    starts at offset n - (n >> l) — stored as `storage` (None:
+    float32; "bfloat16" for the bf16 storage mode), cached per (n,
+    device, storage)."""
+    return _flat_tables(n, device, storage or "float32")
 
 
 @lru_cache(maxsize=32)
-def device_factors(R: int, C: int, device: torch.device) -> tuple:
-    """``long_range_factors(R, C)`` as kernel operands on `device`."""
-    return factors_from_reference(*long_range_factors(R, C), device)
+def _flat_tables(n: int, device, storage: str):
+    tabs = twiddle_tables(n)
+    return _stored((_f32(np.concatenate([t[0] for t in tabs]), "cpu"),
+                    _f32(np.concatenate([t[1] for t in tabs]), "cpu")),
+                   storage, device)
+
+
+def device_factors(R: int, C: int, device: torch.device,
+                   storage: str | None = None) -> tuple:
+    """``long_range_factors(R, C)`` as kernel operands on `device`,
+    stored as `storage` (None: float32), cached per (R, C, device,
+    storage)."""
+    return _device_factors(R, C, device, storage or "float32")
+
+
+@lru_cache(maxsize=32)
+def _device_factors(R: int, C: int, device, storage: str) -> tuple:
+    return _stored(factors_from_reference(*long_range_factors(R, C), "cpu"),
+                   storage, device)
+
+
+def dense_long_range_tables(R: int, C: int, device,
+                            storage: str | None = None) -> tuple:
+    """The dense twiddle tables of the first log2(R) levels of an
+    n = R*C transform viewed as (R, C), as (wr, wi) tensors of shape
+    (R - 1, C) on `device`, stored as `storage` (None: float32): level l
+    is the n-point level-l table of ``twiddle_tables(n)`` reshaped to
+    (R >> (l+1), C), as the reference's ``long_range_grid(separable=
+    False)`` builds it (pallas_fft.py:651-657), bit for bit, stacked at
+    rows [R - (R >> l), R - (R >> (l+1))).  The operand of the dense
+    long-range kernel and of fourstep/sixstep with separable=False."""
+    return _dense_long_range_tables(R, C, device, storage or "float32")
 
 
 @lru_cache(maxsize=8)
-def dense_long_range_tables(R: int, C: int, device) -> tuple:
-    """The dense twiddle tables of the first log2(R) levels of an
-    n = R*C transform viewed as (R, C), as (wr, wi) float32 tensors of
-    shape (R - 1, C) on `device`: level l is the n-point level-l table
-    of ``twiddle_tables(n)`` reshaped to (R >> (l+1), C), as the
-    reference's ``long_range_grid(separable=False)`` builds it
-    (pallas_fft.py:651-657), bit for bit, stacked at rows
-    [R - (R >> l), R - (R >> (l+1))).  The operand of the dense
-    long-range kernel and of fourstep/sixstep with separable=False."""
+def _dense_long_range_tables(R: int, C: int, device, storage: str) -> tuple:
     levels = twiddle_tables(R * C)[:ilog2(R)]
-    return (_f32(np.concatenate([wr for wr, _ in levels]).reshape(R - 1, C),
-                 device),
-            _f32(np.concatenate([wi for _, wi in levels]).reshape(R - 1, C),
-                 device))
+    return _stored(
+        (_f32(np.concatenate([wr for wr, _ in levels]).reshape(R - 1, C),
+              "cpu"),
+         _f32(np.concatenate([wi for _, wi in levels]).reshape(R - 1, C),
+              "cpu")),
+        storage, device)
 
 
 @lru_cache(maxsize=8)

@@ -267,9 +267,29 @@ class Plan:
             return self.device
         return "cpu" if self.key.device_kind == "cpu" else "cuda"
 
+    def effective_precision(self) -> str:
+        """The precision mode this plan serves: the mode a tuning race
+        pinned in ``params["precision"]`` (precision is a raced axis),
+        else the key's (the reference's ``Plan.effective_precision``)."""
+        return self.params.get("precision") or self.key.precision
+
+    def storage_bytes(self) -> int:
+        """Bytes per stored plane element of the path that serves this
+        plan — what the roofline traffic model charges: the served
+        mode's storage on the kernel paths, 4 on the stage path and on
+        every gpu-backend variant, which run float32 whatever the mode
+        (the reference's ``Plan.storage_bytes``)."""
+        from ..ops.precision import storage_bytes
+
+        if self.variant == "stages" or self.key.backend == "gpu":
+            return 4
+        return storage_bytes(self.effective_precision())
+
     def describe(self) -> dict:
         d = {"variant": self.variant, "params": dict(self.params),
              "source": self.source}
+        if self.effective_precision() != self.key.precision:
+            d["precision"] = self.effective_precision()
         if self.ms is not None:
             d["ms"] = round(self.ms, 4)
         return d

@@ -36,6 +36,17 @@ Variants (the reference's names):
                to a Plan built with it, as the reference's research
                variant: never raced, never the static default.
 
+Precision is a raced axis, as in the reference (its ladder.py:245-251):
+a key whose mode has race alternates (``precision.race_modes``: bf16
+races bf16 and split3) gets every entry once per mode, the mode pinned
+in ``params["precision"]``, and the executor serves the pinned mode, or
+the key's where none is pinned.  bf16 storage runs on ``rows``,
+``rql``, ``fourstep`` and ``sixstep`` (their kernels' bf16
+instantiations); ``fused``, ``fused-alias`` and ``two-kernel`` have no
+bf16 instantiation yet and refuse it, as ``mf`` does (fp32 storage
+only, the reference's own refusal); ``stages`` runs float32 whatever
+the mode.
+
 Keys whose ``backend`` is "gpu" go to ``hw.lowering`` (``gpu-rows``,
 ``gpu-stages``) in ``candidates``, ``static_default`` and
 ``build_executor``, as the reference's ladder.py:235/327/439 do; the
@@ -73,7 +84,7 @@ from ..ops.cuda_fft import (
     sixstep_auto_split,
     sixstep_blocking,
 )
-from ..ops.precision import ported_storage
+from ..ops.precision import race_modes, storage_dtype
 from .core import PlanKey
 
 #: variants of the reference's ladder with no port yet: the any-length
@@ -81,6 +92,9 @@ from .core import PlanKey
 UNPORTED = ("bluestein", "rader", "mixedradix")
 #: variants whose executor writes its result over its input planes
 CONSUMES_INPUT = ("fused-alias",)
+#: kernel variants with no bf16 storage instantiation yet (mf has none
+#: by design, and refuses with the reference's message)
+NO_BF16_YET = ("fused", "fused-alias", "two-kernel")
 
 #: the reference's crossovers (its ladder.py:61 and :69): fourstep from
 #: here (where the fused carry no longer fits), rql below
@@ -119,7 +133,7 @@ def _nrows(key: PlanKey) -> int:
 
 
 def _check_ported(key: PlanKey) -> None:
-    ported_storage(key.precision)
+    storage_dtype(key.precision)
     if key.domain != "c2c":
         raise ValueError(f"domain {key.domain!r} is not ported yet")
     if not is_power_of_two(key.n):
@@ -211,16 +225,22 @@ def candidates(key: PlanKey) -> list:
     so a surprise win is still caught; between the crossovers the
     fourstep entries lead and sixstep rides at the end; from
     SIXSTEP_MIN_N the sixstep entries lead and the fused and fourstep
-    entries drop out.  Keys the port does not serve yet (bf16 storage,
-    real domains, any-length n) raise as ``static_default`` does: the
-    reference's precision race axis expands only for bf16.  gpu keys
-    take ``hw.lowering.candidates``."""
+    entries drop out.  Keys the port does not serve yet (real domains,
+    any-length n) raise as ``static_default`` does.  The precision race
+    axis (the reference's ladder.py:245-251): where ``race_modes`` of
+    the key's mode has more than one mode (bf16: bf16 then split3),
+    every entry is raced once per mode, the mode pinned in
+    ``params["precision"]``.  gpu keys take ``hw.lowering.candidates``."""
     if key.backend == "gpu":
         from ..hw import lowering
 
         return lowering.candidates(key)
     _check_ported(key)
-    return _base_candidates(key)
+    cands = _base_candidates(key)
+    modes = race_modes(key.precision)
+    if len(modes) > 1:
+        cands = [(v, dict(p, precision=m)) for m in modes for v, p in cands]
+    return cands
 
 
 def _base_candidates(key: PlanKey) -> list:
@@ -288,21 +308,30 @@ def static_default(key: PlanKey):
 
 
 def build_executor(key: PlanKey, variant: str, params: dict):
-    """The (xr, xi) -> (yr, yi) executor for one ladder entry.  Raises
-    ValueError for unported variants and for infeasible tile/cb/qb/R
-    before anything launches (the tuner records those as rejections).
-    gpu keys build through ``hw.lowering.build_executor``."""
+    """The (xr, xi) -> (yr, yi) executor for one ladder entry, serving
+    ``params["precision"]`` where a race pinned it, else the key's mode
+    (the reference's l.460), on that mode's storage.  Raises ValueError
+    for unported variants, for a bf16 entry of a variant with no bf16
+    instantiation, and for infeasible tile/cb/qb/R before anything
+    launches (the tuner records those as rejections).  gpu keys build
+    through ``hw.lowering.build_executor``."""
     from ..ops import cuda_fft
     from ..ops.bits import to_natural
     if key.backend == "gpu":
         from ..hw import lowering
 
         return lowering.build_executor(key, variant, params)
-    if variant == "mf":
-        # before the bf16 "not ported" refusal: a race entry records the
-        # reference's own rejection
-        cuda_fft.check_mf_storage(key.precision)
     _check_ported(key)
+    mode = params.get("precision") or key.precision
+    storage = storage_dtype(mode)
+    if variant == "mf":
+        # fp32 storage only: a race entry records the reference's own
+        # rejection
+        cuda_fft.check_mf_storage(mode)
+    if variant in NO_BF16_YET and storage != "float32":
+        raise ValueError(f"variant {variant!r}: bf16 storage not ported "
+                         f"yet (its kernel has no {storage} "
+                         f"instantiation)")
     natural = key.layout == "natural"
     if variant in UNPORTED:
         raise ValueError(f"variant {variant!r} not ported yet")
@@ -314,7 +343,8 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         return fft_planes
     if variant == "rows":
         def rows_run(xr, xi):
-            return cuda_fft.fft_rows_cuda(xr, xi, natural=natural)
+            return cuda_fft.fft_rows_cuda(xr, xi, natural=natural,
+                                          storage=storage)
 
         return rows_run
     if variant not in ("rql", "two-kernel", "fourstep", "sixstep", "fused",
@@ -328,11 +358,13 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     if variant in ("rql", "two-kernel"):
         cb = params.get("cb")
         cuda_fft.rql_blocking(key.n, tile, cb)
-        compose = cuda_fft.fft_pi_layout_cuda_rql if variant == "rql" \
-            else cuda_fft.fft_pi_layout_cuda2
-
-        def run(xr, xi):
-            return compose(xr, xi, tile, cb)
+        if variant == "rql":
+            def run(xr, xi):
+                return cuda_fft.fft_pi_layout_cuda_rql(xr, xi, tile, cb,
+                                                       storage)
+        else:
+            def run(xr, xi):
+                return cuda_fft.fft_pi_layout_cuda2(xr, xi, tile, cb)
     elif variant in ("fused", "fused-alias"):
         qb = params.get("qb")
         cw = params.get("cw")
@@ -346,24 +378,22 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         R = params.get("R", cuda_fft.LANE)
         cb = params.get("cb")
         cuda_fft.mf_blocking(key.n, R, cb)
-        precision = key.precision
-
         def run(xr, xi):
-            return cuda_fft.fft_pi_layout_cuda_mf(xr, xi, R, cb, precision)
+            return cuda_fft.fft_pi_layout_cuda_mf(xr, xi, R, cb, mode)
     elif variant == "fourstep":
         cb = params.get("cb")
         fourstep_blocking(key.n, tile, cb)
 
         def run(xr, xi):
             return cuda_fft.fft_pi_layout_cuda_fourstep(xr, xi, tile, cb,
-                                                        separable)
+                                                        separable, storage)
     else:
         r2, cb1, cb2 = (params.get(k) for k in ("r2", "cb1", "cb2"))
         sixstep_blocking(key.n, tile, r2, cb1, cb2)
 
         def run(xr, xi):
-            return cuda_fft.fft_pi_layout_cuda_sixstep(xr, xi, tile, r2,
-                                                       cb1, cb2, separable)
+            return cuda_fft.fft_pi_layout_cuda_sixstep(
+                xr, xi, tile, r2, cb1, cb2, separable, storage)
 
     def whole_run(xr, xi):
         yr, yi = run(xr, xi)

@@ -227,6 +227,62 @@ def load_kernels() -> ctypes.CDLL:
     lib.pifft_persisting_l2_set_aside.argtypes = [c.c_int]
     lib.pifft_set_persisting_l2_set_aside.restype = c.c_int
     lib.pifft_set_persisting_l2_set_aside.argtypes = [c.c_int, c.c_longlong]
+    # the bf16 storage instantiations: the float32 entries' arguments,
+    # planes and tables bf16
+    lib.pifft_tile_fft_bf16.restype = c.c_int
+    lib.pifft_tile_fft_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,   # xr, xi, yr, yi, twr, twi
+        c.c_longlong, c.c_int,          # rows, log2(tile)
+        c.c_int, c.c_int,               # log2(block_rows), log2(cw)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_long_range_sep_bf16.restype = c.c_int
+    lib.pifft_long_range_sep_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # ar, ai, br, bi
+        c.c_longlong, c.c_int,          # batch, log2(R)
+        c.c_int, c.c_int,               # C, log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fourstep_bf16.restype = c.c_int
+    lib.pifft_fourstep_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # ar, ai, br, bi
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(phase-B cluster width)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fourstep_dense_bf16.restype = c.c_int
+    lib.pifft_fourstep_dense_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr,                       # wr, wi (dense tables)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(phase-B cluster width)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_sixstep_bf16.restype = c.c_int
+    lib.pifft_sixstep_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # a1r, a1i, b1r, b1i (outer)
+        ptr, ptr, ptr, ptr,             # a2r, a2i, b2r, b2i (inner)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
+        c.c_int, c.c_int,               # log2(cb1), log2(cb2)
+        c.c_int,                        # log2(phase-B2 cluster width)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_sixstep_dense_bf16.restype = c.c_int
+    lib.pifft_sixstep_dense_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr, ptr, ptr,             # w1r, w1i (outer), w2r, w2i (inner)
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R1), log2(R2), log2(tile)
+        c.c_int, c.c_int,               # log2(cb1), log2(cb2)
+        c.c_int,                        # log2(phase-B2 cluster width)
+        c.c_int, ptr,                   # device, stream
+    ]
     lib.pifft_cuda_error_string.restype = c.c_char_p
     lib.pifft_cuda_error_string.argtypes = [c.c_int]
     lib.pifft_cuda_error_name.restype = c.c_char_p

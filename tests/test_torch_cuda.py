@@ -596,3 +596,121 @@ def test_fourstep_takes_a_misaligned_view(cuda_device):
     yk = cf.fourstep(*args)
     torch.cuda.synchronize()
     assert rel_err(*yk, *cf.fourstep_plain(*args)) <= FP32_TOL
+
+
+# --- the bf16 storage instantiations ---------------------------------------
+
+# a bf16 kernel vs its plain version: both compute in float32 and round
+# at the same points, so they differ only where a float32 difference of
+# about 1e-7 crosses a bf16 rounding boundary (3.8e-4 at most on an H100
+# at the main path's shapes)
+BF16_TOL = 1e-3
+BF16 = "bfloat16"
+
+
+def _bf16_planes(seed, shape, device):
+    return tuple(t.to(torch.bfloat16) for t in _planes(seed, shape, device))
+
+
+def _bf16_case(kind, shape, device):
+    """(wrapper, plain, args) of one bf16 kernel at one shape."""
+    if kind == "tile_fft":
+        rows, tile = shape
+        return (cf.tile_fft, cf.tile_fft_plain,
+                (*_bf16_planes(41, shape, device),
+                 *twiddle.flat_tables(tile, device, BF16)))
+    if kind == "long_range_sep":
+        batch, R, C, cb = shape
+        return (lambda *a: cf.long_range_sep(*a, cb=cb),
+                cf.long_range_sep_plain,
+                (*_bf16_planes(42, (batch, R, C), device),
+                 *twiddle.device_factors(R, C, device, BF16)))
+    if kind.startswith("fourstep"):
+        R, tile, cb = shape
+        sep = kind == "fourstep"
+        lr = twiddle.device_factors if sep \
+            else twiddle.dense_long_range_tables
+        return (lambda *a: cf.fourstep(*a, cb=cb, separable=sep),
+                lambda *a: cf.fourstep_plain(*a, separable=sep),
+                (*_bf16_planes(43, (R, tile), device),
+                 *lr(R, tile, device, BF16),
+                 *twiddle.flat_tables(tile, device, BF16)))
+    R1, R2, tile = shape
+    sep = kind == "sixstep"
+    lr = twiddle.device_factors if sep else twiddle.dense_long_range_tables
+    return (lambda *a: cf.sixstep(*a, separable=sep),
+            lambda *a: cf.sixstep_plain(*a, separable=sep),
+            (*_bf16_planes(44, (R1, R2, tile), device),
+             *lr(R1, R2 * tile, device, BF16), *lr(R2, tile, device, BF16),
+             *twiddle.flat_tables(tile, device, BF16)))
+
+
+@pytest.mark.parametrize("kind,shape", [
+    ("tile_fft", (8, 1024)), ("tile_fft", (64, 1 << 14)),
+    ("long_range_sep", (2, 8, 512, 8)),
+    ("long_range_sep", (1, 64, 1 << 14, 32)),
+    ("fourstep", (64, 4096, 64)), ("fourstep", (1024, 1 << 14, 16)),
+    ("fourstep-dense", (8, 1024, 8)), ("fourstep-dense", (256, 1 << 14, 64)),
+    ("sixstep", (4, 2, 512)), ("sixstep", (16, 16, 1 << 14)),
+    ("sixstep-dense", (4, 2, 512)), ("sixstep-dense", (16, 16, 1 << 14))])
+def test_bf16_kernel_vs_plain(cuda_device, kind, shape):
+    kernel, plain, args = _bf16_case(kind, shape, cuda_device)
+    name = kind.split("-")[0]
+    wrapper = getattr(cf, name)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    yk = kernel(*args)
+    # the bf16 instantiation ran, counted apart from the float32 one
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+    assert yk[0].dtype == torch.bfloat16 and yk[0].shape == args[0].shape
+    yp = plain(*args)
+    torch.cuda.synchronize()
+    assert rel_err(*yk, *yp) <= BF16_TOL
+
+
+@pytest.mark.parametrize("kind", ["tile_fft", "long_range_sep", "fourstep",
+                                  "sixstep"])
+def test_bf16_wrappers_raise_on_a_dtype_that_does_not_match(cuda_device,
+                                                             kind):
+    shape = {"tile_fft": (8, 1024), "long_range_sep": (2, 8, 512, 8),
+             "fourstep": (64, 4096, 64), "sixstep": (4, 2, 512)}[kind]
+    kernel, _, args = _bf16_case(kind, shape, cuda_device)
+    # float32 tables beside bf16 planes, bf16 tables beside float32
+    # planes, and half planes: refused before any launch, never converted
+    for bad in ((*args[:2], *(t.float() for t in args[2:])),
+                (*(t.float() for t in args[:2]), *args[2:]),
+                (*(t.half() for t in args[:2]), *args[2:])):
+        with pytest.raises((TypeError, ValueError)):
+            kernel(*bad)
+
+
+def test_fp32_instantiations_count_apart(cuda_device):
+    # float32 planes still launch the float32 kernels (the parent's SASS:
+    # tools/sass_diff.py), counted on `launches` only
+    xr, xi = _planes(45, (64, 1 << 14), cuda_device)
+    tw = twiddle.flat_tables(1 << 14, cuda_device)
+    before = (cf.tile_fft.launches, cf.tile_fft.launches_bf16)
+    yk = cf.tile_fft(xr, xi, *tw)
+    assert (cf.tile_fft.launches, cf.tile_fft.launches_bf16) == (
+        before[0] + 1, before[1])
+    assert yk[0].dtype == torch.float32
+    assert rel_err(*yk, *cf.tile_fft_plain(xr, xi, *tw)) <= FP32_TOL
+
+
+@pytest.mark.parametrize("shape", [(1 << 20,), (64, 4096), (1 << 21,),
+                                   (1 << 25,)])
+def test_bf16_path_on_card_vs_numpy(cuda_device, shape):
+    rng = np.random.default_rng(46)
+    amp = 1 / np.sqrt(shape[-1])
+    x = (rng.uniform(-amp, amp, shape)
+         + 1j * rng.uniform(-amp, amp, shape)).astype(np.complex64)
+    before = cf.launch_counts()
+    y = fft(x, precision="bf16")
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in cf.launch_counts().items()
+                if v != before[k]}
+    assert y.dtype == torch.complex64
+    assert launched and all(k.endswith("_bf16") for k in launched)
+    y = y.cpu().numpy()
+    ref = np.fft.fft(x.astype(np.complex128))
+    assert 1e-4 < rel_err(y.real, y.imag, ref.real, ref.imag) <= 3e-2

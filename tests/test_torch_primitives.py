@@ -100,12 +100,19 @@ def test_precision_tables_match_reference():
 
 @pytest.mark.parametrize("mode", ["split3", "highest", "fp32", "default"])
 def test_fp32_storage_modes_are_served(mode):
-    assert precision.ported_storage(mode) == "float32"
+    assert precision.storage_dtype(mode) == "float32"
+    assert precision.torch_dtype(precision.storage_dtype(mode)) == \
+        torch.float32
 
 
 def test_bf16_storage_not_ported():
-    with pytest.raises(NotImplementedError, match="bf16 storage"):
-        precision.ported_storage("bf16")
+    # bf16 storage is served now (the static ladder's kernels have a
+    # bf16 instantiation): its mode stores bfloat16 at 2 bytes a value
+    assert precision.storage_dtype("bf16") == "bfloat16"
+    assert precision.torch_dtype("bfloat16") == torch.bfloat16
+    assert precision.storage_bytes("bf16") == 2
+    x = torch.ones(4)
+    assert precision.as_storage(x, "bfloat16").dtype == torch.bfloat16
 
 
 def test_rel_err_matches_reference():

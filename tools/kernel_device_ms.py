@@ -12,9 +12,12 @@ A B B A to alternate two), and each child imports the package from its
 root only.  For every case the child prints one JSON line with:
 
 * ``device_ms``: the kernel's own device time per call, from
-  ``torch.profiler`` over `reps` calls, the 50 MB L2 flushed before each
-  (the flush kernel is not counted), so the host's launch cost does not
-  show;
+  ``torch.profiler``: its mean time a launch over `reps` calls, the 50 MB
+  L2 flushed before each (the flush kernel is not counted), times its
+  ``launches`` in one call profiled alone (or over the `reps` calls,
+  where more), so the host's launch cost does not show.  The session's
+  sum is not read; each session opens with one-byte fills that take
+  the records the profiler loses at a session's start;
 * ``event_ms``: the CUDA-event median over the same kind of calls, as
   ``chip_smoke.py`` phase 7 times kernels: it includes the wrapper's
   host time before the launch when the card is idle.
@@ -29,6 +32,11 @@ fourstep at n = 2^22 and 2^24 in both twiddle modes, long_range_sep at
 4), cb 32, sixstep at n = 2^25, tile_fft at 4096 x 4096, gpu_rows at
 4096 x 4096 and fused at n = 2^20.  A root whose funnel takes B in
 float32 and B2 (R, 128) (before the kernel's tiles) is given them so.
+Then, in a root that has them (``cuda_fft.BF16_KERNELS``), the bf16
+storage instantiations on bf16 planes and tables: tile_fft at 4096 x
+4096 and 64 x 2^14, long_range_sep at 1 x 64 x 2^14, fourstep at 2^22
+and 2^24 and sixstep at 2^25 and 2^27 (``BF16_CASES``), each case named
+with "bf16"; a root without them prints one line saying so.
 
     python3 tools/kernel_device_ms.py --widths [--reps 30]
 
@@ -51,6 +59,8 @@ import subprocess
 import sys
 
 SEED = 0
+#: one-byte fills that open each profiler session
+PROFILE_PAD = 256
 #: log2 n of the fourstep cases
 FOURSTEP_LOG2N = (22, 24)
 #: (R, n) and precision modes of the matmul_funnel cases
@@ -61,6 +71,11 @@ LONG_RANGE_SHAPES = ((1, 64, 1 << 14), (1, 256, 1 << 14), (4, 16, 1 << 14))
 #: (rows, tile) of the width study (--widths)
 WIDTH_SHAPES = tuple((rows, 1 << 14) for rows in (8, 16, 32, 64, 96, 128)) \
     + ((64, 1 << 13), (128, 1 << 13))
+#: the bf16 cases: (kernel, shape) — tile_fft (rows, tile),
+#: long_range_sep (batch, R, C), fourstep and sixstep log2 n
+BF16_CASES = (("tile_fft", (4096, 4096)), ("tile_fft", (64, 1 << 14)),
+              ("long_range_sep", (1, 64, 1 << 14)), ("fourstep", 22),
+              ("fourstep", 24), ("sixstep", 25), ("sixstep", 27))
 
 
 def child(reps: int, widths: bool) -> None:
@@ -91,23 +106,53 @@ def child(reps: int, widths: bool) -> None:
                                       .astype(np.float32)).to(dev)
                      for _ in range(2))
 
+    def kernel_ms(prof, name):
+        # (device ms summed, launches seen) of the profile's kernels whose
+        # name holds `name`
+        ms, count = 0.0, 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                dt = getattr(ev, "self_device_time_total", None)
+                ms += (ev.self_cuda_time_total if dt is None else dt) / 1e3
+                count += ev.count
+        return ms, count
+
+    pad = torch.empty(1, dtype=torch.uint8, device=dev)
+
+    def session(fn, args, calls, flush):
+        # a profile of `calls` calls, opened by PROFILE_PAD one-byte fills
+        # that take the records the profiler loses at a session's start
+        # (read again with four times as many where it kept none of them)
+        npad = PROFILE_PAD
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(npad):
+                    pad.fill_(0)
+                torch.cuda.synchronize()
+                for _ in range(calls):
+                    if flush:
+                        scratch.fill_(1)
+                    fn(*args)
+                torch.cuda.synchronize()
+            if kernel_ms(prof, "FillFunctor<unsigned char>")[1] > \
+                    calls * flush:
+                return prof
+            npad *= 4
+        return None
+
     def measure(label, name, fn, *args):
         for _ in range(3):
             fn(*args)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                scratch.fill_(1)
-                fn(*args)
-            torch.cuda.synchronize()
-        us = 0.0
-        for ev in prof.key_averages():
-            if name in ev.key:
-                dt = getattr(ev, "self_device_time_total", None)
-                us += ev.self_cuda_time_total if dt is None else dt
+        one = session(fn, args, 1, False)
+        prof = session(fn, args, reps, True)
+        ms, count = kernel_ms(prof, name) if prof else (0.0, 0)
+        launches = kernel_ms(one, name)[1] if one else 0
+        launches = max(launches, round(count / reps))
         event_ms = time_ms(fn, *args, reps=reps, warmup=3, flush_l2=True)[0]
-        print(json.dumps({"case": label, "device_ms": us / 1e3 / reps
-                          if us else None, "event_ms": event_ms}),
+        print(json.dumps({"case": label, "device_ms": ms / count * launches
+                          if count and launches else None,
+                          "launches": launches, "event_ms": event_ms}),
               flush=True)
 
     if widths:
@@ -181,6 +226,40 @@ def child(reps: int, widths: bool) -> None:
     measure(f"fused({R},{T}) (control) auto {cf.fused_blocking(R * T)}",
             "fused", cf.fused, *x, *device_factors(R, T, dev),
             *flat_tables(T, dev))
+    del x
+    if not hasattr(cf, "BF16_KERNELS"):
+        print(json.dumps({"case": "bf16 instantiations",
+                          "device_ms": None,
+                          "note": "this root has none"}), flush=True)
+        return
+    bf = "bfloat16"
+
+    def bf16(shape):
+        return tuple(t.to(torch.bfloat16) for t in planes(shape))
+
+    for kernel, shape in BF16_CASES:
+        if kernel == "tile_fft":
+            rows, tile = shape
+            measure(f"tile_fft({rows},{tile}) bf16", "tile_fft", cf.tile_fft,
+                    *bf16(shape), *flat_tables(tile, dev, bf))
+        elif kernel == "long_range_sep":
+            batch, R, C = shape
+            measure(f"long_range_sep({batch},{R},{C}) cb={cf.DEFAULT_CB} "
+                    f"bf16", "long_range", cf.long_range_sep, *bf16(shape),
+                    *device_factors(R, C, dev, bf), cf.DEFAULT_CB)
+        elif kernel == "fourstep":
+            tile, R, cb = cf.fourstep_blocking(1 << shape)
+            measure(f"fourstep(2^{shape}) cb={cb} bf16", "fourstep",
+                    cf.fourstep, *bf16((R, tile)),
+                    *device_factors(R, tile, dev, bf),
+                    *flat_tables(tile, dev, bf))
+        else:
+            tile, R1, R2, cb1, cb2 = cf.sixstep_blocking(1 << shape)
+            measure(f"sixstep(2^{shape}) auto {(R1, R2, cb1, cb2)} bf16",
+                    "sixstep", cf.sixstep, *bf16((R1, R2, tile)),
+                    *device_factors(R1, R2 * tile, dev, bf),
+                    *device_factors(R2, tile, dev, bf),
+                    *flat_tables(tile, dev, bf))
 
 
 def main() -> int:
