@@ -23,13 +23,18 @@ in every fp32-storage precision mode, on the tensor cores) and the
 race whose winner a second process reads back, and ``hw probe``) and
 the bf16 storage mode (phase 11: ``precision="bf16"`` through the plan
 layer in natural and pi order at config 2 on ``rql``, config 3 on
-``rows``, 2^24 on ``fourstep`` and 2^27 on ``sixstep``, each kernel's
-bf16 device time beside its float32 one, and the precision race at
-2^20 with its bf16 and split3 entries) — checks the results against a
-complex128 oracle, and times every kernel and path with CUDA events.
-Phase 3 holds the bf16 instantiations of tile_fft, long_range_sep,
-fourstep and sixstep against their plain bf16 versions at the main
-path's shapes (rel L2 <= 1e-3: both round at the same points).  Phase 3 also holds gpu_rows at every
+``rows``, 2^24 on ``fourstep``, 2^27 on ``sixstep``, and 2^20 through
+``Plan(key, "fused")``, ``"fused-alias"`` and ``"two-kernel"``, each
+kernel's bf16 device time beside its float32 one, and the precision
+race at 2^20 with its bf16 and split3 entries, none of them rejected) —
+checks the results against a complex128 oracle, and times every kernel
+and path with CUDA events.  Phase 3 holds the bf16 instantiations of
+tile_fft, long_range_sep, long_range_dense (on the float32 check's 13
+long-range shapes), fourstep, sixstep and fused (2^20 at every cluster
+width, qb 1 and 2, both alias modes, and R = 2; the persisting-L2
+set-aside read before and after its first launch) against their plain
+bf16 versions at the main path's shapes (rel L2 <= 1e-3: both round at
+the same points).  Phase 3 also holds gpu_rows at every
 row regime and cluster size (2..16 blocks), fused at every phase-B
 cluster width in both alias modes, tile_fft at every tile (2..2^14) and
 at every cluster width of the rql and mf row passes, long_range_sep
@@ -151,11 +156,18 @@ VARIANT_LAUNCHES = {
     "two-kernel": {"long_range_dense": 1, "tile_fft": 1},
     "fourstep": {"fourstep": 1}, "sixstep": {"sixstep": 1},
     "rows": {"tile_fft": 1}}
-#: (label, shape, plan variant) of phase 11's bf16 storage runs
-BF16_PATHS = (("config 2 N=2^20", (1 << 20,), "rql"),
-              ("config 3 (4096,4096)", (4096, 4096), "rows"),
-              ("N=2^24", (1 << 24,), "fourstep"),
-              ("N=2^27", (1 << 27,), "sixstep"))
+#: (label, shape, plan variant, params) of phase 11's bf16 storage runs:
+#: params None is the static plan (plan_for), a dict a Plan built with
+#: the variant, as a tuned store would serve it
+BF16_PATHS = (("config 2 N=2^20", (1 << 20,), "rql", None),
+              ("config 3 (4096,4096)", (4096, 4096), "rows", None),
+              ("N=2^24", (1 << 24,), "fourstep", None),
+              ("N=2^27", (1 << 27,), "sixstep", None),
+              ("N=2^20 fused", (1 << 20,), "fused", {"tile": 1 << 14}),
+              ("N=2^20 fused-alias", (1 << 20,), "fused-alias",
+               {"tile": 1 << 14}),
+              ("N=2^20 two-kernel", (1 << 20,), "two-kernel",
+               {"tile": 1 << 14, "cb": 32}))
 #: profiled calls of each phase-11 device-time reading
 BF16_PROFILE_REPS = 10
 
@@ -273,7 +285,7 @@ def run(store) -> int:
     with open(buildlib.build_log_path()) as f:
         for line in f:
             if line.startswith("==") or "registers" in line \
-                    or "spill" in line:
+                    or "spill" in line or "Compiling entry" in line:
                 log(f"# ptxas {line.strip()}")
 
     # phase 3: each kernel vs its plain version at the main path's shapes
@@ -681,6 +693,63 @@ def run(store) -> int:
                       *device_factors(R2, t6, dev, bf),
                       *flat_tables(t6, dev, bf)), BF16_KERNEL_TOL)
         bf16_labels["sixstep_bf16"] = label
+    # long_range_dense_bf16 on the float32 check's 13 long-range shapes
+    # (R = 2 .. 8192, cb 2 .. 32, both KMAX)
+    for batch, rr, cc, cb in ((1, R, T, cf.DEFAULT_CB),) + LONG_RANGE_CHECKS:
+        label = f"long_range_dense_bf16({batch},{rr},{cc}) cb={cb}"
+        check_kernel(label, lambda *a, cb=cb: cf.long_range_dense(*a, cb),
+                     cf.long_range_dense_plain,
+                     (*bf16_planes((batch, rr, cc), rr * cc),
+                      *dense_long_range_tables(rr, cc, dev, bf)),
+                     BF16_KERNEL_TOL)
+        if (batch, rr, cc) != (1, R, T):
+            cases[label].pop("args")
+    bf16_labels["long_range_dense_bf16"] = \
+        f"long_range_dense_bf16(1,{R},{T}) cb={cf.DEFAULT_CB}"
+    # fused_bf16 at n = 2^20 (R = 64, tile 2^14) at every cluster width,
+    # qb 1 and 2, both alias modes, and at the smallest R (2); the
+    # set-aside, set to 0, read before and after its first launch: the
+    # launch raises it to its 2n-value bf16 carry (4 MB), not 2n floats
+    fused16_args = (*bf16_planes((Rf, tf), Rf * tf),
+                    *device_factors(Rf, tf, dev, bf), *flat_tables(tf, dev, bf))
+    cf.set_persisting_l2_set_aside(dev, 0)
+    set_aside["bf16_before"] = cf.persisting_l2_set_aside(dev)
+    labelf16 = f"fused_bf16({Rf},{tf})"
+    check_kernel(labelf16, cf.fused, cf.fused_plain, fused16_args,
+                 BF16_KERNEL_TOL)
+    torch.cuda.synchronize()
+    set_aside["bf16_after"] = cf.persisting_l2_set_aside(dev)
+    carry16 = 2 * Rf * tf * 2
+    log(f"# phase 3 persisting-L2 set-aside around the first fused_bf16 "
+        f"launch: {set_aside['bf16_before']} bytes before, "
+        f"{set_aside['bf16_after']} after (its carry {carry16} bytes)")
+    if set_aside["bf16_before"] != 0 or \
+            not carry16 <= set_aside["bf16_after"] < 2 * carry16:
+        raise AssertionError(f"fused_bf16 sized the set-aside to "
+                             f"{set_aside['bf16_after']} bytes for a "
+                             f"{carry16}-byte carry")
+    bf16_labels["fused_bf16"] = labelf16
+    for qb in (1, 2):
+        for cw in FUSED_CWS:
+            for alias in (False, True):
+                label = f"fused_bf16({Rf},{tf}) qb={qb} cw={cw} alias={alias}"
+                check_kernel(label,
+                             lambda xr, xi, *a, qb=qb, cw=cw, al=alias:
+                             cf.fused(xr.clone(), xi.clone(), *a, qb=qb,
+                                      alias_io=al, cw=cw),
+                             cf.fused_plain, fused16_args, BF16_KERNEL_TOL)
+                cases[label].pop("args")
+    tr2 = cf.fused_blocking(2 * T)[0]
+    for alias in (False, True):
+        label = f"fused_bf16(2,{tr2}) alias={alias}"
+        check_kernel(label,
+                     lambda xr, xi, *a, al=alias: cf.fused(
+                         xr.clone(), xi.clone(), *a, alias_io=al),
+                     cf.fused_plain,
+                     (*bf16_planes((2, tr2), 2 * tr2),
+                      *device_factors(2, tr2, dev, bf),
+                      *flat_tables(tr2, dev, bf)), BF16_KERNEL_TOL)
+        cases[label].pop("args")
 
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
@@ -897,20 +966,22 @@ def run(store) -> int:
     kernel_row(labelf, cf.fused, cf.fused_plain, fused_args,
                16 * nf + fac_bytes(Rf, tf) + 8 * (tf - 1),
                5 * nf * int(np.log2(nf)), (torch.fft.fft, xcf))
-    # fused by phase-A block (qb) and phase-B cluster width (cw)
-    fused_by = {}
-    for qb in (1, 2):
-        for cw in FUSED_CWS:
-            run_f = (lambda *a, qb=qb, cw=cw: cf.fused(*a, qb=qb, cw=cw))
-            fused_by[f"qb={qb} cw={cw}"] = {
-                "ms": timed(run_f, *fused_args),
-                "device_ms": device_ms(run_f, *fused_args)}
-    timings["fused blocking"] = {"auto": {"qb": qbf, "cw": cwf},
-                                 "ms": fused_by}
-    log(f"# phase 7 fused({Rf},{tf}) by blocking (automatic qb={qbf} "
-        f"cw={cwf}), CUDA events / device: "
-        + ", ".join(f"{k}: {v['ms']:.4f} / {ms_text(v['device_ms'])} ms"
-                    for k, v in fused_by.items()))
+    # fused by phase-A block (qb) and phase-B cluster width (cw), float32
+    # and bf16 storage
+    for name, f_args in (("fused", fused_args), ("fused_bf16", fused16_args)):
+        fused_by = {}
+        for qb in (1, 2):
+            for cw in FUSED_CWS:
+                run_f = (lambda *a, qb=qb, cw=cw: cf.fused(*a, qb=qb, cw=cw))
+                fused_by[f"qb={qb} cw={cw}"] = {
+                    "ms": timed(run_f, *f_args),
+                    "device_ms": device_ms(run_f, *f_args)}
+        timings[f"{name} blocking"] = {"auto": {"qb": qbf, "cw": cwf},
+                                       "ms": fused_by}
+        log(f"# phase 7 {name}({Rf},{tf}) by blocking (automatic qb={qbf} "
+            f"cw={cwf}), CUDA events / device: "
+            + ", ".join(f"{k}: {v['ms']:.4f} / {ms_text(v['device_ms'])} ms"
+                        for k, v in fused_by.items()))
 
     # fourstep at 2^22 and 2^24 and sixstep at 2^25 and 2^27: bytes are
     # the planes once each way, factors, tables
@@ -1144,7 +1215,8 @@ def run(store) -> int:
     # PyTorch call computes a bf16-storage FFT (library null); torch.fft's
     # complex64 time on the same values stands beside it
     def bf16_row(label, kernel, plain, nbytes, flops, n_rows, n,
-                 reps=REPS):
+                 reps=REPS, twin=None):
+        # twin: the float32 instantiation's phase-7 label, printed beside
         args = cases[label]["args"]
         kernel_row(label, kernel, plain, args, nbytes, flops, None, reps)
         xc = torch.complex(args[0].float(), args[1].float()).reshape(
@@ -1153,6 +1225,13 @@ def run(store) -> int:
         log(f"# phase 7 {label}: library null (no torch call computes a "
             f"bf16-storage FFT); torch.fft.fft complex64 on the same values "
             f"{timings[label]['torch_fft_fp32_ms']:.4f} ms")
+        if twin is not None:
+            t32 = timings[twin]
+            log(f"# phase 7 {label} beside its float32 twin {twin}: event "
+                f"ms {timings[label]['ms']:.4f} / {t32['ms']:.4f}, device "
+                f"ms {ms_text(timings[label]['device_ms'])} / "
+                f"{ms_text(t32['device_ms'])}, bound "
+                f"{timings[label]['bound_ms']:.4f} / {t32['bound_ms']:.4f}")
         del xc
 
     for rows, tile in ((4096, 4096), (R, T)):
@@ -1169,6 +1248,17 @@ def run(store) -> int:
                  cf.fourstep_plain,
                  8 * rk * tk + fac_bytes(rk, tk) // 2 + 4 * (tk - 1),
                  5 * k << k, 1, 1 << k)
+    # long_range_dense_bf16: the planes once each way at 2 bytes a value
+    # and the (R - 1) x T bf16 tables, 12 bytes an element in all
+    bf16_row(bf16_labels["long_range_dense_bf16"],
+             lambda *t: cf.long_range_dense(*t, cf.DEFAULT_CB),
+             cf.long_range_dense_plain, 8 * R * T + 4 * (R - 1) * T,
+             5 * R * T * lev, 1, R * T, twin="long_range_dense(1,64,16384)")
+    # fused_bf16 at 2^20: the planes once each way, bf16 factors and
+    # tables (the bf16 carry stays in L2), about 8 bytes an element
+    bf16_row(labelf16, cf.fused, cf.fused_plain,
+             8 * nf + fac_bytes(Rf, tf) // 2 + 4 * (tf - 1),
+             5 * nf * int(np.log2(nf)), 1, nf, twin=labelf)
     for k in (25, 27):
         r1, r2, c1, c2 = six[k]["blocking"]
         bf16_row(f"sixstep_bf16({r1},{r2},{T})",
@@ -1494,8 +1584,9 @@ def run(store) -> int:
                                        for r in tuned_gpu.tuning]}
 
     # phase 11: the bf16 storage mode at full size, counted — each shape
-    # of BF16_PATHS through the plan layer in natural order (fft, or
-    # fft_planes_fast for config 3's rows) and pi order (Plan.execute),
+    # of BF16_PATHS through the plan layer (its static plan, or a Plan
+    # built with its variant) in natural order (fft, or fft_planes_fast
+    # for config 3's rows) and pi order (Plan.execute),
     # held to the bf16 budget against complex128, float32 out, each call
     # one launch of each of its kernels' bf16 instantiations; then, after
     # the counted run, each kernel's device time (profiler) and the
@@ -1503,7 +1594,17 @@ def run(store) -> int:
     # at 2^20 for a bf16 key
     cf.reset_launch_counts()
     bf16_path = {}
-    for label, shape, want in BF16_PATHS:
+
+    def bf16_plan(shape, variant, params, layout="natural", mode="bf16"):
+        # the static plan of a bf16 key, or a Plan built with `variant`
+        if params is None and mode == "bf16":
+            return plans.plan_for(shape, layout=layout, precision=mode,
+                                  device=dev)
+        key = plans.make_key(shape[-1], shape[:-1], layout=layout,
+                             precision=mode, device=dev)
+        return Plan(key, variant, dict(params or {}))
+
+    for label, shape, want, params in BF16_PATHS:
         n = shape[-1]
         x11r, x11i = random_complex(rng, shape, dev)
         ref = torch.fft.fft(torch.complex(x11r, x11i).to(torch.complex128))
@@ -1512,11 +1613,12 @@ def run(store) -> int:
                          for k, v in VARIANT_LAUNCHES[want].items()}
         row = {}
         for layout in ("natural", "pi"):
-            pl11 = plans.plan_for(shape, layout=layout, precision="bf16",
-                                  device=dev)
+            pl11 = bf16_plan(shape, want, params, layout)
             before = counts_all()
             if layout == "pi":
                 y11 = torch.complex(*pl11.execute(x11r, x11i))
+            elif params is not None:
+                y11 = fft(torch.complex(x11r, x11i), plan=pl11)
             elif len(shape) == 1:
                 y11 = fft(torch.complex(x11r, x11i), precision="bf16")
             else:
@@ -1548,7 +1650,7 @@ def run(store) -> int:
     bf16_launches = counts_all()
     log(f"# bf16 path launches (phase 11): {bf16_launches}")
     for name in ("tile_fft_bf16", "long_range_sep_bf16", "fourstep_bf16",
-                 "sixstep_bf16"):
+                 "sixstep_bf16", "long_range_dense_bf16", "fused_bf16"):
         if bf16_launches[name] < 1:
             raise AssertionError(f"the bf16 path never launched {name}")
         launches[name] = bf16_launches[name]
@@ -1564,15 +1666,14 @@ def run(store) -> int:
         slope_window,
     )
 
-    for label, shape, _ in BF16_PATHS:
+    for label, shape, variant, params in BF16_PATHS:
         x11r, x11i = random_complex(rng, shape, dev)
         # the race's rotation: enough copies that each call reads its
         # planes cold
         copies = [(x11r.clone(), x11i.clone()) for _ in range(
             rotation_copies(8 * x11r.numel(), l2_bytes(dev)))]
-        pl16 = plans.plan_for(shape, precision="bf16", device=dev)
-        pl32 = Plan(plans.make_key(shape[-1], shape[:-1], device=dev),
-                    pl16.variant, dict(pl16.params))
+        pl16 = bf16_plan(shape, variant, params)
+        pl32 = bf16_plan(shape, pl16.variant, pl16.params, mode="split3")
         row = bf16_path[label]
         for mode, pl in (("bf16", pl16), ("fp32", pl32)):
             row[f"device_ms_{mode}"], row[f"kernels_{mode}"] = device_ms(
@@ -1593,9 +1694,9 @@ def run(store) -> int:
                                     for k, v in row["kernels_fp32"].items()))
         del x11r, x11i, copies
     # the precision race at 2^20 for a bf16 key: every entry once per
-    # mode (bf16, then split3), the bf16 entries of fused, fused-alias and
-    # two-kernel refused before they run; mf is never raced, and refuses
-    # bf16 with the reference's message
+    # mode (bf16, then split3), each timed (no entry rejected: every
+    # ladder variant has its bf16 instantiation); mf is never raced, and
+    # refuses bf16 with the reference's message
     cf.reset_launch_counts()
     key16 = plans.make_key(n8, layout="pi", precision="bf16", device=dev)
     tuned16 = plans.tune(key16, force=True)
@@ -1623,10 +1724,13 @@ def run(store) -> int:
         f"{tuned16.effective_precision()}, storage_bytes() "
         f"{tuned16.storage_bytes()}; race launches captured (not counted "
         f"in the kernels line): {counts_all()}")
-    if not ({"fused", "fused-alias", "two-kernel"} <= rejected16
-            and ("rql", "bf16") in timed16 and ("fused", "split3") in timed16):
-        raise AssertionError(f"the bf16 race: rejected {rejected16}, timed "
-                             f"{timed16}")
+    raced16 = {(v, m) for v in ("fused", "fused-alias", "two-kernel", "rql",
+                                "fourstep") for m in ("bf16", "split3")}
+    not_ported = [r.reason for r in tuned16.tuning
+                  if r.reason and "not ported yet" in r.reason]
+    if rejected16 or not_ported or not raced16 <= timed16:
+        raise AssertionError(f"the bf16 race: rejected {rejected16} "
+                             f"{not_ported}, timed {timed16}")
     bf16_path["race_2^20_pi"] = {"winner": tuned16.describe(),
                                  "storage_bytes": tuned16.storage_bytes(),
                                  "entries": race16}
@@ -1653,7 +1757,8 @@ def run(store) -> int:
              src + "gpu_rows.cu",
              "cs87project_msolano2_tpu/hw/lowering.py:82"),
             # the bf16 storage instantiations: the same TPU kernels'
-            # storage="bfloat16" (pallas_fft.py:1232, :1670 and :745)
+            # storage="bfloat16" (pallas_fft.py:382, :745, :1232, :1670,
+            # :604 and :906)
             ("tile_fft_bf16", bf16_labels["tile_fft_bf16"],
              src + "tile_fft.cu", ref_src + "299"),
             ("long_range_sep_bf16", bf16_labels["long_range_sep_bf16"],
@@ -1661,7 +1766,11 @@ def run(store) -> int:
             ("fourstep_bf16", bf16_labels["fourstep_bf16"],
              src + "fourstep.cu", ref_src + "1046"),
             ("sixstep_bf16", bf16_labels["sixstep_bf16"],
-             src + "sixstep.cu", ref_src + "1354")):
+             src + "sixstep.cu", ref_src + "1354"),
+            ("long_range_dense_bf16", bf16_labels["long_range_dense_bf16"],
+             src + "long_range.cu", ref_src + "483"),
+            ("fused_bf16", bf16_labels["fused_bf16"], src + "fused.cu",
+             ref_src + "832")):
         t = timings[label]
         entries.append({
             "name": name, "route": "cuda", "source": source,

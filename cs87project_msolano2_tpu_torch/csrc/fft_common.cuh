@@ -695,8 +695,11 @@ __device__ __forceinline__ void long_range_levels_radix(
 // layout, to y + row + r S.  The row's first LOG2K levels pair points S
 // apart or more, so they run across the cluster: block r takes columns
 // [r S / K, (r + 1) S / K) of the (K, S) view, reads each column's K
-// points from device memory into registers (16 / K columns at a time,
-// so each thread keeps 16 loads in flight), runs the levels there
+// points from device memory into registers (float: 16 / K columns at a
+// time, so each thread keeps 16 loads in flight; bf16: one column at a
+// time, K loads: 16 bf16 loads in flight spilled the 128 registers of
+// the fused and sixstep kernels and slowed every bf16 cluster row on an
+// H100, PERF.md), runs the levels there
 // (twiddles tw.row(q, j * S + c)) and writes point k of the column into
 // block k's planes through distributed shared memory.  The remaining
 // log2_seg levels are local to each block (row_levels_radix, twiddles
@@ -712,8 +715,9 @@ __device__ __forceinline__ void cluster_row_levels(
     T* yi, size_t row, int log2_seg, const Twiddle& tw) {
   namespace cg = cooperative_groups;
   constexpr int K = 1 << LOG2K;
-  // columns a thread takes at once: 16 points in flight whatever K is
-  constexpr int M = K >= 16 ? 1 : 16 / K;
+  // columns a thread takes at once: 16 float points in flight whatever
+  // K is, one column of bf16
+  constexpr int M = (sizeof(T) == 2 || K >= 16) ? 1 : 16 / K;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int cols = 1 << (log2_seg - LOG2K);

@@ -81,8 +81,25 @@
 // card holds at once, times cw), now with a cluster dimension beside the
 // cooperative and access-policy attributes; a card that refuses the
 // combination refuses the launch, which raises.
+//
+// bf16 storage (pifft_fused_bf16; the reference's storage="bfloat16",
+// whose VMEM scratch carry is held at the storage dtype, l.975, phase A
+// rounding into it at l.887).  The same kernel instantiated on
+// __nv_bfloat16 planes, factors, tables and carry: every point is upcast
+// once as it is read (x in phase A, the carry in phase B) and rounded
+// once as it is written (the carry, y); levels, twiddles and shared
+// memory stay float.  Every byte count follows the element type: the
+// carry is 2 n sizeof(T) bytes (4 MB at 2^20 in bf16), and so are the
+// carry-limit check, the persisting set-aside the launch asks for, and
+// the access-policy window's num_bytes and hitRatio.  A 128-byte L2 line
+// holds 128 / sizeof(T) values (64 in bf16), and the discard loop steps
+// by that: at 32 values it would step 64 bytes, emit misaligned
+// discards and reach past the block's segment into carry lines another
+// block has not read yet.  A segment shorter than one line (bf16 at
+// tile / cw = 32) discards nothing.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -92,10 +109,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-// floats in one 128-byte L2 line
-constexpr int kLineFloats = 32;
+// bytes of one L2 line, the unit discard.global.L2 drops
+constexpr int kLineBytes = 128;
 
-__device__ __forceinline__ void discard_l2_line(const float* p) {
+template <class T>
+__device__ __forceinline__ void discard_l2_line(const T* p) {
   asm volatile("discard.global.L2 [%0], 128;" ::"l"(p) : "memory");
 }
 
@@ -108,15 +126,17 @@ __host__ __device__ __forceinline__ int plane_floats(int log2_r, int log2_cb,
   return a > b ? a : b;
 }
 
-template <int LOG2CW>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_kernel(const float* xr, const float* xi,  // may be y itself
-             float* yr, float* yi,
-             float* cr, float* ci,  // the carry: written and read here
-             pifft::SeparableTwiddle tw,
-             const float* __restrict__ twr, const float* __restrict__ twi,
-             int log2_r, int log2_tile, int log2_cb) {
-  extern __shared__ float smem[];
+// The kernel's body for planes, carry, factors and tables stored as T
+// (float, or __nv_bfloat16: upcast at load, rounded at store).
+template <int LOG2CW, class T, class Twiddle>
+__device__ __forceinline__ void fused_body(
+    float* smem, const T* xr, const T* xi,  // may be y itself
+    T* yr, T* yi,
+    T* cr, T* ci,  // the carry: written and read here
+    const Twiddle& tw, const T* __restrict__ twr,
+    const T* __restrict__ twi, int log2_r, int log2_tile, int log2_cb) {
+  // values of T in one L2 line
+  constexpr int kLine = kLineBytes / static_cast<int>(sizeof(T));
   const int log2_seg = log2_tile - LOG2CW;
   float* sr = smem;
   float* si = smem + plane_floats(log2_r, log2_cb, log2_seg);
@@ -139,8 +159,8 @@ fused_kernel(const float* xr, const float* xi,  // may be y itself
   const int rows = 1 << log2_r;
   const int clusters = gridDim.x >> LOG2CW;
   const size_t rank = LOG2CW ? cg::this_cluster().block_rank() : 0;
-  const int lines = (1 << log2_seg) / kLineFloats;
-  const pifft::FlatTwiddle ftw{twr, twi, 1 << log2_tile};
+  const int lines = (1 << log2_seg) / kLine;
+  const pifft::FlatTable<T> ftw{twr, twi, 1 << log2_tile};
   for (int r = blockIdx.x >> LOG2CW; r < rows; r += clusters) {
     const size_t row = static_cast<size_t>(r) << log2_tile;
     if constexpr (LOG2CW == 0) {
@@ -158,24 +178,61 @@ fused_kernel(const float* xr, const float* xi,  // may be y itself
     // write-back
     const size_t seg = row + (rank << log2_seg);
     for (int i = threadIdx.x; i < lines; i += blockDim.x) {
-      discard_l2_line(cr + seg + static_cast<size_t>(i) * kLineFloats);
-      discard_l2_line(ci + seg + static_cast<size_t>(i) * kLineFloats);
+      discard_l2_line(cr + seg + static_cast<size_t>(i) * kLine);
+      discard_l2_line(ci + seg + static_cast<size_t>(i) * kLine);
     }
   }
 }
 
-// One cooperative launch of fused_kernel<LOG2CW> with its access-policy
+// Two overloads: float planes, carry and tables, and the bf16 storage
+// instantiation (bf16 planes, carry, factors and tables).
+template <int LOG2CW>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_kernel(const float* xr, const float* xi,  // may be y itself
+             float* yr, float* yi,
+             float* cr, float* ci,  // the carry: written and read here
+             pifft::SeparableTwiddle tw,
+             const float* __restrict__ twr, const float* __restrict__ twi,
+             int log2_r, int log2_tile, int log2_cb) {
+  extern __shared__ float smem[];
+  fused_body<LOG2CW>(smem, xr, xi, yr, yi, cr, ci, tw, twr, twi, log2_r,
+                     log2_tile, log2_cb);
+}
+
+template <int LOG2CW>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_kernel(const __nv_bfloat16* xr, const __nv_bfloat16* xi,
+             __nv_bfloat16* yr, __nv_bfloat16* yi, __nv_bfloat16* cr,
+             __nv_bfloat16* ci, pifft::SeparableFactors<__nv_bfloat16> tw,
+             const __nv_bfloat16* __restrict__ twr,
+             const __nv_bfloat16* __restrict__ twi, int log2_r,
+             int log2_tile, int log2_cb) {
+  extern __shared__ float smem[];
+  fused_body<LOG2CW>(smem, xr, xi, yr, yi, cr, ci, tw, twr, twi, log2_r,
+                     log2_tile, log2_cb);
+}
+
+// fused_kernel<LOG2CW> for planes stored as T
+template <int LOG2CW, class T, class Twiddle>
+const void* kernel_for() {
+  void (*kernel)(const T*, const T*, T*, T*, T*, T*, Twiddle, const T*,
+                 const T*, int, int, int) = fused_kernel<LOG2CW>;
+  return reinterpret_cast<const void*>(kernel);
+}
+
+// One cooperative launch of fused_kernel<LOG2CW> (for planes stored as
+// T) with its access-policy
 // window and, for cw > 1, its cluster dimension, all as attributes of
 // this launch (cudaLaunchKernelExC).  The grid is what the card holds at
 // once — blocks per SM times SMs for cw = 1, the most active clusters
 // (cudaOccupancyMaxActiveClusters) times cw otherwise — capped at the
 // larger phase's work.  A card that holds none is refused
 // (cudaErrorCooperativeLaunchTooLarge), never run another way.
-template <int LOG2CW>
+template <int LOG2CW, class T, class Twiddle>
 cudaError_t launch_fused(void** args, int smem, long long col_blocks,
                          long long rows, int device, cudaStream_t stream,
                          const cudaAccessPolicyWindow& window) {
-  const void* kernel = reinterpret_cast<const void*>(fused_kernel<LOG2CW>);
+  const void* kernel = kernel_for<LOG2CW, T, Twiddle>();
   int coop = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -279,28 +336,20 @@ extern "C" int pifft_set_persisting_l2_set_aside(int device,
       cudaLimitPersistingL2CacheSize, static_cast<size_t>(bytes)));
 }
 
-// Launch the n = 2^log2_r * 2^log2_tile point transform of (xr, xi) into
-// (yr, yi) (which may be (xr, xi) themselves) on `stream` (a
-// cudaStream_t), through the carry buffer `carry` of 2 n floats (re then
-// im): factors (ar, ai, br, bi) of long_range_factors(R, tile), tables
-// (twr, twi) of flat_tables(tile), phase-A column blocks of 2^log2_cb,
-// phase-B rows on clusters of 2^log2_cw blocks (0..3).  One cooperative
-// launch; returns its cudaError_t (0 = success).  A carry larger than
-// pifft_fused_carry_limit is refused (cudaErrorInvalidValue), never
-// launched without its window.  Raises the device's persisting-L2
-// set-aside to 2 n floats where it is smaller, and leaves it so.  The
-// caller checks the blocking (ops/cuda_fft.py: fused_blocking) and that
-// the planes and the carry are 16-byte aligned.
-extern "C" int pifft_fused(const float* xr, const float* xi, float* yr,
-                           float* yi, float* carry, const float* ar,
-                           const float* ai, const float* br, const float* bi,
-                           const float* twr, const float* twi, int log2_r,
-                           int log2_tile, int log2_cb, int log2_cw,
-                           int device, void* stream) {
+namespace {
+
+// The fused launch for planes, carry, factors and tables stored as T:
+// the carry's 2 n values checked against the card's persisting-L2
+// limit, the set-aside raised to them, the window laid over them, all
+// in bytes of T.
+template <class T, class Twiddle>
+int launch(const T* xr, const T* xi, T* yr, T* yi, T* carry, Twiddle tw,
+           const T* twr, const T* twi, int log2_r, int log2_tile,
+           int log2_cb, int log2_cw, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(1) << (log2_r + log2_tile);
-  const size_t carry_bytes = 2 * n * sizeof(float);
+  const size_t carry_bytes = 2 * n * sizeof(T);
   const long long cap = pifft_fused_carry_limit(device);
   if (cap < 0) return static_cast<int>(-cap);
   if (static_cast<long long>(carry_bytes) > cap) return cudaErrorInvalidValue;
@@ -323,10 +372,8 @@ extern "C" int pifft_fused(const float* xr, const float* xi, float* yr,
   window.hitProp = cudaAccessPropertyPersisting;
   window.missProp = cudaAccessPropertyStreaming;
 
-  float* cr = carry;
-  float* ci = carry + n;
-  pifft::SeparableTwiddle tw{ar, ai, br, bi,
-                             static_cast<size_t>(1) << log2_tile};
+  T* cr = carry;
+  T* ci = carry + n;
   const int smem =
       2 * plane_floats(log2_r, log2_cb, log2_tile - log2_cw) *
       static_cast<int>(sizeof(float));
@@ -336,15 +383,59 @@ extern "C" int pifft_fused(const float* xr, const float* xi, float* yr,
                   &twr, &twi, &log2_r, &log2_tile, &log2_cb};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log2_cw) {
-    case 0: err = launch_fused<0>(args, smem, col_blocks, rows, device, s,
-                                  window); break;
-    case 1: err = launch_fused<1>(args, smem, col_blocks, rows, device, s,
-                                  window); break;
-    case 2: err = launch_fused<2>(args, smem, col_blocks, rows, device, s,
-                                  window); break;
-    case 3: err = launch_fused<3>(args, smem, col_blocks, rows, device, s,
-                                  window); break;
+    case 0: err = launch_fused<0, T, Twiddle>(args, smem, col_blocks, rows,
+                                              device, s, window); break;
+    case 1: err = launch_fused<1, T, Twiddle>(args, smem, col_blocks, rows,
+                                              device, s, window); break;
+    case 2: err = launch_fused<2, T, Twiddle>(args, smem, col_blocks, rows,
+                                              device, s, window); break;
+    case 3: err = launch_fused<3, T, Twiddle>(args, smem, col_blocks, rows,
+                                              device, s, window); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Launch the n = 2^log2_r * 2^log2_tile point transform of (xr, xi) into
+// (yr, yi) (which may be (xr, xi) themselves) on `stream` (a
+// cudaStream_t), through the carry buffer `carry` of 2 n floats (re then
+// im): factors (ar, ai, br, bi) of long_range_factors(R, tile), tables
+// (twr, twi) of flat_tables(tile), phase-A column blocks of 2^log2_cb,
+// phase-B rows on clusters of 2^log2_cw blocks (0..3).  One cooperative
+// launch; returns its cudaError_t (0 = success).  A carry larger than
+// pifft_fused_carry_limit is refused (cudaErrorInvalidValue), never
+// launched without its window.  Raises the device's persisting-L2
+// set-aside to 2 n floats where it is smaller, and leaves it so.  The
+// caller checks the blocking (ops/cuda_fft.py: fused_blocking) and that
+// the planes and the carry are 16-byte aligned.
+extern "C" int pifft_fused(const float* xr, const float* xi, float* yr,
+                           float* yi, float* carry, const float* ar,
+                           const float* ai, const float* br, const float* bi,
+                           const float* twr, const float* twi, int log2_r,
+                           int log2_tile, int log2_cb, int log2_cw,
+                           int device, void* stream) {
+  const pifft::SeparableTwiddle tw{
+      {ar, ai, br, bi, static_cast<size_t>(1) << log2_tile}};
+  return launch(xr, xi, yr, yi, carry, tw, twr, twi, log2_r, log2_tile,
+                log2_cb, log2_cw, device, stream);
+}
+
+// The same transform on bf16 planes, factors (device_factors(R, tile,
+// storage="bfloat16")), tables (flat_tables(tile, storage="bfloat16"))
+// and carry (2 n bf16 values, 4 MB at n = 2^20): the bf16 storage
+// instantiation.  The set-aside it raises, and its window, cover the
+// carry's bytes; the planes and the carry are 8-byte aligned.
+extern "C" int pifft_fused_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, __nv_bfloat16* carry, const __nv_bfloat16* ar,
+    const __nv_bfloat16* ai, const __nv_bfloat16* br,
+    const __nv_bfloat16* bi, const __nv_bfloat16* twr,
+    const __nv_bfloat16* twi, int log2_r, int log2_tile, int log2_cb,
+    int log2_cw, int device, void* stream) {
+  const pifft::SeparableFactors<__nv_bfloat16> tw{
+      ar, ai, br, bi, static_cast<size_t>(1) << log2_tile};
+  return launch(xr, xi, yr, yi, carry, tw, twr, twi, log2_r, log2_tile,
+                log2_cb, log2_cw, device, stream);
 }

@@ -60,8 +60,15 @@
 // read, every point rounded once as it is written (y is rql's
 // intermediate, stored in bf16 as the reference's is); the twiddle is
 // rebuilt and every level runs in float.  Half the bytes, so half the
-// floor.  The dense tables have no bf16 instantiation here: the
-// two-kernel entry refuses bf16 until one is written.
+// floor.  pifft_long_range_dense_bf16 is the dense kernel instantiated
+// the same way (the reference's long_range_grid with storage=
+// "bfloat16", l.602: bf16 planes, tables from twiddle_tables(n, dtype=
+// storage) at l.654, y at the storage dtype): bf16 dense tables
+// (DenseTable<true, __nv_bfloat16>, the source fourstep's and sixstep's
+// dense bf16 phases read), each entry upcast once as it streams in, y
+// rounded once, the two-kernel path's intermediate in bf16 as the
+// reference's is.  12 bytes moved per element against the float32
+// kernel's 24.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,6 +133,18 @@ long_range_dense_kernel(const float* __restrict__ xr,
   long_range_block<KMAX>(xr, xi, yr, yi, tw, log2_r, C, log2_cb);
 }
 
+// the bf16 storage instantiation: planes and dense tables in bf16
+template <int KMAX>
+__global__ void __launch_bounds__(kDeepThreads, KMAX == 3 ? 4 : 2)
+long_range_dense_kernel(const __nv_bfloat16* __restrict__ xr,
+                        const __nv_bfloat16* __restrict__ xi,
+                        __nv_bfloat16* __restrict__ yr,
+                        __nv_bfloat16* __restrict__ yi,
+                        pifft::DenseTable<true, __nv_bfloat16> tw,
+                        int log2_r, int C, int log2_cb) {
+  long_range_block<KMAX>(xr, xi, yr, yi, tw, log2_r, C, log2_cb);
+}
+
 // One launch of `kernel` (either kernel above, at one KMAX, for planes
 // stored as T): a block per transform and column block, (R x cb) / 8
 // threads (32 to kDeepThreads), two padded float planes of shared
@@ -172,6 +191,24 @@ int launch_sep(const T* xr, const T* xi, T* yr, T* yi, Twiddle tw,
                      log2_cb, device, stream);
 }
 
+// The dense launch for planes and tables stored as T.
+template <class T, class Twiddle>
+int launch_dense(const T* xr, const T* xi, T* yr, T* yi, Twiddle tw,
+                 long long batch, int log2_r, int C, int log2_cb, int device,
+                 void* stream) {
+  static pifft::SmemOptIn opted3, opted4;
+  void (*kernel3)(const T*, const T*, T*, T*, Twiddle, int, int, int) =
+      long_range_dense_kernel<3>;
+  void (*kernel4)(const T*, const T*, T*, T*, Twiddle, int, int, int) =
+      long_range_dense_kernel<4>;
+  if (log2_r % 3 == 0) {
+    return launch_deep(kernel3, opted3, xr, xi, yr, yi, tw, batch, log2_r,
+                       C, log2_cb, device, stream);
+  }
+  return launch_deep(kernel4, opted4, xr, xi, yr, yi, tw, batch, log2_r, C,
+                     log2_cb, device, stream);
+}
+
 }  // namespace
 
 // Launch the long-range levels over `batch` transforms of (2^log2_r, C)
@@ -209,12 +246,21 @@ extern "C" int pifft_long_range_dense(const float* xr, const float* xi,
                                       const float* wi, long long batch,
                                       int log2_r, int C, int log2_cb,
                                       int device, void* stream) {
-  static pifft::SmemOptIn opted3, opted4;
   const pifft::DenseTwiddle<true> tw{{wr, wi, static_cast<size_t>(C)}};
-  if (log2_r % 3 == 0) {
-    return launch_deep(long_range_dense_kernel<3>, opted3, xr, xi, yr, yi,
-                       tw, batch, log2_r, C, log2_cb, device, stream);
-  }
-  return launch_deep(long_range_dense_kernel<4>, opted4, xr, xi, yr, yi, tw,
-                     batch, log2_r, C, log2_cb, device, stream);
+  return launch_dense(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                      stream);
+}
+
+// The same launch on bf16 planes and dense tables
+// (dense_long_range_tables(R, C, storage="bfloat16")): the bf16 storage
+// instantiation, y stored in bf16.
+extern "C" int pifft_long_range_dense_bf16(
+    const __nv_bfloat16* xr, const __nv_bfloat16* xi, __nv_bfloat16* yr,
+    __nv_bfloat16* yi, const __nv_bfloat16* wr, const __nv_bfloat16* wi,
+    long long batch, int log2_r, int C, int log2_cb, int device,
+    void* stream) {
+  const pifft::DenseTable<true, __nv_bfloat16> tw{wr, wi,
+                                                  static_cast<size_t>(C)};
+  return launch_dense(xr, xi, yr, yi, tw, batch, log2_r, C, log2_cb, device,
+                      stream);
 }

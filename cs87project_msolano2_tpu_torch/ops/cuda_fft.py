@@ -36,9 +36,10 @@ kernel for CUDA tensors (or raises) and counts the launch on its
 ``launches`` attribute; a CPU tensor goes to the plain version, which is
 also the yardstick the kernel is held against on the card.
 
-bf16 storage (``ops.precision``): ``tile_fft``, ``long_range_sep``,
-``fourstep`` and ``sixstep`` also take bfloat16 planes with bfloat16
-twiddle operands (``twiddle``'s ``storage="bfloat16"``) and launch their
+bf16 storage (``ops.precision``): every kernel but ``matmul_funnel``
+and ``gpu_rows`` (``tile_fft``, ``long_range_sep``, ``long_range_dense``,
+``fourstep``, ``sixstep`` and ``fused``) also takes bfloat16 planes with
+bfloat16 twiddle operands (``twiddle``'s ``storage="bfloat16"``) and launch their
 kernel's bf16 instantiation, counted apart on ``launches_bf16``; every
 operand must have the planes' dtype, nothing is converted in silence.
 Their plain versions upcast, run the float32 levels and round the result
@@ -522,6 +523,9 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
 
 #: the float4 copies of gpu_rows and fused need 16-byte-aligned planes
 _VEC_BYTES = 16
+#: points one vector copy of the kernels moves: a float4, or 8 bytes of
+#: bf16 (csrc/fft_common.cuh: load_four / store_four)
+_VEC_POINTS = 4
 
 
 def _aligned(t):
@@ -531,12 +535,15 @@ def _aligned(t):
 
 
 def _check_aligned(name: str, *planes) -> None:
+    """Raise ValueError for a plane off the boundary of the kernels'
+    vector copy of its dtype: 16 bytes for float32, 8 for bfloat16."""
     for t in planes:
-        if t.data_ptr() % _VEC_BYTES:
-            raise ValueError(f"{name}: planes must be {_VEC_BYTES}-byte "
-                             f"aligned (the kernel copies 16 bytes at a "
-                             f"time); got a view at address "
-                             f"{t.data_ptr():#x}")
+        width = _VEC_POINTS * t.element_size()
+        if t.data_ptr() % width:
+            raise ValueError(f"{name}: {t.dtype} planes must be "
+                             f"{width}-byte aligned (the kernel copies "
+                             f"{width} bytes at a time); got a view at "
+                             f"address {t.data_ptr():#x}")
 
 
 # --- kernel 1: tile_fft -----------------------------------------------------
@@ -600,8 +607,9 @@ def tile_fft(xr, xi, twr, twi):
     ``twiddle_tables(tile)`` (``twiddle.flat_tables``) in the planes'
     dtype.  CUDA tensors launch the kernel (csrc/tile_fft.cu; its bf16
     instantiation for bf16 planes) once, blocked by ``tile_blocking``
-    for the card's SM count; the planes must be 16-byte aligned
-    (ValueError otherwise).  CPU tensors take ``tile_fft_plain``.
+    for the card's SM count; the planes must be aligned to the kernel's
+    vector copy (16 bytes for float32, 8 for bf16; ValueError
+    otherwise).  CPU tensors take ``tile_fft_plain``.
     Returns new (rows, tile) planes of the same dtype."""
     _check_planes(xr, xi, 2, "tile_fft", PLANE_DTYPES)
     rows, tile = xr.shape
@@ -711,8 +719,9 @@ long_range_sep.launches_bf16 = 0
 def long_range_dense_plain(xr, xi, wr, wi):
     """Plain version of ``long_range_dense``: the log2(R) levels as
     reshape/stack stages, twiddle = rows [o, o + half) of the dense
-    (R - 1, C) tables, in float32, the result in the planes' dtype (the
-    dense phases of fourstep and sixstep in bf16 storage)."""
+    (R - 1, C) tables, in float32 (bf16 planes and tables upcast), the
+    result in the planes' dtype (rounded once for bf16, where the kernel
+    stores)."""
     dt = xr.dtype
     xr, xi, wr, wi = (as_compute(t) for t in (xr, xi, wr, wi))
     R = xr.shape[1]
@@ -726,13 +735,14 @@ def long_range_dense_plain(xr, xi, wr, wi):
 
 def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
     """First log2(R) DIF levels of each transform of (batch, R, C)
-    float32 planes (n = R*C each), twiddles read from the dense (R - 1,
-    C) tables of ``twiddle.dense_long_range_tables(R, C)``.  CUDA
-    tensors launch the kernel (csrc/long_range.cu: the separable
-    kernel's passes of 3-4 levels, dense tables) in column blocks of
-    `cb`; CPU tensors take ``long_range_dense_plain``.
-    Returns new planes."""
-    _check_planes(xr, xi, 3, "long_range_dense")
+    float32 or bfloat16 planes (n = R*C each), twiddles read from the
+    dense (R - 1, C) tables of ``twiddle.dense_long_range_tables(R, C)``
+    in the planes' dtype.  CUDA tensors launch the kernel
+    (csrc/long_range.cu: the separable kernel's passes of 3-4 levels,
+    dense tables; its bf16 instantiation for bf16 planes) in column
+    blocks of `cb`; CPU tensors take ``long_range_dense_plain``.
+    Returns new planes of the same dtype."""
+    _check_planes(xr, xi, 3, "long_range_dense", PLANE_DTYPES)
     batch, R, C = xr.shape
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"long_range_dense: R={R} must be a power of two "
@@ -741,7 +751,7 @@ def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
     if C % cb:
         raise ValueError(f"cb={cb} must divide C={C}")
     _check_operands("long_range_dense", xr.device,
-                    (wr, (R - 1, C)), (wi, (R - 1, C)))
+                    (wr, (R - 1, C)), (wi, (R - 1, C)), dtype=xr.dtype)
     if xr.device.type == "cpu":
         return long_range_dense_plain(xr, xi, wr, wi)
     if batch * (C // cb) > _MAX_BLOCKS:
@@ -749,13 +759,15 @@ def long_range_dense(xr, xi, wr, wi, cb: int = DEFAULT_CB):
                          "limit")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if batch:
-        _launch("long_range_dense", "pifft_long_range_dense", xr.device,
+        _launch("long_range_dense",
+                _entry("pifft_long_range_dense", xr.dtype), xr.device,
                 xr, xi, yr, yi, wr, wi, batch, ilog2(R), C, ilog2(cb))
-        long_range_dense.launches += 1
+        _count(long_range_dense, xr.dtype)
     return yr, yi
 
 
 long_range_dense.launches = 0
+long_range_dense.launches_bf16 = 0
 
 
 def _long_range_plain(xr, xi, operands, separable: bool):
@@ -941,8 +953,9 @@ sixstep.launches_bf16 = 0
 def fused_plain(xr, xi, ar, ai, br, bi, twr, twi):
     """Plain version of ``fused``: the levels of ``fourstep_plain``
     (``long_range_sep_plain`` on the (1, R, tile) view, then
-    ``tile_fft_plain`` on the rows); where the carry lives is the
-    kernel's design, not its arithmetic."""
+    ``tile_fft_plain`` on the rows; on bf16 planes the carry and the
+    output rounded to bf16, where the kernel stores); where the carry
+    lives is the kernel's design, not its arithmetic."""
     return fourstep_plain(xr, xi, ar, ai, br, bi, twr, twi)
 
 
@@ -1015,23 +1028,25 @@ def restore_persisting_l2() -> None:
 def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
           alias_io: bool = False, cw: int | None = None):
     """The whole pi-layout DIF of one n = R * tile <= FUSED_MAX_N
-    transform held as (R, tile) float32 planes, in ONE launch whose
-    carry stays in the card's L2: the log2(R) long-range levels in
-    R x (qb * FUSED_QB_COLS) column blocks (factors of
+    transform held as (R, tile) float32 or bfloat16 planes, in ONE
+    launch whose carry stays in the card's L2: the log2(R) long-range
+    levels in R x (qb * FUSED_QB_COLS) column blocks (factors of
     ``twiddle.device_factors(R, tile)``), then the tile DIF of every row
-    (``twiddle.flat_tables(tile)``), each row on a cluster of cw blocks.
-    qb and cw None take ``fused_blocking``'s defaults.  `alias_io`
-    writes the result into (xr, xi) themselves and returns them: the
-    input planes are consumed, and must be 16-byte aligned.
-    CUDA tensors launch the kernel (csrc/fused.cu) once, as one
-    cooperative launch, after checking that the 2n-float carry fits the
-    card's persisting L2 (``fused_carry_limit``); CPU tensors take
-    ``fused_plain``.  The launch raises the card's persisting-L2
+    (``twiddle.flat_tables(tile)``), each row on a cluster of cw blocks;
+    factors and tables in the planes' dtype.  qb and cw None take
+    ``fused_blocking``'s defaults.  `alias_io` writes the result into
+    (xr, xi) themselves and returns them: the input planes are consumed,
+    and must be aligned to the kernel's vector copy (16 bytes for
+    float32, 8 for bf16).  CUDA tensors launch the kernel (csrc/fused.cu;
+    its bf16 instantiation, carry in bf16, for bf16 planes) once, as one
+    cooperative launch, after checking that the carry (2n values of the
+    planes' dtype) fits the card's persisting L2 (``fused_carry_limit``);
+    CPU tensors take ``fused_plain``.  The launch raises the card's persisting-L2
     set-aside to the carry's size where it is smaller: device state
     that every later kernel on the card sees, until process exit puts
     back the value read before the first launch
     (``persisting_l2_set_aside``, ``restore_persisting_l2``)."""
-    _check_planes(xr, xi, 2, "fused")
+    _check_planes(xr, xi, 2, "fused", PLANE_DTYPES)
     R, tile = xr.shape
     if R < 2 or not is_power_of_two(R):
         raise ValueError(f"fused: R={R} must be a power of two >= 2")
@@ -1039,7 +1054,7 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
     _check_operands("fused", xr.device,
                     (ar, (R - 1,)), (ai, (R - 1,)),
                     (br, (ilog2(R), tile)), (bi, (ilog2(R), tile)),
-                    (twr, (tile - 1,)), (twi, (tile - 1,)))
+                    (twr, (tile - 1,)), (twi, (tile - 1,)), dtype=xr.dtype)
     if xr.device.type == "cpu":
         yr, yi = fused_plain(xr, xi, ar, ai, br, bi, twr, twi)
         if alias_io:
@@ -1047,7 +1062,7 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
             xi.copy_(yi)
             return xr, xi
         return yr, yi
-    carry_bytes = 2 * R * tile * 4
+    carry_bytes = 2 * R * tile * xr.element_size()
     limit = fused_carry_limit(xr.device)
     if carry_bytes > limit:
         raise ValueError(
@@ -1058,21 +1073,22 @@ def fused(xr, xi, ar, ai, br, bi, twr, twi, qb: int | None = None,
         if not _SET_ASIDE_BEFORE:
             atexit.register(restore_persisting_l2)
         _SET_ASIDE_BEFORE[index] = persisting_l2_set_aside(xr.device)
-    carry = torch.empty(2 * R * tile, dtype=torch.float32, device=xr.device)
+    carry = torch.empty(2 * R * tile, dtype=xr.dtype, device=xr.device)
     if alias_io:
-        # the kernel writes y with 16-byte stores
+        # the kernel writes y with vector stores
         _check_aligned("fused", xr, xi)
         yr, yi = xr, xi
     else:
         yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    _launch("fused", "pifft_fused", xr.device, xr, xi, yr, yi, carry,
-            ar, ai, br, bi, twr, twi, ilog2(R), ilog2(tile),
+    _launch("fused", _entry("pifft_fused", xr.dtype), xr.device, xr, xi,
+            yr, yi, carry, ar, ai, br, bi, twr, twi, ilog2(R), ilog2(tile),
             ilog2(qb * FUSED_QB_COLS), ilog2(cw))
-    fused.launches += 1
+    _count(fused, xr.dtype)
     return yr, yi
 
 
 fused.launches = 0
+fused.launches_bf16 = 0
 
 
 # --- kernel 7: matmul_funnel ------------------------------------------------
@@ -1348,7 +1364,8 @@ KERNELS = (tile_fft, long_range_sep, long_range_dense, fourstep, sixstep,
            fused, matmul_funnel, gpu_rows)
 #: the wrappers with a bf16 storage instantiation, whose launches they
 #: count apart on ``launches_bf16``
-BF16_KERNELS = (tile_fft, long_range_sep, fourstep, sixstep)
+BF16_KERNELS = (tile_fft, long_range_sep, long_range_dense, fourstep,
+                sixstep, fused)
 
 
 def reset_launch_counts() -> None:
@@ -1405,26 +1422,29 @@ def fft_pi_layout_cuda_rql(xr, xi, tile: int | None = None,
 
 
 def fft_pi_layout_cuda2(xr, xi, tile: int | None = None,
-                        cb: int | None = None):
+                        cb: int | None = None, storage: str | None = None):
     """The two-kernel whole transform of every length-n row of (..., n)
     planes: ``long_range_dense`` on the (rows, R, tile) view (skipped
     when R = 1), then ``tile_fft`` — the reference's
     fft_pi_layout_pallas2 (pallas_fft.py:678), the ladder's
-    ``two-kernel``.  The blocking is rql's (``rql_blocking``), validated
+    ``two-kernel``.  `storage` "bfloat16" rounds the input once and runs
+    both kernels' bf16 instantiations on bf16 planes and tables (the
+    intermediate in bf16, as the reference's); the result is float32
+    either way.  The blocking is rql's (``rql_blocking``), validated
     before any launch."""
     n = xr.shape[-1]
     tile, R, cb = rql_blocking(n, tile, cb)
     lead = xr.shape[:-1]
     dev = xr.device
-    xr = xr.contiguous()
-    xi = xi.contiguous()
+    xr, xi = _to_storage(xr, xi, storage)
     if R > 1:
         xr, xi = long_range_dense(xr.reshape(-1, R, tile),
                                   xi.reshape(-1, R, tile),
-                                  *dense_long_range_tables(R, tile, dev), cb)
-    twr, twi = flat_tables(tile, dev)
+                                  *dense_long_range_tables(R, tile, dev,
+                                                           storage), cb)
+    twr, twi = flat_tables(tile, dev, storage)
     yr, yi = tile_fft(xr.reshape(-1, tile), xi.reshape(-1, tile), twr, twi)
-    return yr.reshape(*lead, n), yi.reshape(*lead, n)
+    return as_compute(yr).reshape(*lead, n), as_compute(yi).reshape(*lead, n)
 
 
 def _one_transform(xr, xi, name: str) -> int:
@@ -1436,25 +1456,31 @@ def _one_transform(xr, xi, name: str) -> int:
 
 def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
                              qb: int | None = None, alias_io: bool = False,
-                             cw: int | None = None):
+                             cw: int | None = None,
+                             storage: str | None = None):
     """pi-layout n-point DIF of (n,) float32 planes, n <= FUSED_MAX_N,
     in ONE launch of the fused kernel, its carry in L2 (the reference's
     fft_pi_layout_pallas_fused, pallas_fft.py:902).  `alias_io` writes
-    the result over the input planes (consumed, and returned reshaped).
-    R = n/tile < 2 takes the tile kernel, as the reference does.
+    the result over the kernel's input planes (consumed, and returned
+    reshaped): the caller's float32 planes, or with bf16 `storage` the
+    rounded copy made at entry.  `storage` "bfloat16" rounds the input
+    once and runs the kernel's bf16 instantiation (planes, carry and
+    tables in bf16); the result is float32 either way.  R = n/tile < 2
+    takes the tile kernel, on the same storage, as the reference does.
     Validates tile/qb/cw before any launch."""
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fused")
     tile, R, qb, cw = fused_blocking(n, tile, qb, cw)
     dev = xr.device
-    xr = xr.contiguous().reshape(R, tile)
-    xi = xi.contiguous().reshape(R, tile)
-    twr, twi = flat_tables(tile, dev)
+    xr, xi = _to_storage(xr, xi, storage)
+    xr = xr.reshape(R, tile)
+    xi = xi.reshape(R, tile)
+    twr, twi = flat_tables(tile, dev, storage)
     if R < 2:
         yr, yi = tile_fft(xr, xi, twr, twi)
     else:
-        yr, yi = fused(xr, xi, *device_factors(R, tile, dev), twr, twi, qb,
-                       alias_io, cw)
-    return yr.reshape(n), yi.reshape(n)
+        yr, yi = fused(xr, xi, *device_factors(R, tile, dev, storage), twr,
+                       twi, qb, alias_io, cw)
+    return as_compute(yr).reshape(n), as_compute(yi).reshape(n)
 
 
 def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,

@@ -11,8 +11,10 @@ Variants (the reference's names):
                the whole transform of n <= FUSED_MAX_N in one
                cooperative launch, its carry in L2; ``fused-alias``
                writes the result over its input planes and allocates
-               no output (CONSUMES_INPUT).  Raced only: the static
-               default never serves it.
+               no output (CONSUMES_INPUT; in bf16 storage over the
+               rounded copy made at entry, so the caller's planes are
+               not consumed).  Raced only: the static default never
+               serves it.
 * ``rql``    — ops.cuda_fft.fft_pi_layout_cuda_rql: the long-range
                kernel, then the tile kernel; 1-D n above MAX_ROW_TILE
                and below FOURSTEP_MIN_N.
@@ -40,12 +42,12 @@ Precision is a raced axis, as in the reference (its ladder.py:245-251):
 a key whose mode has race alternates (``precision.race_modes``: bf16
 races bf16 and split3) gets every entry once per mode, the mode pinned
 in ``params["precision"]``, and the executor serves the pinned mode, or
-the key's where none is pinned.  bf16 storage runs on ``rows``,
-``rql``, ``fourstep`` and ``sixstep`` (their kernels' bf16
-instantiations); ``fused``, ``fused-alias`` and ``two-kernel`` have no
-bf16 instantiation yet and refuse it, as ``mf`` does (fp32 storage
-only, the reference's own refusal); ``stages`` runs float32 whatever
-the mode.
+the key's where none is pinned.  bf16 storage runs on every kernel
+variant the reference serves it on (``rows``, ``rql``, ``fourstep``,
+``sixstep``, ``fused``, ``fused-alias`` and ``two-kernel``: their
+kernels' bf16 instantiations); ``mf`` refuses it (fp32 storage only,
+the reference's own refusal); ``stages`` runs float32 whatever the
+mode.
 
 Keys whose ``backend`` is "gpu" go to ``hw.lowering`` (``gpu-rows``,
 ``gpu-stages``) in ``candidates``, ``static_default`` and
@@ -90,11 +92,9 @@ from .core import PlanKey
 #: variants of the reference's ladder with no port yet: the any-length
 #: family (its ladder.py:267-345), which comes with the any-length slice
 UNPORTED = ("bluestein", "rader", "mixedradix")
-#: variants whose executor writes its result over its input planes
+#: variants whose executor writes its result over its input planes (in
+#: float32 storage: in bf16 it writes over the rounded copy it made)
 CONSUMES_INPUT = ("fused-alias",)
-#: kernel variants with no bf16 storage instantiation yet (mf has none
-#: by design, and refuses with the reference's message)
-NO_BF16_YET = ("fused", "fused-alias", "two-kernel")
 
 #: the reference's crossovers (its ladder.py:61 and :69): fourstep from
 #: here (where the fused carry no longer fits), rql below
@@ -311,9 +311,9 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     """The (xr, xi) -> (yr, yi) executor for one ladder entry, serving
     ``params["precision"]`` where a race pinned it, else the key's mode
     (the reference's l.460), on that mode's storage.  Raises ValueError
-    for unported variants, for a bf16 entry of a variant with no bf16
-    instantiation, and for infeasible tile/cb/qb/R before anything
-    launches (the tuner records those as rejections).  gpu keys build
+    for unported variants, for a bf16 ``mf`` entry (the reference's
+    refusal), and for infeasible tile/cb/qb/R before anything launches
+    (the tuner records those as rejections).  gpu keys build
     through ``hw.lowering.build_executor``."""
     from ..ops import cuda_fft
     from ..ops.bits import to_natural
@@ -328,10 +328,6 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         # fp32 storage only: a race entry records the reference's own
         # rejection
         cuda_fft.check_mf_storage(mode)
-    if variant in NO_BF16_YET and storage != "float32":
-        raise ValueError(f"variant {variant!r}: bf16 storage not ported "
-                         f"yet (its kernel has no {storage} "
-                         f"instantiation)")
     natural = key.layout == "natural"
     if variant in UNPORTED:
         raise ValueError(f"variant {variant!r} not ported yet")
@@ -364,7 +360,8 @@ def build_executor(key: PlanKey, variant: str, params: dict):
                                                        storage)
         else:
             def run(xr, xi):
-                return cuda_fft.fft_pi_layout_cuda2(xr, xi, tile, cb)
+                return cuda_fft.fft_pi_layout_cuda2(xr, xi, tile, cb,
+                                                    storage)
     elif variant in ("fused", "fused-alias"):
         qb = params.get("qb")
         cw = params.get("cw")
@@ -373,7 +370,7 @@ def build_executor(key: PlanKey, variant: str, params: dict):
 
         def run(xr, xi):
             return cuda_fft.fft_pi_layout_cuda_fused(xr, xi, tile, qb,
-                                                     alias_io, cw)
+                                                     alias_io, cw, storage)
     elif variant == "mf":
         R = params.get("R", cuda_fft.LANE)
         cb = params.get("cb")
@@ -400,6 +397,8 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         return to_natural(yr, yi) if natural else (yr, yi)
 
     # fused-alias writes its result over the planes it is given: a Plan
-    # hands it planes it owns, a copy only where they are the caller's
-    whole_run.consumes_input = variant in CONSUMES_INPUT
+    # hands it planes it owns, a copy only where they are the caller's.
+    # In bf16 storage it writes over the rounded copy made at entry
+    whole_run.consumes_input = variant in CONSUMES_INPUT and \
+        storage == "float32"
     return whole_run

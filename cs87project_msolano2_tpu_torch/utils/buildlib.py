@@ -283,6 +283,24 @@ def load_kernels() -> ctypes.CDLL:
         c.c_int,                        # log2(phase-B2 cluster width)
         c.c_int, ptr,                   # device, stream
     ]
+    lib.pifft_long_range_dense_bf16.restype = c.c_int
+    lib.pifft_long_range_dense_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi
+        ptr, ptr,                       # wr, wi (dense tables)
+        c.c_longlong, c.c_int,          # batch, log2(R)
+        c.c_int, c.c_int,               # C, log2(cb)
+        c.c_int, ptr,                   # device, stream
+    ]
+    lib.pifft_fused_bf16.restype = c.c_int
+    lib.pifft_fused_bf16.argtypes = [
+        ptr, ptr, ptr, ptr,             # xr, xi, yr, yi (y may be x)
+        ptr,                            # carry (2 n bf16 values)
+        ptr, ptr, ptr, ptr,             # ar, ai, br, bi
+        ptr, ptr,                       # twr, twi
+        c.c_int, c.c_int, c.c_int,      # log2(R), log2(tile), log2(cb)
+        c.c_int,                        # log2(cluster width)
+        c.c_int, ptr,                   # device, stream
+    ]
     lib.pifft_cuda_error_string.restype = c.c_char_p
     lib.pifft_cuda_error_string.argtypes = [c.c_int]
     lib.pifft_cuda_error_name.restype = c.c_char_p

@@ -625,6 +625,22 @@ def _bf16_case(kind, shape, device):
                 cf.long_range_sep_plain,
                 (*_bf16_planes(42, (batch, R, C), device),
                  *twiddle.device_factors(R, C, device, BF16)))
+    if kind == "long_range_dense":
+        batch, R, C, cb = shape
+        return (lambda *a: cf.long_range_dense(*a, cb=cb),
+                cf.long_range_dense_plain,
+                (*_bf16_planes(47, (batch, R, C), device),
+                 *twiddle.dense_long_range_tables(R, C, device, BF16)))
+    if kind == "fused":
+        # the wrapper writes over clones, so the planes stay the plain
+        # version's input in either alias mode
+        R, tile, qb, cw, alias_io = shape
+        return (lambda xr, xi, *a: cf.fused(xr.clone(), xi.clone(), *a,
+                                            qb=qb, alias_io=alias_io, cw=cw),
+                cf.fused_plain,
+                (*_bf16_planes(48, (R, tile), device),
+                 *twiddle.device_factors(R, tile, device, BF16),
+                 *twiddle.flat_tables(tile, device, BF16)))
     if kind.startswith("fourstep"):
         R, tile, cb = shape
         sep = kind == "fourstep"
@@ -649,6 +665,13 @@ def _bf16_case(kind, shape, device):
     ("tile_fft", (8, 1024)), ("tile_fft", (64, 1 << 14)),
     ("long_range_sep", (2, 8, 512, 8)),
     ("long_range_sep", (1, 64, 1 << 14, 32)),
+    ("long_range_dense", (2, 8, 512, 8)),
+    ("long_range_dense", (1, 64, 1 << 14, 32)),
+    ("long_range_dense", (1, 8192, 2048, 2)),
+    ("fused", (64, 1 << 14, 1, 4, False)), ("fused", (64, 1 << 14, 2, 8, True)),
+    ("fused", (64, 1 << 14, 1, 1, True)), ("fused", (4, 256, 2, 4, False)),
+    # segments of 32 bf16 values, under one 128-byte line: no discard
+    ("fused", (2, 256, 1, 8, True)),
     ("fourstep", (64, 4096, 64)), ("fourstep", (1024, 1 << 14, 16)),
     ("fourstep-dense", (8, 1024, 8)), ("fourstep-dense", (256, 1 << 14, 64)),
     ("sixstep", (4, 2, 512)), ("sixstep", (16, 16, 1 << 14)),
@@ -669,11 +692,13 @@ def test_bf16_kernel_vs_plain(cuda_device, kind, shape):
 
 
 @pytest.mark.parametrize("kind", ["tile_fft", "long_range_sep", "fourstep",
-                                  "sixstep"])
+                                  "sixstep", "long_range_dense", "fused"])
 def test_bf16_wrappers_raise_on_a_dtype_that_does_not_match(cuda_device,
                                                              kind):
     shape = {"tile_fft": (8, 1024), "long_range_sep": (2, 8, 512, 8),
-             "fourstep": (64, 4096, 64), "sixstep": (4, 2, 512)}[kind]
+             "fourstep": (64, 4096, 64), "sixstep": (4, 2, 512),
+             "long_range_dense": (2, 8, 512, 8),
+             "fused": (4, 256, 2, 4, False)}[kind]
     kernel, _, args = _bf16_case(kind, shape, cuda_device)
     # float32 tables beside bf16 planes, bf16 tables beside float32
     # planes, and half planes: refused before any launch, never converted
@@ -682,6 +707,46 @@ def test_bf16_wrappers_raise_on_a_dtype_that_does_not_match(cuda_device,
                 (*(t.half() for t in args[:2]), *args[2:])):
         with pytest.raises((TypeError, ValueError)):
             kernel(*bad)
+
+
+def test_fused_bf16_sizes_its_carry_window(cuda_device):
+    # the bf16 carry is 2 n bf16 values (4 MB at 2^20): the set-aside the
+    # launch raises, and the window, cover that many bytes, not 2 n floats
+    R, tile = 64, 1 << 14
+    kernel, plain, args = _bf16_case("fused", (R, tile, 1, 4, False),
+                                     cuda_device)
+    before = cf.persisting_l2_set_aside(cuda_device)
+    kernel(*args)  # a first launch records the card's own set-aside
+    torch.cuda.synchronize()
+    try:
+        cf.set_persisting_l2_set_aside(cuda_device, 0)
+        yk = kernel(*args)
+        torch.cuda.synchronize()
+        raised = cf.persisting_l2_set_aside(cuda_device)
+    finally:
+        cf.set_persisting_l2_set_aside(cuda_device, before)
+    carry = 2 * R * tile * 2
+    assert carry <= raised < 2 * carry
+    assert rel_err(*yk, *plain(*args)) <= BF16_TOL
+
+
+def test_fused_bf16_alias_alignment_follows_its_copy_width(cuda_device):
+    # bf16 planes are copied 8 bytes at a time: a view 8 bytes into its
+    # storage is served in place, one 4 bytes in is refused
+    R, tile = 4, 256
+    _, plain, args = _bf16_case("fused", (R, tile, 2, 4, True), cuda_device)
+    base = [torch.empty(R * tile + 4, dtype=torch.bfloat16,
+                        device=cuda_device) for _ in range(2)]
+    views = [b[4:].view(R, tile) for b in base]
+    for v, a in zip(views, args[:2]):
+        v.copy_(a)
+    yr, yi = cf.fused(*views, *args[2:], alias_io=True)
+    torch.cuda.synchronize()
+    assert yr.data_ptr() == views[0].data_ptr()
+    assert rel_err(yr, yi, *plain(*args)) <= BF16_TOL
+    odd = [b[2:2 + R * tile].view(R, tile) for b in base]
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        cf.fused(*odd, *args[2:], alias_io=True)
 
 
 def test_fp32_instantiations_count_apart(cuda_device):

@@ -34,9 +34,11 @@ fourstep at n = 2^22 and 2^24 in both twiddle modes, long_range_sep at
 float32 and B2 (R, 128) (before the kernel's tiles) is given them so.
 Then, in a root that has them (``cuda_fft.BF16_KERNELS``), the bf16
 storage instantiations on bf16 planes and tables: tile_fft at 4096 x
-4096 and 64 x 2^14, long_range_sep at 1 x 64 x 2^14, fourstep at 2^22
-and 2^24 and sixstep at 2^25 and 2^27 (``BF16_CASES``), each case named
-with "bf16"; a root without them prints one line saying so.
+4096 and 64 x 2^14, long_range_sep and long_range_dense at 1 x 64 x
+2^14, fourstep at 2^22 and 2^24, sixstep at 2^25 and 2^27 and fused at
+2^20 (``BF16_CASES``), each case named with "bf16"; a root without them,
+or without one of those kernels' bf16 instantiation, prints one line
+saying so.
 
     python3 tools/kernel_device_ms.py --widths [--reps 30]
 
@@ -72,10 +74,13 @@ LONG_RANGE_SHAPES = ((1, 64, 1 << 14), (1, 256, 1 << 14), (4, 16, 1 << 14))
 WIDTH_SHAPES = tuple((rows, 1 << 14) for rows in (8, 16, 32, 64, 96, 128)) \
     + ((64, 1 << 13), (128, 1 << 13))
 #: the bf16 cases: (kernel, shape) — tile_fft (rows, tile),
-#: long_range_sep (batch, R, C), fourstep and sixstep log2 n
+#: long_range_sep and long_range_dense (batch, R, C), fourstep, sixstep
+#: and fused log2 n
 BF16_CASES = (("tile_fft", (4096, 4096)), ("tile_fft", (64, 1 << 14)),
-              ("long_range_sep", (1, 64, 1 << 14)), ("fourstep", 22),
-              ("fourstep", 24), ("sixstep", 25), ("sixstep", 27))
+              ("long_range_sep", (1, 64, 1 << 14)),
+              ("long_range_dense", (1, 64, 1 << 14)), ("fourstep", 22),
+              ("fourstep", 24), ("sixstep", 25), ("sixstep", 27),
+              ("fused", 20))
 
 
 def child(reps: int, widths: bool) -> None:
@@ -238,6 +243,11 @@ def child(reps: int, widths: bool) -> None:
         return tuple(t.to(torch.bfloat16) for t in planes(shape))
 
     for kernel, shape in BF16_CASES:
+        if getattr(cf, kernel) not in cf.BF16_KERNELS:
+            print(json.dumps({"case": f"{kernel} bf16", "device_ms": None,
+                              "note": "this root has no bf16 instantiation "
+                                      "of it"}), flush=True)
+            continue
         if kernel == "tile_fft":
             rows, tile = shape
             measure(f"tile_fft({rows},{tile}) bf16", "tile_fft", cf.tile_fft,
@@ -247,6 +257,17 @@ def child(reps: int, widths: bool) -> None:
             measure(f"long_range_sep({batch},{R},{C}) cb={cf.DEFAULT_CB} "
                     f"bf16", "long_range", cf.long_range_sep, *bf16(shape),
                     *device_factors(R, C, dev, bf), cf.DEFAULT_CB)
+        elif kernel == "long_range_dense":
+            batch, R, C = shape
+            measure(f"long_range_dense({batch},{R},{C}) cb={cf.DEFAULT_CB} "
+                    f"bf16", "long_range", cf.long_range_dense, *bf16(shape),
+                    *dense_long_range_tables(R, C, dev, bf), cf.DEFAULT_CB)
+        elif kernel == "fused":
+            tile, R, qb, cw = cf.fused_blocking(1 << shape)
+            measure(f"fused(2^{shape}) qb={qb} cw={cw} bf16", "fused",
+                    cf.fused, *bf16((R, tile)),
+                    *device_factors(R, tile, dev, bf),
+                    *flat_tables(tile, dev, bf))
         elif kernel == "fourstep":
             tile, R, cb = cf.fourstep_blocking(1 << shape)
             measure(f"fourstep(2^{shape}) cb={cb} bf16", "fourstep",
