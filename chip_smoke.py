@@ -26,9 +26,20 @@ layer in natural and pi order at config 2 on ``rql``, config 3 on
 ``rows``, 2^24 on ``fourstep``, 2^27 on ``sixstep``, and 2^20 through
 ``Plan(key, "fused")``, ``"fused-alias"`` and ``"two-kernel"``, each
 kernel's bf16 device time beside its float32 one, and the precision
-race at 2^20 with its bf16 and split3 entries, none of them rejected) —
-checks the results against a complex128 oracle, and times every kernel
-and path with CUDA events.  Phase 3 holds the bf16 instantiations of
+race at 2^20 with its bf16 and split3 entries, none of them rejected)
+and the real and any-length domains (phase 12: ``rfft``/``irfft`` at
+n = 2^21, on 4096 x 4096 real rows and at 2^25, riding the c2c plans
+at n/2 (rql, rows, fourstep); ``fft``/``ifft`` at the prime 1048573
+(rader, padded to 2^21 on fourstep), at 3^13 (bluestein, padded to
+2^22) and at 5 * 2^16 in a batch of 16 (mixedradix over rows of 2^16);
+``rfft`` at n = 1000; each case's plan, Hopper launches a call with
+torch.fft and numpy.fft refused during the counted calls, accuracy
+against numpy in complex128 forward and round trip, and its time
+beside torch.fft's and, for r2c, its c2c twin's) — checks the results
+against a complex128 oracle, and times every kernel and path: phase 7
+by the loop slope (``utils.timing.loop_slope_ms``, k calls in one CUDA
+graph over copies of the operands the L2 cannot serve), the
+CUDA-event median of 30 calls with the L2 flushed beside it.  Phase 3 holds the bf16 instantiations of
 tile_fft, long_range_sep, long_range_dense (on the float32 check's 13
 long-range shapes), fourstep, sixstep and fused (2^20 at every cluster
 width, qb 1 and 2, both alias modes, and R = 2; the persisting-L2
@@ -51,13 +62,14 @@ times each candidate by the loop slope over a CUDA graph
 time beside its CUDA-event time.  Phase 3 also sets the card's
 persisting-L2 set-aside to 0, times rql at N=2^20, and times it again
 after the first ``fused`` launch has raised that set-aside; the card's
-own value is put back at exit.  Phases 1-7 run with
+own value is put back at exit.  The whole script runs with
 ``PIFFT_PLAN_CACHE`` pointed at a fresh temporary directory, so no plan
-stored on the machine changes their paths.  Phase 7 reads each kernel's
-time twice: CUDA events around the call (the wrapper's host time
-included, as a caller sees it) and the card's time per call from
-``torch.profiler`` (``device_ms``, the kernels alone: each kernel's mean
-time a launch times its launches in one call).  The last line of
+stored on the machine changes the static paths.  Phase 7 reads each
+kernel's time three ways: the loop slope (device time per call, the
+``ms`` of the kernels line), CUDA events around the call (the wrapper's
+host time included, as a caller sees it) and the card's time per call
+from ``torch.profiler`` (``device_ms``, the kernels alone: each
+kernel's mean time a launch times its launches in one call).  The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
@@ -170,6 +182,30 @@ BF16_PATHS = (("config 2 N=2^20", (1 << 20,), "rql", None),
                {"tile": 1 << 14, "cb": 32}))
 #: profiled calls of each phase-11 device-time reading
 BF16_PROFILE_REPS = 10
+#: phase 12, the domains: (label, domain, shape, variant the plan
+#: resolves to, Hopper kernel launches a forward call).  The r2c cases
+#: ride the c2c plan at n/2 (config 2's transform as a real signal: rql
+#: at 2^20; config 3's rows as real rows: rows of 2048; the reference
+#: bench's 2^25: fourstep at 2^24); fft at the largest prime below 2^20
+#: (rader, its convolution of 1048572 padded to 2^21), at 3^13 (an odd
+#: part past MIXEDRADIX_MAX_ODD: bluestein, padded to 2^22) and at
+#: 5 * 2^16 in a batch of 16 (mixedradix: 80 rows of 2^16); rfft at the
+#: reference's own test length 1000 (mixedradix at 500, whose rows of 4
+#: no Hopper kernel serves)
+DOMAIN_CASES = (
+    ("rfft n=2^21", "r2c", (1 << 21,), "rql",
+     {"long_range_sep": 1, "tile_fft": 1}),
+    ("rfft (4096,4096)", "r2c", (4096, 4096), "rows", {"tile_fft": 1}),
+    ("rfft n=2^25", "r2c", (1 << 25,), "fourstep", {"fourstep": 1}),
+    ("fft n=1048573", "c2c", (1048573,), "rader", {"fourstep": 2}),
+    ("fft n=3^13", "c2c", (3 ** 13,), "bluestein", {"fourstep": 2}),
+    ("fft n=5*2^16 batch 16", "c2c", (16, 5 << 16), "mixedradix",
+     {"long_range_sep": 1, "tile_fft": 1}),
+    ("rfft n=1000", "r2c", (1000,), "mixedradix", {}))
+#: phase 12's bounds against numpy in complex128, max |got - ref| /
+#: max |ref| (the reference's tests/test_anylen.py measure)
+DOMAIN_TOL = 1e-5
+DOMAIN_RT_TOL = 1e-4
 
 
 def log(msg):
@@ -208,6 +244,195 @@ def random_complex(rng, shape, device, n=None):
     xi = rng.uniform(-amp, amp, shape).astype(np.float32)
     return (torch.from_numpy(xr).to(device),
             torch.from_numpy(xi).to(device))
+
+
+def slope_ms(fn, *args, consumes=False):
+    """Per-call ms of ``fn(*args)`` by the loop slope
+    (``utils.timing.loop_slope_ms``: k calls in one CUDA graph, device
+    time per call with no host work between calls) over the reference's
+    windows, the calls rotating over copies of the tensor arguments, as
+    many as keep the L2 from serving a call (``rotation_copies``), as
+    the race times a candidate.  `consumes`: fn writes over its tensor
+    arguments, so every copy gets them back before each timed run."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch.hw.inventory import l2_bytes
+    from cs87project_msolano2_tpu_torch.utils.timing import (
+        loop_slope_ms,
+        rotation_copies,
+        slope_window,
+    )
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = rotation_copies(nbytes, l2_bytes(tensors[0].device))
+
+    def copy():
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    sets = [copy() for _ in range(copies)] if consumes \
+        else [args] + [copy() for _ in range(copies - 1)]
+    before = None
+    if consumes:
+        def before():
+            for s in sets:
+                for a, b in zip(s, args):
+                    if isinstance(a, torch.Tensor):
+                        a.copy_(b)
+    elements = max(t.numel() for t in tensors)
+    return loop_slope_ms(fn, sets, *slope_window(elements), before=before)
+
+
+def domain_subplan(plan):
+    """(label, plan) of the power-of-two subplan that carries a domain
+    plan's transform: the c2c plan at n/2 of an even r2c key, the pad's
+    of rader and bluestein, mixedradix's batched rows."""
+    import dataclasses
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.ops import anylen
+
+    key = plan.key
+    if key.domain != "c2c" and key.n % 2 == 0:
+        key = dataclasses.replace(key, n=key.n // 2, domain="c2c")
+        plan = plans.get_plan(key)
+    if plan.variant in ("rader", "bluestein"):
+        sub = dataclasses.replace(key, n=plan.params["pad"], domain="c2c")
+    elif plan.variant == "mixedradix":
+        a, m = anylen.odd_split(key.n)
+        sub = dataclasses.replace(key, n=1 << a, batch=key.batch + (m,),
+                                  domain="c2c")
+    else:
+        return f"c2c {key.batch + (key.n,)}", plan
+    return f"c2c {sub.batch + (sub.n,)}", plans.get_plan(sub)
+
+
+def phase_domains(dev, rng, timed):
+    """Phase 12: the real and any-length domains at full size through
+    the user entry points (``rfft``/``irfft``, ``fft``/``ifft``), each
+    case of DOMAIN_CASES checked for its plan, its Hopper launches per
+    call (counted), no fallback (torch.fft and numpy.fft raise during
+    the counted calls), its accuracy against numpy in complex128 forward
+    and round trip, and timed by the loop slope beside the CUDA-event
+    median, with torch.fft on the same data and, for r2c, the c2c twin
+    (fft at the same n).  The plans are the static ladder's: the phase
+    runs with the plan store off and the in-process plans dropped, so no
+    winner of phase 8's races serves it.  Returns the rows by case;
+    raises on any failure."""
+    from cs87project_msolano2_tpu_torch import plans
+
+    store = os.environ.get("PIFFT_PLAN_CACHE")
+    os.environ["PIFFT_PLAN_CACHE"] = "off"
+    plans.cache.clear(memory=True)
+    try:
+        return {case[0]: domain_case(dev, rng, timed, *case)
+                for case in DOMAIN_CASES}
+    finally:
+        plans.cache.clear(memory=True)
+        if store is None:
+            os.environ.pop("PIFFT_PLAN_CACHE")
+        else:
+            os.environ["PIFFT_PLAN_CACHE"] = store
+
+
+def counted(fn, *args):
+    """(``fn(*args)``, {kernel: launches}) of one call with torch.fft's
+    and numpy.fft's transforms refused: a path that reaches either
+    raises."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+
+    def refused(*_a, **_k):
+        raise AssertionError("a domain path reached torch.fft or numpy.fft")
+
+    fallbacks = [(mod, name) for mod in (torch.fft, np.fft)
+                 for name in ("fft", "ifft", "rfft", "irfft")]
+    saved = [getattr(mod, name) for mod, name in fallbacks]
+    for mod, name in fallbacks:
+        setattr(mod, name, refused)
+    cf.reset_launch_counts()
+    try:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), f in zip(fallbacks, saved):
+            setattr(mod, name, f)
+    return out, {k: v for k, v in cf.launch_counts().items() if v}
+
+
+def domain_case(dev, rng, timed, label, domain, shape, want, want_launches):
+    """One case of phase 12 (``phase_domains``): its row."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.models.fft import fft, ifft
+    from cs87project_msolano2_tpu_torch.models.real import irfft, rfft
+
+    n = shape[-1]
+    xr, xi = random_complex(rng, shape, dev)
+    if domain == "r2c":
+        x, fwd, inv, lib = xr, rfft, irfft, torch.fft.rfft
+        twin_x = torch.complex(xr, torch.zeros_like(xr))
+    else:
+        x, fwd, inv, lib = torch.complex(xr, xi), fft, ifft, torch.fft.fft
+        twin_x = None
+    lib_name = f"torch.fft.{'rfft' if domain == 'r2c' else 'fft'}"
+    del xr, xi
+    plan = plans.plan_for(shape, domain=domain, device=dev)
+    sub_label, sub = domain_subplan(plan)
+    log(f"# phase 12 {label}: plan {plan.variant} {plan.params} "
+        f"[{plan.source}], subplan {sub_label} {sub.variant} {sub.params}")
+    # the first call builds the tables and subplans, uncounted
+    inv(fwd(x))
+    y, fwd_launches = counted(fwd, x)
+    back, inv_launches = counted(inv, y)
+    xh = x.cpu().numpy().astype(np.complex128 if domain == "c2c"
+                                else np.float64)
+    yh = y.cpu().numpy().astype(np.complex128)
+    ref = (np.fft.rfft if domain == "r2c" else np.fft.fft)(xh, axis=-1)
+    err = float(np.max(np.abs(yh - ref)) / np.max(np.abs(ref)))
+    bh = back.cpu().numpy().astype(xh.dtype)
+    rt = float(np.max(np.abs(bh - xh)) / np.max(np.abs(xh)))
+    bins = n // 2 + 1 if domain == "r2c" else n
+    ok = (plan.variant == want and fwd_launches == want_launches
+          and inv_launches == want_launches and err <= DOMAIN_TOL
+          and rt <= DOMAIN_RT_TOL
+          and y.device.type == back.device.type == dev.type
+          and bool(torch.isfinite(y).all())
+          and y.shape == shape[:-1] + (bins,) and back.shape == shape)
+    log(f"# phase 12 {label}: forward {err:.3e} (bound {DOMAIN_TOL}), "
+        f"round trip {rt:.3e} (bound {DOMAIN_RT_TOL}) vs numpy complex128; "
+        f"Hopper launches a call: forward {fwd_launches}, inverse "
+        f"{inv_launches} (expected {want_launches})")
+    if not ok:
+        raise AssertionError(f"phase 12 {label} failed")
+    del y, back, xh, yh, bh, ref
+    row = {"plan": plan.variant, "params": plan.params,
+           "subplan": [sub_label, sub.variant, sub.params],
+           "forward_err": err, "round_trip_err": rt,
+           "launches_forward": fwd_launches,
+           "launches_inverse": inv_launches,
+           "slope_ms": slope_ms(fwd, x), "event_ms": timed(fwd, x),
+           "torch_fft_slope_ms": slope_ms(lib, x),
+           "torch_fft_event_ms": timed(lib, x)}
+    text = (f"slope {row['slope_ms']:.4f} ms (events "
+            f"{row['event_ms']:.4f}); {lib_name} slope "
+            f"{row['torch_fft_slope_ms']:.4f} (events "
+            f"{row['torch_fft_event_ms']:.4f})")
+    if twin_x is not None:
+        del x
+        twin = plans.plan_for(shape, device=dev)
+        row["c2c_twin"] = {"plan": twin.variant, "params": twin.params,
+                           "slope_ms": slope_ms(fft, twin_x),
+                           "event_ms": timed(fft, twin_x)}
+        text += (f"; c2c twin fft at n={n} ({twin.variant}) slope "
+                 f"{row['c2c_twin']['slope_ms']:.4f} (events "
+                 f"{row['c2c_twin']['event_ms']:.4f}), r2c / c2c "
+                 f"{row['slope_ms'] / row['c2c_twin']['slope_ms']:.3f}")
+    log(f"# phase 12 {label}: {text}")
+    return row
 
 
 def main() -> int:
@@ -892,7 +1117,10 @@ def run(store) -> int:
     launches.update(fourstep=large_launches["fourstep"],
                     sixstep=large_launches["sixstep"])
 
-    # phase 7: times (CUDA events, median of REPS, L2 flushed)
+    # phase 7: times per call — the loop slope (device time per call,
+    # no host work between calls, operands cold), and beside it the
+    # CUDA-event median of REPS calls with the L2 flushed (what a caller
+    # feels, the wrapper's host time in)
     def timed(fn, *args, before=None):
         return time_ms(fn, *args, reps=REPS, warmup=3, flush_l2=True,
                        before=before)[0]
@@ -905,24 +1133,31 @@ def run(store) -> int:
         # repo's 5 per element a level (GFLOP/s, and the bound's: a
         # kernel that rebuilds its twiddles does more than the transform
         # needs); bound_flops, where given, the float32 operations of the
-        # bound instead, and bf16_flops its tensor-core ones
-        ms = timed(kernel, *args)
+        # bound instead, and bf16_flops its tensor-core ones.  ms and the
+        # library's are loop slopes; the plain version's, the CUDA-event
+        # median of plain_reps calls (its slope would take minutes)
+        ms = slope_ms(kernel, *args)
+        event_ms = timed(kernel, *args)
         dev_ms = device_ms(kernel, *args)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0]
-        lib_ms = timed(*lib) if lib is not None else None
+        lib_ms = slope_ms(*lib) if lib is not None else None
+        lib_event_ms = timed(*lib) if lib is not None else None
         bms, by = bound_ms(nbytes, flops if bound_flops is None
                            else bound_flops, bf16_flops)
-        timings[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        timings[label] = {"ms": ms, "event_ms": event_ms,
+                          "device_ms": dev_ms, "plain_ms": plain_ms,
                           "plain_reps": plain_reps,
-                          "library_ms": lib_ms, "bytes": nbytes,
+                          "library_ms": lib_ms,
+                          "library_event_ms": lib_event_ms, "bytes": nbytes,
                           "bound_ms": bms, "bound_by": by,
                           "gflops": flops / (ms * 1e-3) / 1e9}
-        log(f"# phase 7 {label}: {ms:.4f} ms (device "
-            f"{ms_text(dev_ms)} ms, "
+        log(f"# phase 7 {label}: slope {ms:.4f} ms (events "
+            f"{event_ms:.4f}, device {ms_text(dev_ms)} ms, "
             f"{timings[label]['gflops']:.1f} GFLOP/s, plain "
-            f"{plain_ms:.4f}, library "
-            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'}, "
+            f"{plain_ms:.4f} (events), library slope "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f}'} (events "
+            f"{lib_event_ms if lib_ms is None else f'{lib_event_ms:.4f}'}), "
             f"bound {bms:.4f} by {by}, {nbytes} bytes)")
 
     for label, rows, tile in (("tile_fft(4096,4096)", 4096, 4096),
@@ -1011,29 +1246,42 @@ def run(store) -> int:
     paths = {}
 
     def path_row(label, fn, args, n, count, launches_per_call, lib,
-                 plain=None, variant=None, plain_reps=REPS, before=None):
-        ms = timed(fn, *args, before=before)
+                 plain=None, variant=None, plain_reps=REPS, consumes=False):
+        # consumes: fn writes over its planes; every timed call gets them
+        # back, untimed, as a Plan hands it fresh planes per call
+        before = None
+        if consumes:
+            src, args = args, tuple(a.clone() for a in args)
+
+            def before():
+                for a, b in zip(args, src):
+                    a.copy_(b)
+        ms = slope_ms(fn, *args, consumes=consumes)
+        event_ms = timed(fn, *args, before=before)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0] if plain is not None else None
-        lib_ms = timed(*lib)
+        lib_ms = slope_ms(*lib)
+        lib_event_ms = timed(*lib)
         nbytes = roofline.fft_min_hbm_bytes(n) * count
         flops = 5 * n * int(np.log2(n)) * count
         bms, by = bound_ms(nbytes, flops)
         ceiling = roofline.roofline_ceiling(
             roofline.plan_carry_passes(variant))
-        paths[label] = {"ms": ms, "plain_ms": plain_ms,
+        paths[label] = {"ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                         "plain_reps": plain_reps if plain else None,
-                        "library_ms": lib_ms, "bound_ms": bms,
+                        "library_ms": lib_ms,
+                        "library_event_ms": lib_event_ms, "bound_ms": bms,
                         "bound_by": by, "bytes": nbytes,
                         "launches_per_call": launches_per_call,
                         "carry_ceiling": ceiling,
                         "util": bms / ms,
                         "gflops": flops / (ms * 1e-3) / 1e9}
-        log(f"# phase 7 path {label}: {ms:.4f} ms, "
-            f"{paths[label]['gflops']:.1f} GFLOP/s (5 n log2 n), "
-            f"{launches_per_call} launches, plain "
-            f"{plain_ms if plain_ms is None else f'{plain_ms:.4f}'} ms, "
-            f"torch.fft {lib_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
+        log(f"# phase 7 path {label}: slope {ms:.4f} ms (events "
+            f"{event_ms:.4f}), {paths[label]['gflops']:.1f} GFLOP/s "
+            f"(5 n log2 n), {launches_per_call} launches, plain "
+            f"{plain_ms if plain_ms is None else f'{plain_ms:.4f}'} ms "
+            f"(events), torch.fft slope {lib_ms:.4f} ms (events "
+            f"{lib_event_ms:.4f}), bound {bms:.4f} ms by {by}, "
             f"{bms / ms:.3f} of bound (carry ceiling {ceiling})")
 
     def rql_plain(xr, xi):
@@ -1062,16 +1310,9 @@ def run(store) -> int:
             ("two-kernel", {"tile": T, "cb": cf.DEFAULT_CB}, 2,
              two_kernel_plain)):
         run = ladder.build_executor(key_pi, variant, params)
-        args, before = (x2r, x2i), None
-        if run.consumes_input:
-            args = (x2r.clone(), x2i.clone())
-
-            def before(a=args):
-                a[0].copy_(x2r)
-                a[1].copy_(x2i)
-        path_row(f"{variant} pi N=2^20 {params}", run, args, n2, 1,
+        path_row(f"{variant} pi N=2^20 {params}", run, (x2r, x2i), n2, 1,
                  launches_per_call, (torch.fft.fft, x2), plain, variant,
-                 before=before)
+                 consumes=run.consumes_input)
 
     # the plan lookup every fft call makes, on the host clock
     t0 = time.perf_counter()
@@ -1735,6 +1976,9 @@ def run(store) -> int:
                                  "storage_bytes": tuned16.storage_bytes(),
                                  "entries": race16}
 
+    # phase 12: the real and any-length domains
+    domains = phase_domains(dev, rng, timed)
+
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
@@ -1788,7 +2032,7 @@ def run(store) -> int:
                     "set_aside": set_aside, "lookup_us": lookup_us,
                     "kernel_checks": checks, "mf_path": mf_path,
                     "gpu_backend": gpu_backend, "hw_probe": hw,
-                    "bf16": bf16_path,
+                    "bf16": bf16_path, "domains": domains,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),
                               "winner_natural": tuned_nat.describe(),

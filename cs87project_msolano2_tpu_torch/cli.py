@@ -69,7 +69,9 @@ def plan_main(argv) -> int:
     ap.add_argument("--shapes", default=None, metavar="FILE",
                     help="warm a served shape set (not ported yet)")
     ap.add_argument("-n", type=_parse_n, default=1 << 20,
-                    help="transform length for warm (int or 2^k)")
+                    help="transform length for warm (int or 2^k; any "
+                         "n >= 1: n that is not a power of two warms "
+                         "the any-length ladder, natural layout only)")
     ap.add_argument("--ns", type=_parse_n, nargs="*",
                     default=[1 << 20, 1 << 22, 1 << 24, 1 << 25, 1 << 26],
                     help="sweep: transform lengths to tune (default: the "
@@ -83,6 +85,11 @@ def plan_main(argv) -> int:
                     help="precision mode to tune for (bf16: bf16 storage "
                          "on rows/rql/fourstep/sixstep, raced beside "
                          "split3)")
+    ap.add_argument("--domain", choices=("c2c", "r2c", "c2r"),
+                    default="c2c",
+                    help="warm: transform domain; the real domains "
+                         "(r2c/c2r) need --layout natural, and even n "
+                         "rides the c2c plan at n/2")
     ap.add_argument("--force", action="store_true",
                     help="warm/sweep: re-tune even on a cache hit")
     ap.add_argument("--backend", choices=("cuda", "gpu"), default=None,
@@ -163,7 +170,8 @@ def plan_main(argv) -> int:
     # warm
     try:
         key = plans.make_key(args.n, tuple(args.batch), layout=args.layout,
-                             precision=args.precision, backend=backend)
+                             precision=args.precision, domain=args.domain,
+                             backend=backend)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -177,8 +185,9 @@ def plan_main(argv) -> int:
         for r in e.results:
             print(f"  {r.variant} {r.params}: {r.reason}", file=sys.stderr)
         return 1
-    except (ValueError, NotImplementedError) as e:
-        # a key the port does not serve yet (real domains, any-length n)
+    except ValueError as e:
+        # a key no ladder entry serves: the gpu backend at an n that is
+        # not a power of two
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"warmed {key.token()}\n  -> {plan.describe()}")

@@ -20,9 +20,13 @@ follows the kernel for natural order); the static default takes it up to
 GPU_ROWS_STATIC_MAX_N on any device, and up to GPU_ROWS_MAX_N for a key
 that names a card, and ``gpu-stages`` for a larger natural-order key
 (or a longer one offline).  A pi-layout key that no ``gpu-rows`` serves
-raises.  Real domains and non-power-of-two n raise as the ``cuda``
-family does.  A key in bf16 mode gets what the reference's gpu family
-gives it: the same candidates and default, run in float32 (the gpu
+raises.  An even-n r2c or c2r key rides its half-length c2c subkey
+(``plans.ladder.c2c_subkey``), the executor wrapped in the pack and
+Hermitian passes of ``models.real``, as the reference's
+(hw/lowering.py:242-311); a key whose n (or whose half-length subkey's
+n) is not a power of two raises, as the reference's static default
+does (its any-length variants are the ``cuda`` family's).  A key in
+bf16 mode gets what the reference's gpu family gives it: the same candidates and default, run in float32 (the gpu
 family has no narrow storage, so ``Plan.storage_bytes`` charges 4
 bytes); the reference's ``cpu-native`` family is not ported
 (``plans.core`` refuses the backend).
@@ -113,17 +117,32 @@ def _nrows(key: PlanKey) -> int:
 def _check_key(key: PlanKey) -> None:
     # the precision mode is not checked: the gpu family serves every
     # mode in float32, as the reference's does
-    if key.domain != "c2c":
-        raise ValueError(f"domain {key.domain!r} is not ported yet")
-    if not is_power_of_two(key.n):
-        raise ValueError(f"backend={key.backend!r} serves power-of-two n "
-                         f"only; any-length n={key.n} is not ported yet")
+    if key.domain != "c2c" or not is_power_of_two(key.n):
+        raise ValueError(
+            f"backend={key.backend!r} serves power-of-two c2c (and the "
+            f"even real domains riding it) only; n={key.n} "
+            f"domain={key.domain!r} rides the cuda family's any-length "
+            f"variants")
+
+
+def _real_subkey(key: PlanKey):
+    """The half-length c2c subkey of an even-n real-domain key, else
+    None."""
+    if key.domain != "c2c" and key.n % 2 == 0:
+        from ..plans.ladder import c2c_subkey
+
+        return c2c_subkey(key)
+    return None
 
 
 def candidates(key: PlanKey) -> list:
     """The ordered (variant, params) race for a gpu key: gpu-rows with
     automatic blocking, then 8 rows a block where 8 divides the rows,
-    then the stage path for natural order."""
+    then the stage path for natural order; an even-n real-domain key
+    races its half-length c2c subkey's entries."""
+    sub = _real_subkey(key)
+    if sub is not None:
+        return candidates(sub)
     _check_key(key)
     cands = []
     if 2 <= key.n <= GPU_ROWS_MAX_N:
@@ -139,7 +158,11 @@ def static_default(key: PlanKey):
     """(variant, params) for a gpu key when nothing is tuned or stored:
     gpu-rows for n up to GPU_ROWS_STATIC_MAX_N, up to GPU_ROWS_MAX_N for
     a key naming a card, and for every pi-layout key (which raises past
-    GPU_ROWS_MAX_N: no gpu rung serves it); gpu-stages otherwise."""
+    GPU_ROWS_MAX_N: no gpu rung serves it); gpu-stages otherwise.  An
+    even-n real-domain key takes its half-length c2c subkey's."""
+    sub = _real_subkey(key)
+    if sub is not None:
+        return static_default(sub)
     _check_key(key)
     small = 2 <= key.n <= GPU_ROWS_STATIC_MAX_N
     large_ok = (2 <= key.n <= GPU_ROWS_MAX_N
@@ -157,7 +180,14 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     """The (xr, xi) -> (yr, yi) executor for one gpu ladder entry.
     Raises ValueError for an unknown variant and for a block_rows the
     kernel cannot take, before anything launches (the tuner records
-    those as rejections)."""
+    those as rejections).  An even-n real-domain key wraps the
+    half-length c2c executor of the same entry."""
+    sub = _real_subkey(key)
+    if sub is not None:
+        from ..models import real
+
+        return real.real_executor(build_executor(sub, variant, params),
+                                  key.domain, key.n)
     _check_key(key)
     natural = key.layout == "natural"
     if variant == "gpu-stages":

@@ -3,7 +3,10 @@ complex64 out, natural frequency order) — the reference's
 ``models/fft.py`` with a ``device=`` argument.
 
 Dispatch goes through the plan layer: ``plans.plan_for(shape)`` picks
-the kernel path for the shape and ``plan.execute`` runs it.  The
+the kernel path for the shape and ``plan.execute`` runs it; at an n that
+is not a power of two the plan is one of the any-length variants
+(``ops.anylen``).  Real input has a cheaper door, ``models.real``
+(``rfft``/``irfft``), which moves half the bytes.  The
 bit-reversal gather stays at the API boundary.  Numpy input goes to
 ``device`` (the card by default; ``device="cpu"`` runs the plain
 versions); tensor input runs where it lies.

@@ -16,8 +16,9 @@ reused (the reference's ``plans/`` package).
 
 Consumer entry points:
 
-    plan(n).execute(xr, xi)            # 1-D transform
+    plan(n).execute(xr, xi)            # 1-D transform, any n >= 1
     plan_for(shape).execute(xr, xi)    # batched rows over the trailing axis
+    plan_for(shape, domain="r2c")      # real input, half-spectrum out
     plan_for(shape, backend="gpu")     # the gpu backend (hw.lowering)
     tune(key)                          # explicit tuning race (card only)
 
@@ -90,6 +91,21 @@ def get_plan(key: PlanKey, device: str = "cuda") -> Plan:
     # a static plan memoized before the opt-in must not veto it
     if hit is not None and not opt_in:
         return hit
+    if key.domain != "c2c" and key.n % 2 == 0:
+        # an even-n real key rides the c2c plan at n/2: resolved through
+        # this same path, so a tuned or stored c2c winner (or the
+        # opted-in race, which then serves every c2c caller too) carries
+        # over, the pack and Hermitian passes added by the ladder's
+        # executor.  ms is not copied: the inner time is not the real
+        # path's.  Odd n resolves below, on the any-length ladder
+        from . import ladder
+
+        inner = get_plan(ladder.c2c_subkey(key), device)
+        plan = Plan(key=key, variant=inner.variant,
+                    params=dict(inner.params), source=inner.source,
+                    device=str(device))
+        cache.memoize(plan)
+        return plan
     if opt_in:
         try:
             return tune(key, device=device)
@@ -137,7 +153,9 @@ def plan_for(shape, layout: str = "natural",
              precision: str | None = None, domain: str = "c2c",
              device="cuda", backend: str = "cuda") -> Plan:
     """Plan for float-plane arrays of `shape` (trailing axis = transform
-    length, leading axes = batch)."""
+    length, leading axes = batch).  For every domain the shape is the
+    signal side's: a c2r plan's executor takes half-spectrum planes, but
+    its key's n is the real length."""
     shape = tuple(shape)
     return plan(shape[-1], shape[:-1], layout, precision, domain=domain,
                 device=device, backend=backend)

@@ -76,7 +76,11 @@ class PlanKey:
     layout: "natural" (frequency order; the gather rides inside the
     plan) or "pi" (per-transform bit-reversed, the kernel-native order).
     precision: the storage/accumulate mode and its error budget
-    (ops.precision).  domain: "c2c", or the real domains "r2c"/"c2r".
+    (ops.precision).  domain: "c2c", "r2c" (real planes of length n in,
+    half-spectrum planes of length n//2+1 out) or "c2r" (the inverse);
+    n is the real-side length in every domain.  The real domains take
+    natural layout only (the half-spectrum has no pi order) and n >= 2;
+    even n rides the c2c plan at n/2, odd n the any-length path.
     backend: the lowering family — "cuda" (the default) or "gpu"; keys
     of the two differ in their tokens, so a winner raced under one never
     serves the other.
@@ -109,11 +113,25 @@ class PlanKey:
             raise ValueError(
                 f"layout='pi' requires a power-of-two n (bit-reversed "
                 f"order is undefined otherwise), got n={self.n}")
+        if self.domain != "c2c":
+            if self.layout != "natural":
+                raise ValueError(
+                    f"domain={self.domain!r} requires natural layout "
+                    f"(the half-spectrum has no pi order)")
+            if self.n < 2:
+                raise ValueError(
+                    f"domain={self.domain!r} requires n >= 2, got "
+                    f"n={self.n}")
 
     def input_shape(self) -> tuple:
-        """The float-plane shape this key's executor consumes (c2c, the
-        one domain the port serves)."""
-        return self.batch + (self.n,)
+        """The float-plane shape this key's executor consumes: the
+        signal planes for c2c and r2c, the half-spectrum for c2r."""
+        width = self.n // 2 + 1 if self.domain == "c2r" else self.n
+        return self.batch + (width,)
+
+    def output_width(self) -> int:
+        """Trailing-axis length of this key's executor output."""
+        return self.n // 2 + 1 if self.domain == "r2c" else self.n
 
     def token(self) -> str:
         """Canonical serialized form: the disk store's dictionary key."""
@@ -236,7 +254,14 @@ class Plan:
         return self.fn(xr, xi)
 
     def execute_inverse(self, xr, xi):
-        """Inverse via the conj trick (natural layout, c2c only)."""
+        """Inverse via the conj trick (natural layout, c2c only: the real
+        domains are directional, the inverse of an r2c plan is a c2r
+        plan for the same n)."""
+        if self.key.domain != "c2c":
+            raise ValueError(
+                f"execute_inverse is a c2c conj trick; a "
+                f"{self.key.domain} plan is already directional — plan "
+                f"the opposite domain instead")
         if self.key.layout != "natural":
             raise ValueError("inverse requires a natural-layout plan")
         xr, xi = self._planes(xr, xi, None, both=False)

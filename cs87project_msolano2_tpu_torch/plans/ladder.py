@@ -37,6 +37,16 @@ Variants (the reference's names):
                ``R`` (default 128) and ``cb``.  fp32 storage only.  Served
                to a Plan built with it, as the reference's research
                variant: never raced, never the static default.
+* ``bluestein`` / ``rader`` / ``mixedradix`` — ops.anylen: any n that
+               is not a power of two, around power-of-two c2c subplans
+               resolved through this ladder (``pad`` a raced parameter of
+               the first two).  Natural order only.
+
+The real domains (the reference's ``c2c_subkey``, its ladder.py:93):
+an even-n r2c or c2r key races, defaults to and builds the entries of
+the half-length c2c key, the executor wrapped in the pack and
+Hermitian passes of ``models.real``; an odd-n one takes the any-length
+entries directly.
 
 Precision is a raced axis, as in the reference (its ladder.py:245-251):
 a key whose mode has race alternates (``precision.race_modes``: bf16
@@ -86,12 +96,10 @@ from ..ops.cuda_fft import (
     sixstep_auto_split,
     sixstep_blocking,
 )
+from ..ops import anylen
 from ..ops.precision import race_modes, storage_dtype
 from .core import PlanKey
 
-#: variants of the reference's ladder with no port yet: the any-length
-#: family (its ladder.py:267-345), which comes with the any-length slice
-UNPORTED = ("bluestein", "rader", "mixedradix")
 #: variants whose executor writes its result over its input planes (in
 #: float32 storage: in bf16 it writes over the rounded copy it made)
 CONSUMES_INPUT = ("fused-alias",)
@@ -132,13 +140,16 @@ def _nrows(key: PlanKey) -> int:
     return math.prod(key.batch) or 1
 
 
-def _check_ported(key: PlanKey) -> None:
-    storage_dtype(key.precision)
-    if key.domain != "c2c":
-        raise ValueError(f"domain {key.domain!r} is not ported yet")
-    if not is_power_of_two(key.n):
-        raise ValueError(f"any-length n={key.n} (variants bluestein/"
-                         f"rader/mixedradix) is not ported yet")
+def c2c_subkey(key: PlanKey) -> PlanKey:
+    """The half-length natural-order c2c key an EVEN-n r2c/c2r key rides:
+    the pack trick turns a length-n real transform into one c2c
+    transform at n/2, so candidates, static defaults and executors of
+    the even real domains delegate here.  Odd n has no even/odd split
+    and takes the any-length path (ops.anylen) instead."""
+    import dataclasses
+
+    return dataclasses.replace(key, n=key.n // 2, layout="natural",
+                               domain="c2c")
 
 
 def _fourstep_feasible(n: int) -> bool:
@@ -225,8 +236,10 @@ def candidates(key: PlanKey) -> list:
     so a surprise win is still caught; between the crossovers the
     fourstep entries lead and sixstep rides at the end; from
     SIXSTEP_MIN_N the sixstep entries lead and the fused and fourstep
-    entries drop out.  Keys the port does not serve yet (real domains,
-    any-length n) raise as ``static_default`` does.  The precision race
+    entries drop out.  An even-n real-domain key races its half-length
+    c2c subkey's entries (``build_executor`` wraps them, so the race
+    times the real path); a key whose n is not a power of two races the
+    any-length entries (``_anylen_candidates``).  The precision race
     axis (the reference's ladder.py:245-251): where ``race_modes`` of
     the key's mode has more than one mode (bf16: bf16 then split3),
     every entry is raced once per mode, the mode pinned in
@@ -235,16 +248,45 @@ def candidates(key: PlanKey) -> list:
         from ..hw import lowering
 
         return lowering.candidates(key)
-    _check_ported(key)
-    cands = _base_candidates(key)
+    storage_dtype(key.precision)
+    if key.domain != "c2c" and key.n % 2 == 0:
+        return candidates(c2c_subkey(key))
+    if key.domain != "c2c":
+        cands = _anylen_candidates(key)  # odd-n real: the direct path
+    else:
+        cands = _base_candidates(key)
     modes = race_modes(key.precision)
     if len(modes) > 1:
         cands = [(v, dict(p, precision=m)) for m in modes for v, p in cands]
     return cands
 
 
+def _anylen_candidates(key: PlanKey) -> list:
+    """The any-length race for a key whose n is not a power of two (the
+    reference's ladder.py:254): the statically routed variant leads (its
+    pads cheapest first), and the Bluestein entries at every feasible
+    pad always ride, so the race can catch a routing miss.  Each entry's
+    subtransforms resolve through this ladder (pads have odd part 1, 3
+    or 5, so the recursion is one level deep)."""
+    if key.layout != "natural":
+        return []
+    n = key.n
+    best = anylen.plan_variant(n)
+    cands = []
+    if best == "rader":
+        cands += [("rader", {"pad": p})
+                  for p in anylen.pad_candidates(n - 1)]
+    elif best == "mixedradix":
+        cands.append(("mixedradix", {}))
+    cands += [("bluestein", {"pad": p}) for p in anylen.pad_candidates(n)]
+    return cands
+
+
 def _base_candidates(key: PlanKey) -> list:
-    """The variant/parameter race for a c2c power-of-two key."""
+    """The variant/parameter race for a c2c key, before the precision
+    axis is expanded."""
+    if not is_power_of_two(key.n):
+        return _anylen_candidates(key)
     cands = []
     if rows_plan_feasible(_nrows(key), key.n):
         # the reference races two tails here; the port has one row path
@@ -281,13 +323,29 @@ def static_default(key: PlanKey):
     from SIXSTEP_MIN_N, ``fourstep`` from FOURSTEP_MIN_N, and ``rql``
     below that or where neither is feasible; the stage path elsewhere
     (natural order only).  Never a raced-only variant (fused,
-    two-kernel): those serve a key only once a race chose them.  gpu keys
-    take ``hw.lowering.static_default``."""
+    two-kernel): those serve a key only once a race chose them.  An
+    even-n real-domain key takes its half-length c2c subkey's default;
+    an n that is not a power of two takes ``anylen.plan_variant``'s
+    variant at the cheapest pad, and refuses pi layout.  gpu keys take
+    ``hw.lowering.static_default``."""
     if key.backend == "gpu":
         from ..hw import lowering
 
         return lowering.static_default(key)
-    _check_ported(key)
+    storage_dtype(key.precision)
+    if key.domain != "c2c" and key.n % 2 == 0:
+        return static_default(c2c_subkey(key))
+    if not is_power_of_two(key.n):
+        if key.layout != "natural":
+            raise ValueError(
+                f"layout='pi' requires a power-of-two n (bit-reversed "
+                f"order is undefined otherwise), got n={key.n}")
+        best = anylen.plan_variant(key.n)
+        if best == "rader":
+            return "rader", {"pad": anylen.default_pad(key.n - 1)}
+        if best == "mixedradix":
+            return "mixedradix", {}
+        return "bluestein", {"pad": anylen.default_pad(key.n)}
     if rows_plan_feasible(_nrows(key), key.n):
         return "rows", {}
     if key.batch == () and key.n > MAX_ROW_TILE:
@@ -311,9 +369,12 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     """The (xr, xi) -> (yr, yi) executor for one ladder entry, serving
     ``params["precision"]`` where a race pinned it, else the key's mode
     (the reference's l.460), on that mode's storage.  Raises ValueError
-    for unported variants, for a bf16 ``mf`` entry (the reference's
+    for an unknown variant, for a bf16 ``mf`` entry (the reference's
     refusal), and for infeasible tile/cb/qb/R before anything launches
-    (the tuner records those as rejections).  gpu keys build
+    (the tuner records those as rejections).  An even-n real-domain key
+    wraps the half-length c2c executor of the same entry in the pack and
+    Hermitian passes (``models.real``); odd-n real keys and the
+    any-length variants build in ``ops.anylen``.  gpu keys build
     through ``hw.lowering.build_executor``."""
     from ..ops import cuda_fft
     from ..ops.bits import to_natural
@@ -321,7 +382,17 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         from ..hw import lowering
 
         return lowering.build_executor(key, variant, params)
-    _check_ported(key)
+    storage_dtype(key.precision)
+    if key.domain != "c2c" and key.n % 2:
+        return anylen.build_anylen_executor(key, variant, params)
+    if key.domain != "c2c":
+        from ..models import real
+
+        return real.real_executor(
+            build_executor(c2c_subkey(key), variant, params), key.domain,
+            key.n)
+    if variant in anylen.ANYLEN_VARIANTS:
+        return anylen.build_anylen_executor(key, variant, params)
     mode = params.get("precision") or key.precision
     storage = storage_dtype(mode)
     if variant == "mf":
@@ -329,8 +400,6 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         # rejection
         cuda_fft.check_mf_storage(mode)
     natural = key.layout == "natural"
-    if variant in UNPORTED:
-        raise ValueError(f"variant {variant!r} not ported yet")
     if variant == "stages":
         if not natural:
             raise ValueError("the stage path only produces natural order")

@@ -24,16 +24,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def as_planes(xr, xi, device=None):
-    """Float32 contiguous (xr, xi) tensors.  Numpy input goes to
-    ``resolve_device(device)``; tensors stay on their own device unless
+def as_plane(a, device=None):
+    """A float32 contiguous tensor.  Numpy input goes to
+    ``resolve_device(device)``; a tensor stays on its own device unless
     `device` names another."""
-    def one(a):
-        if isinstance(a, torch.Tensor):
-            dev = a.device if device is None else resolve_device(device)
-            return a.to(device=dev, dtype=torch.float32).contiguous()
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.float32)
-        ).to(resolve_device(device))
+    if isinstance(a, torch.Tensor):
+        dev = a.device if device is None else resolve_device(device)
+        return a.to(device=dev, dtype=torch.float32).contiguous()
+    return torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32)
+    ).to(resolve_device(device))
 
-    return one(xr), one(xi)
+
+def as_planes(xr, xi, device=None):
+    """``as_plane`` of each of (xr, xi)."""
+    return as_plane(xr, device), as_plane(xi, device)

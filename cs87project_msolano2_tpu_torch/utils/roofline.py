@@ -125,12 +125,15 @@ def fft_min_hbm_bytes(n: int, domain: str = "c2c",
 
 
 def fft_hbm_bytes(n: int, carry_passes: int = 0, domain: str = "c2c",
-                  storage_bytes: int = 4) -> int:
+                  storage_bytes: int = 4, pad_n: Optional[int] = None) -> int:
     """The traffic of an n-point transform with `carry_passes`
     materialized intermediates: the floor plus one full write+read round
-    trip of the planes per carry pass."""
-    floor = fft_min_hbm_bytes(n, domain, storage_bytes)
-    return floor + carry_passes * floor
+    trip of the planes per carry pass.  An any-length plan's carries
+    live at its padded length: pass its ``params["pad"]`` as `pad_n` and
+    each carry is charged at the pad, the floor always at n."""
+    carry_unit = fft_min_hbm_bytes(pad_n or n, domain, storage_bytes)
+    return fft_min_hbm_bytes(n, domain, storage_bytes) \
+        + carry_passes * carry_unit
 
 
 def roofline_ceiling(carry_passes: Optional[int]) -> Optional[float]:

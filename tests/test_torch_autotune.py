@@ -561,10 +561,17 @@ def test_candidates_refuse_unported_keys():
     assert {p["precision"] for _, p in
             ladder.candidates(tuned_key(precision="bf16"))} == {"bf16",
                                                                 "split3"}
-    with pytest.raises(ValueError, match="not ported yet"):
-        ladder.candidates(tuned_key(domain="r2c", layout="natural"))
-    with pytest.raises(ValueError, match="not ported yet"):
-        ladder.candidates(tuned_key(n=1000, layout="natural"))
+    # so are the real domains (the half-length c2c race) and any-length
+    # n (the any-length race); a pi-layout any-length key has no entry
+    r2c = tuned_key(domain="r2c", layout="natural")
+    assert ladder.candidates(r2c) == ladder.candidates(
+        ladder.c2c_subkey(r2c))
+    assert [v for v, _ in ladder.candidates(
+        tuned_key(n=1000, layout="natural"))] == ["mixedradix",
+                                                  "bluestein"]
+    assert ladder.candidates(tuned_key(n=1000, layout="natural",
+                                       domain="c2r")) == \
+        ladder.candidates(tuned_key(n=500, layout="natural"))
 
 
 # ----------------------------------------------------- fault taxonomy
@@ -647,12 +654,12 @@ def test_cli_plan_shapes_waits_for_the_serve_slice(capsys):
 
 def test_cli_plan_warm_refuses_unported_keys(capsys, monkeypatch,
                                             card_is_tunable):
-    # bf16 keys are served now (tests/test_torch_bf16.py warms one); an
-    # any-length n is still refused
+    # bf16 keys are served now (tests/test_torch_bf16.py warms one), and
+    # any-length n on the cuda backend; the gpu backend still refuses it
     monkeypatch.setattr(plans, "current_device_kind", lambda device: CARD)
     assert cli_main(["plan", "warm", "-n", "1000", "--layout",
-                     "natural"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+                     "natural", "--backend", "gpu"]) == 2
+    assert "power-of-two" in capsys.readouterr().err
 
 
 def test_plan_describe():

@@ -327,9 +327,16 @@ def test_launch_counts_cover_every_kernel():
 
 
 def test_only_mf_is_unported():
-    # mf is served since the matmul funnel's kernel: what stays unported
-    # is the any-length family, which waits for its own slice
-    assert ladder.UNPORTED == ("bluestein", "rader", "mixedradix")
+    # mf is served since the matmul funnel's kernel, and the any-length
+    # family since its own slice: every variant of the reference's
+    # ladder builds
+    from cs87project_msolano2_tpu_torch.ops.anylen import ANYLEN_VARIANTS
+
+    assert ANYLEN_VARIANTS == ("bluestein", "rader", "mixedradix")
+    for variant in ANYLEN_VARIANTS:
+        assert callable(ladder.build_executor(
+            plans.make_key(8191 if variant == "rader" else 1000,
+                           device="cpu"), variant, {}))
     key = plans.make_key(1 << 20, device="cpu")
     for variant, params in (("fused", {"tile": 1 << 14, "qb": 2}),
                             ("fused-alias", {"tile": 1 << 14, "qb": 1}),

@@ -208,8 +208,13 @@ def test_non_pow2_and_unported_keys_raise():
         ladder.candidates(gpu_key(100, layout="natural"))
     with pytest.raises(ValueError, match="power-of-two"):
         ladder.static_default(gpu_key(100, layout="natural"))
-    with pytest.raises(ValueError, match="not ported yet"):
-        ladder.static_default(gpu_key(512, layout="natural", domain="r2c"))
+    # an even-n real key rides the half-length c2c subkey; odd n has no
+    # gpu rung
+    assert ladder.static_default(gpu_key(512, layout="natural",
+                                         domain="r2c")) == \
+        ladder.static_default(gpu_key(256, layout="natural"))
+    with pytest.raises(ValueError, match="power-of-two"):
+        ladder.static_default(gpu_key(511, layout="natural", domain="r2c"))
     # a bf16 gpu key is served as the reference serves it: float32
     # gpu-rows (tests/test_torch_bf16.py compares the two packages)
     assert ladder.candidates(gpu_key(256, precision="bf16")) == \

@@ -375,7 +375,7 @@ def test_mf_is_never_raced_or_static(n):
     key = plans.make_key(n, layout="pi", device="cpu")
     assert all(v != "mf" for v, _ in ladder.candidates(key))
     assert ladder.static_default(key)[0] != "mf"
-    assert "mf" not in ladder.UNPORTED
+    assert "mf" not in ladder.anylen.ANYLEN_VARIANTS
 
 
 def _phase9_planes(n):

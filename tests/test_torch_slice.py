@@ -227,10 +227,12 @@ def test_over_budget_plan_params_raise_at_build(params):
         ladder.build_executor(key, "rql", params)
 
 
-@pytest.mark.parametrize("variant", ladder.UNPORTED)
+@pytest.mark.parametrize("variant", ("bluestein", "rader", "mixedradix"))
 def test_unported_variants_raise(variant):
-    key = plans.make_key(1 << 20, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
+    # the any-length variants are served since their slice: what they
+    # still refuse is pi layout, which a power-of-two n alone has
+    key = plans.make_key(1 << 20, layout="pi", device="cpu")
+    with pytest.raises(ValueError, match="natural order only"):
         ladder.build_executor(key, variant, {})
 
 
@@ -238,10 +240,14 @@ def test_unported_keys_raise():
     # bf16 storage is served now, on the rows kernel's bf16 instantiation
     assert plans.plan(1024, precision="bf16",
                       device="cpu").storage_bytes() == 2
-    with pytest.raises(ValueError, match="not ported yet"):
-        plans.plan(1000, device="cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        plans.plan(1024, domain="r2c", device="cpu")
+    # so are any-length n and the real domains (tests/test_torch_anylen.py,
+    # tests/test_torch_real.py)
+    assert plans.plan(1000, device="cpu").variant == "mixedradix"
+    assert plans.plan(1024, domain="r2c", device="cpu").variant == "rows"
+    with pytest.raises(ValueError, match="power-of-two"):
+        plans.plan(1000, layout="pi", device="cpu")
+    with pytest.raises(ValueError, match="natural layout"):
+        plans.plan(1024, layout="pi", domain="r2c", device="cpu")
     with pytest.raises(ValueError):
         plans.make_key(1024, backend="tpu")
 
