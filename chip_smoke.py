@@ -69,7 +69,27 @@ kernel's time three ways: the loop slope (device time per call, the
 ``ms`` of the kernels line), CUDA events around the call (the wrapper's
 host time included, as a caller sees it) and the card's time per call
 from ``torch.profiler`` (``device_ms``, the kernels alone: each
-kernel's mean time a launch times its launches in one call).  The last line of
+kernel's mean time a launch times its launches in one call).  After
+phase 12 it checks that no plan of phases 4-12 demoted (the demotion
+counter empty, no memoized plan ``degraded``), then drives the
+resilience layer (phase 13, no CUDA graph in any case: one injected
+capacity fault at the ``tube`` site takes the 2^24 fourstep plan to
+``rql`` and the 2^25 sixstep plan to ``fourstep``, each within 1e-5 of
+numpy, the counter showing the rung's kernels and not the dead one's; a
+transient fault at ``plan`` retried by ``call_with_retry``, not
+demoted; ``promote_precision`` moving a bf16 plan at 2^20 to
+``default``; the bench's chaos run, ``PIFFT_FAULT=tube:capacity:1.0:1``
+``bench --smoke`` in a subprocess, exit 0, degraded, the flagship on
+``rql``: on the card the chain ends at rql and never serves a library
+call) and the measurement entries (phase 14: ``bench.main([])`` at full
+size on phase 8's plan store, each key the store lacks raced first as
+the reference races the keys its cache lacks, its record printed on its
+own line, every
+row present and none degraded, the 2^26 rows' plans checked once
+against torch.fft in complex128; then the harness's (n, p) sweep on the
+``cuda`` backend over n in {2^16, 2^20, 2^24} and p in {1, 4, 16, 64,
+256}, 3 reps, and its verify pass, the TSV printed, no row DEGRADED).
+The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
@@ -248,40 +268,17 @@ def random_complex(rng, shape, device, n=None):
 
 def slope_ms(fn, *args, consumes=False):
     """Per-call ms of ``fn(*args)`` by the loop slope
-    (``utils.timing.loop_slope_ms``: k calls in one CUDA graph, device
-    time per call with no host work between calls) over the reference's
+    (``utils.timing.slope_ms``: k calls in one CUDA graph, device time
+    per call with no host work between calls) over the reference's
     windows, the calls rotating over copies of the tensor arguments, as
     many as keep the L2 from serving a call (``rotation_copies``), as
     the race times a candidate.  `consumes`: fn writes over its tensor
     arguments, so every copy gets them back before each timed run."""
-    import torch
-
-    from cs87project_msolano2_tpu_torch.hw.inventory import l2_bytes
     from cs87project_msolano2_tpu_torch.utils.timing import (
-        loop_slope_ms,
-        rotation_copies,
-        slope_window,
+        slope_ms as rotated_slope_ms,
     )
 
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    copies = rotation_copies(nbytes, l2_bytes(tensors[0].device))
-
-    def copy():
-        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                     for a in args)
-
-    sets = [copy() for _ in range(copies)] if consumes \
-        else [args] + [copy() for _ in range(copies - 1)]
-    before = None
-    if consumes:
-        def before():
-            for s in sets:
-                for a, b in zip(s, args):
-                    if isinstance(a, torch.Tensor):
-                        a.copy_(b)
-    elements = max(t.numel() for t in tensors)
-    return loop_slope_ms(fn, sets, *slope_window(elements), before=before)
+    return rotated_slope_ms(fn, *args, consumes=consumes)
 
 
 def domain_subplan(plan):
@@ -433,6 +430,335 @@ def domain_case(dev, rng, timed, label, domain, shape, want, want_launches):
                  f"{row['slope_ms'] / row['c2c_twin']['slope_ms']:.3f}")
     log(f"# phase 12 {label}: {text}")
     return row
+
+
+def no_demotions(where):
+    """Raise unless no plan of this process has demoted: the demotion
+    counter is empty and no memoized plan reports ``degraded``."""
+    from cs87project_msolano2_tpu_torch.plans import cache
+    from cs87project_msolano2_tpu_torch.resilience import DEMOTION_STATS
+
+    degraded = [p.key.token() for p in list(cache._MEM.values())
+                if p.degraded]
+    log(f"# {where}: demotions {dict(DEMOTION_STATS)}, degraded plans "
+        f"{degraded}")
+    if DEMOTION_STATS or degraded:
+        raise AssertionError(f"{where}: a plan demoted: "
+                             f"{dict(DEMOTION_STATS)} {degraded}")
+
+
+def numpy_rel_l2(yr, yi, x):
+    """rel L2 of planes (yr, yi) against numpy's FFT of the complex
+    tensor x in complex128."""
+    ref = np.fft.fft(x.cpu().numpy().astype(np.complex128))
+    got = yr.cpu().numpy().astype(np.float64) \
+        + 1j * yi.cpu().numpy().astype(np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def demoted_case(dev, rng, k, was, to, absent):
+    """Phase 13, cases 1 and 2: the static natural-order plan at n = 2^k
+    (`was`) under one injected CAPACITY fault at the ``tube`` site
+    lands on `to`: its record reads ``was -> to``, the kernels of `to`
+    launch and `absent` does not, the result stays within PATH_TOL of
+    numpy."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.resilience import inject
+
+    n = 1 << k
+    xr, xi = random_complex(rng, (n,), dev)
+    plan = plans.plan_for((n,), device=dev)
+    if plan.variant != was:
+        raise AssertionError(f"n=2^{k} planned {plan.variant}, not {was}")
+    cf.reset_launch_counts()
+    with inject("tube", "capacity", count=1) as spec:
+        yr, yi = plan.execute(xr, xi)
+        torch.cuda.synchronize()
+    launched = {k2: v for k2, v in cf.launch_counts().items() if v}
+    err = numpy_rel_l2(yr, yi, torch.complex(xr, xi))
+    trail = [(d["from"], d["to"]) for d in plan.demotions]
+    log(f"# phase 13 tube capacity fault n=2^{k} natural: fired "
+        f"{spec.fired}, degraded {plan.degraded}, demotions "
+        f"{json.dumps(plan.demotions)}, launches {launched}, rel L2 "
+        f"{err:.3e} vs numpy (bound {PATH_TOL})")
+    want = {"rql": ("long_range_sep", "tile_fft"),
+            "fourstep": ("fourstep",)}[to]
+    if not (spec.fired == 1 and plan.degraded and trail == [(was, to)]
+            and all(launched.get(w) for w in want)
+            and not launched.get(absent) and err <= PATH_TOL
+            and yr.shape == (n,) and bool(torch.isfinite(yr).all())):
+        raise AssertionError(f"phase 13 n=2^{k} {was} -> {to} failed")
+    return {"demotions": plan.demotions, "launches": launched,
+            "rel_l2": err}
+
+
+def phase_resilience(dev, rng):
+    """Phase 13: the resilience layer on the card, no CUDA graph in any
+    case, the plans the static ladder's (store off).  (1) 2^24 natural,
+    one capacity fault at ``tube``: fourstep -> rql; (2) 2^25: sixstep
+    -> fourstep; (3) one transient fault at ``plan`` under
+    ``call_with_retry(FAST_POLICY)``: retried, not demoted; (4)
+    ``promote_precision`` on a bf16 plan at 2^20 (pi), its budget set to
+    0 by ``PIFFT_PRECISION_BUDGET``: promoted to ``default``, the next
+    call launches tile_fft and not tile_fft_bf16; (5) the bench's chaos
+    run, ``PIFFT_FAULT=tube:capacity:1.0:1 python -m
+    cs87project_msolano2_tpu_torch.bench --smoke`` in a subprocess:
+    exit 0, ``degraded: true``, the flagship's plan demoted onto
+    ``rql`` and no library rung anywhere.  The fault fires once: on the
+    card the chain ends at rql, so a fault at every kernel entry would
+    leave nothing to serve.
+    Returns the cases' records; raises on any failure."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.ops.bits import to_natural
+    from cs87project_msolano2_tpu_torch.ops.precision import (
+        BUDGET_ENV,
+        error_budget,
+    )
+    from cs87project_msolano2_tpu_torch.resilience import (
+        FAST_POLICY,
+        call_with_retry,
+        inject,
+        promote_precision,
+    )
+    from cs87project_msolano2_tpu_torch.resilience.degrade import (
+        LIBRARY_RUNGS,
+    )
+
+    store = os.environ.get("PIFFT_PLAN_CACHE")
+    os.environ["PIFFT_PLAN_CACHE"] = "off"
+    plans.cache.clear(memory=True)
+    rows = {}
+    try:
+        rows["fourstep_to_rql_2^24"] = demoted_case(
+            dev, rng, 24, "fourstep", "rql", "fourstep")
+        rows["sixstep_to_fourstep_2^25"] = demoted_case(
+            dev, rng, 25, "sixstep", "fourstep", "sixstep")
+
+        n = 1 << 20
+        xr, xi = random_complex(rng, (n,), dev)
+        plan = plans.plan_for((n,), device=dev)
+        with inject("plan", "transient", count=1) as spec:
+            yr, yi = call_with_retry(plan.execute, xr, xi,
+                                     policy=FAST_POLICY,
+                                     label="phase 13 transient")
+        err = numpy_rel_l2(yr, yi, torch.complex(xr, xi))
+        log(f"# phase 13 transient fault at plan, N=2^20 {plan.variant}: "
+            f"fired {spec.fired}, degraded {plan.degraded}, rel L2 "
+            f"{err:.3e}")
+        if not (spec.fired == 1 and not plan.degraded and err <= PATH_TOL):
+            raise AssertionError("phase 13 transient retry failed")
+        rows["transient_retried_2^20"] = {"fired": spec.fired,
+                                          "plan": plan.variant,
+                                          "rel_l2": err}
+
+        pl16 = plans.plan_for((n,), layout="pi", precision="bf16",
+                              device=dev)
+        cf.reset_launch_counts()
+        yr, yi = pl16.execute(xr, xi)
+        before = {k: v for k, v in cf.launch_counts().items() if v}
+        x = torch.complex(xr, xi)
+        err16 = numpy_rel_l2(*to_natural(yr, yi), x)
+        os.environ[BUDGET_ENV] = "0"
+        try:
+            budget = error_budget(pl16.effective_precision())
+        finally:
+            os.environ.pop(BUDGET_ENV)
+        mode = promote_precision(pl16, err16, budget) \
+            if err16 > budget else None
+        cf.reset_launch_counts()
+        yr, yi = pl16.execute(xr, xi)
+        torch.cuda.synchronize()
+        after = {k: v for k, v in cf.launch_counts().items() if v}
+        err_up = numpy_rel_l2(*to_natural(yr, yi), x)
+        log(f"# phase 13 promote_precision bf16 N=2^20 pi "
+            f"({pl16.variant}): rel L2 {err16:.3e} > budget {budget} "
+            f"(PIFFT_PRECISION_BUDGET=0) -> {mode}; demotions "
+            f"{json.dumps(pl16.demotions)}; launches before {before}, "
+            f"after {after}; rel L2 after {err_up:.3e}")
+        if not (mode == "default" and pl16.degraded
+                and before.get("tile_fft_bf16")
+                and after.get("tile_fft") and not after.get("tile_fft_bf16")
+                and err_up <= PATH_TOL):
+            raise AssertionError("phase 13 promote_precision failed")
+        rows["promote_bf16_2^20"] = {"demotions": pl16.demotions,
+                                     "launches_before": before,
+                                     "launches_after": after,
+                                     "rel_l2_before": err16,
+                                     "rel_l2_after": err_up}
+        del xr, xi, x, yr, yi
+
+        env = dict(os.environ, PIFFT_FAULT="tube:capacity:1.0:1",
+                   PIFFT_PLAN_CACHE="off")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cs87project_msolano2_tpu_torch.bench",
+             "--smoke"], capture_output=True, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+        chaos_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        rec = json.loads(lines[-1]) if proc.returncode == 0 and lines \
+            else {}
+        demotions = rec.get("plan", {}).get("demotions")
+        rungs = [d["to"] for d in demotions or []] + [
+            d["to"] for k, v in rec.items() if k.endswith("_plan")
+            for d in v.get("demotions", [])]
+        log(f"# phase 13 chaos bench (PIFFT_FAULT=tube:capacity:1.0:1 "
+            f"--smoke): exit {proc.returncode} in {chaos_s:.1f} s, "
+            f"degraded {rec.get('degraded')}, flagship demotions "
+            f"{json.dumps(demotions)}, rungs served {rungs}")
+        if not (proc.returncode == 0 and rec.get("degraded") is True
+                and rec["plan"].get("degraded") is True and demotions
+                and demotions[-1]["to"] == "rql"
+                and not set(rungs) & set(LIBRARY_RUNGS)):
+            log(proc.stderr[-4000:])
+            raise AssertionError("phase 13 chaos bench failed")
+        rows["chaos_bench"] = {"exit": proc.returncode,
+                               "degraded": rec.get("degraded"),
+                               "demotions": demotions, "s": chaos_s}
+    finally:
+        plans.cache.clear(memory=True)
+        if store is None:
+            os.environ.pop("PIFFT_PLAN_CACHE")
+        else:
+            os.environ["PIFFT_PLAN_CACHE"] = store
+    return rows
+
+
+#: the bench rows phase 14 requires (the reference's LARGE_LOGNS and
+#: its gpu backend rows), each by its ms field
+BENCH_LOGNS = (22, 24, 25, 26, 27)
+#: phase 14's harness sweep: the cuda backend, T replications
+HARNESS_NS = (1 << 16, 1 << 20, 1 << 24)
+HARNESS_PS = (1, 4, 16, 64, 256)
+HARNESS_REPS = 3
+
+
+def phase_measurement(dev):
+    """Phase 14: the bench at full size (``bench.main([])`` in this
+    process, reading the plan store phase 8 wrote: each key the store
+    holds serves its winner, every other key is raced first, as the
+    reference races the keys its cache lacks),
+    its record printed on its own line; every row present, none
+    degraded, the 2^26 rows' plans checked once against torch.fft.fft
+    in complex128 (c2c and rfft within PATH_TOL, bf16 within its
+    budget); then the paper's (n, p) sweep through the harness on the
+    cuda backend (HARNESS_NS x HARNESS_PS, HARNESS_REPS reps) and its
+    verify pass, as ``python -m
+    cs87project_msolano2_tpu_torch.harness.run_experiments`` in a
+    subprocess.  Returns (bench record, TSV rows); raises on any
+    failure."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cs87project_msolano2_tpu_torch import bench, plans
+    from cs87project_msolano2_tpu_torch.harness import run_experiments
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.ops.bits import to_natural
+
+    plans.cache.clear(memory=True)
+    torch.cuda.empty_cache()
+    cf.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    bench_s = time.perf_counter() - t0
+    launched = {k: v for k, v in cf.launch_counts().items() if v}
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(line)
+    rec = json.loads(line)
+    want = ["ms", "library_fft_ms"] + [
+        f"{p}2^{k}_ms" for k in BENCH_LOGNS for p in ("n", "rfft", "bf16_")
+    ] + [f"gpu2^{k}_ms" for k in bench.BACKEND_ROW_LOGNS]
+    missing = [w for w in want if w not in rec]
+    degraded = [k for k, v in rec.items()
+                if k.endswith("degraded") and v]
+    log(f"# phase 14 bench: exit {rc} in {bench_s:.1f} s, missing "
+        f"{missing}, degraded {degraded}, launches (captured included) "
+        f"{launched}")
+    if rc != 0 or missing or degraded or not launched.get("gpu_rows"):
+        raise AssertionError("phase 14 bench failed")
+
+    n = 1 << 26
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    xr = torch.randn(n, generator=gen, device=dev)
+    xi = torch.randn(n, generator=gen, device=dev)
+    checks = {}
+    for tag, key, tol in (
+            ("n2^26", plans.make_key(n, layout="pi", device=dev), PATH_TOL),
+            ("bf16_2^26", plans.make_key(n, layout="pi", precision="bf16",
+                                         device=dev), BF16_BUDGET),
+            ("rfft2^26", plans.make_key(n, domain="r2c", device=dev),
+             PATH_TOL)):
+        plan = plans.get_plan(key, str(dev))
+        if key.domain == "r2c":
+            got = torch.complex(*plan.execute(xr, xr))
+            ref = torch.fft.rfft(xr.to(torch.float64))
+        else:
+            yr, yi = plan.execute(xr, xi)
+            got = torch.complex(*to_natural(yr, yi))
+            ref = torch.fft.fft(torch.complex(xr, xi).to(torch.complex128))
+        e = rel_l2(got, ref)
+        checks[tag] = {"plan": plan.describe(), "rel_l2": e}
+        log(f"# phase 14 bench row {tag}: plan {plan.variant} "
+            f"{plan.params}, rel L2 {e:.3e} vs torch.fft in complex128 "
+            f"(bound {tol})")
+        if not (e <= tol and not plan.degraded):
+            raise AssertionError(f"phase 14 {tag} out of tolerance")
+        del got, ref
+    del xr, xi
+    plans.cache.clear(memory=True)
+    torch.cuda.empty_cache()
+
+    # the harness in a process of its own: the 2^24 x 256 funnel needs
+    # about 56 GB of the card, more than this process leaves free
+    log(f"# phase 14 this process holds {torch.cuda.memory_allocated()} "
+        f"bytes of the card before the harness")
+    out = tempfile.mkdtemp(prefix="pifft-harness-")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "cs87project_msolano2_tpu_torch.harness.run_experiments",
+             "--backends", "cuda", "--n-grid",
+             ",".join(map(str, HARNESS_NS)), "--p-grid",
+             ",".join(map(str, HARNESS_PS)), "-T", str(HARNESS_REPS),
+             "--verify", "--seed", str(SEED), "--out", out],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        harness_s = time.perf_counter() - t0
+        path = run_experiments.result_path(out, "cuda")
+        tsv = []
+        if os.path.exists(path):
+            with open(path) as f:
+                tsv = [line.rstrip("\n") for line in f]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for row in tsv:
+        log(f"# phase 14 harness tsv\t{row}")
+    cells = len(HARNESS_NS) * len(HARNESS_PS)
+    marked = [row for row in tsv if row.endswith("DEGRADED")]
+    verified = [line for line in proc.stderr.splitlines()
+                if line.startswith("# cuda: verified")]
+    log(f"# phase 14 harness cuda: exit {proc.returncode} in "
+        f"{harness_s:.1f} s, {len(tsv)} rows, DEGRADED rows "
+        f"{len(marked)}, {verified}")
+    if (proc.returncode != 0 or len(tsv) != cells * HARNESS_REPS or marked
+            or verified != [f"# cuda: verified {cells}/{cells} cells vs "
+                            f"numpy fft (0 skipped)"]):
+        log(proc.stderr[-4000:])
+        raise AssertionError("phase 14 harness failed")
+    return {"record": rec, "s": bench_s, "harness_s": harness_s,
+            "checks_2^26": checks}, tsv
 
 
 def main() -> int:
@@ -1979,6 +2305,12 @@ def run(store) -> int:
     # phase 12: the real and any-length domains
     domains = phase_domains(dev, rng, timed)
 
+    # no plan of phases 4-12 demoted, then phase 13: the resilience
+    # layer; phase 14: the bench and the harness sweep
+    no_demotions("before phase 13")
+    resilience = phase_resilience(dev, rng)
+    measurement, harness_tsv = phase_measurement(dev)
+
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
     entries = []
@@ -2033,6 +2365,8 @@ def run(store) -> int:
                     "kernel_checks": checks, "mf_path": mf_path,
                     "gpu_backend": gpu_backend, "hw_probe": hw,
                     "bf16": bf16_path, "domains": domains,
+                    "resilience": resilience, "bench": measurement,
+                    "harness_tsv": harness_tsv,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),
                               "winner_natural": tuned_nat.describe(),

@@ -18,6 +18,10 @@ class RunResult:
     total_ms: float
     funnel_ms: float
     tube_ms: float
+    # True where the timers are CUDA-event times, the host's pace in
+    # them, because the loop slope could not be resolved; the harness
+    # marks such rows DEGRADED
+    degraded: bool = False
 
 
 class Backend(Protocol):

@@ -5,12 +5,15 @@
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
         [--backend {cuda,gpu}]
     python -m cs87project_msolano2_tpu_torch hw probe [--json | -v | --cores]
+    python -m cs87project_msolano2_tpu_torch faults {list|inject <spec>}
 
 The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
 tube_ms); ``-t`` runs the exact 8-point golden test for p in {1,2,4,8};
 ``plan`` manages the persistent plan store (``plans.cache``); ``hw
-probe`` prints the device inventory (``hw.inventory``).  Runs on the
-card unless ``--device cpu`` is given.
+probe`` prints the device inventory (``hw.inventory``); ``faults``
+lists the fault-injection sites or runs one transform under an injected
+fault and says how the retry and degradation policies carried it
+(``resilience``).  Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -194,6 +197,103 @@ def plan_main(argv) -> int:
     return 0
 
 
+def faults_main(argv) -> int:
+    """``faults {list|inject}`` — the fault-injection sites, or one
+    pi-layout transform under an injected fault, retried with the fast
+    policy, with what the retry and degradation policies did and the
+    result against numpy (the reference's ``faults``)."""
+    ap = argparse.ArgumentParser(
+        prog="cs87project_msolano2_tpu_torch faults",
+        description="list injection sites / inject a fault and watch "
+                    "the retry + degradation policies handle it",
+    )
+    ap.add_argument("action", choices=("list", "inject"))
+    ap.add_argument("spec", nargs="?", default=None,
+                    help="inject: <site>:<kind>[:<prob>[:<count>]] "
+                         "(the PIFFT_FAULT syntax)")
+    ap.add_argument("-n", type=_parse_n, default=1 << 10,
+                    help="inject: transform length of the run (int or "
+                         "2^k; default 2^10)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (plain versions)")
+    args = ap.parse_args(argv)
+
+    from . import resilience
+
+    if args.action == "list":
+        print("fault kinds (PIFFT_FAULT=<site>:<kind>[:<prob>[:<count>]],"
+              " comma-separated; site is an fnmatch pattern):")
+        for kind in resilience.KINDS:
+            print(f"  {kind}")
+        print("injection sites:")
+        for site, where in sorted(resilience.KNOWN_SITES.items()):
+            print(f"  {site:<11} {where}")
+        print("  anylen      the any-length executors of ops/anylen.py "
+              "(bluestein / rader / mixedradix)")
+        print("recovery: transient -> with_retry backoff; capacity/"
+              "permanent -> plan degradation chain "
+              f"({' -> '.join(resilience.DEGRADE_CHAIN)})")
+        return 0
+
+    if not args.spec:
+        print("error: inject needs a <site>:<kind>[:<prob>[:<count>]] "
+              "spec", file=sys.stderr)
+        return 2
+    try:
+        spec = resilience.FaultSpec.parse(args.spec)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    from . import plans
+
+    plans.cache.clear(memory=True)  # the run must build its plan afresh
+    key = plans.make_key(args.n, layout="pi", device=args.device)
+    rng = np.random.default_rng(0)
+    xr = rng.standard_normal(args.n).astype(np.float32)
+    xi = rng.standard_normal(args.n).astype(np.float32)
+    with resilience.inject(spec.site, spec.kind, spec.prob, spec.count,
+                           spec.stall_s) as live:
+        plan = plans.get_plan(key, args.device)
+
+        def run():
+            return plan.execute(xr, xi)
+
+        try:
+            yr, yi = resilience.call_with_retry(
+                run, policy=resilience.FAST_POLICY, label="faults run")
+        except Exception as e:
+            kind = resilience.classify(e)
+            print(f"run FAILED after policy exhaustion: {kind.value} "
+                  f"{type(e).__name__}: {str(e)[:200]}")
+            print(f"(fault fired {live.fired} time(s); an uncapped "
+                  f"always-on transient spec exhausts the retry budget "
+                  f"by design — cap it with :<count>)")
+            return 1
+
+    ref = np.fft.fft(xr.astype(np.complex128)
+                     + 1j * xi.astype(np.complex128))
+    got = verify.pi_layout_to_natural(yr.cpu().numpy()
+                                      + 1j * yi.cpu().numpy())
+    err = verify.rel_err(got, ref)
+    print(f"fault spec {args.spec!r}: fired {live.fired} time(s)")
+    d = plan.describe()
+    if plan.degraded:
+        trail = " -> ".join([plan.variant]
+                            + [rec["to"] for rec in plan.demotions])
+        print(f"plan DEGRADED: {trail} (run completed on the weakest "
+              f"rung that worked)")
+    elif live.fired:
+        print(f"plan healthy: {d['variant']} {d['params']} (retry "
+              f"absorbed the fault)")
+    else:
+        print(f"plan healthy: {d['variant']} {d['params']} (fault never "
+              f"fired)")
+    print(f"result vs numpy fft: rel err {err:.3e} "
+          f"({'OK' if err < 1e-5 else 'WRONG'})")
+    return 0 if err < 1e-5 else 1
+
+
 def hw_main(argv) -> int:
     """``hw probe`` — the device inventory (``hw.inventory.main``)."""
     if not argv or argv[0] != "probe":
@@ -212,6 +312,8 @@ def main(argv=None) -> int:
         return plan_main(argv[1:])
     if argv and argv[0] == "hw":
         return hw_main(argv[1:])
+    if argv and argv[0] == "faults":
+        return faults_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch",
         description="communication-free pi-FFT on PyTorch/CUDA",

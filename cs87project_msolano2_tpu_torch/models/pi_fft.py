@@ -29,6 +29,35 @@ def _tables_for(n, tables, device):
     return device_tables(n, device) if tables is None else tables
 
 
+#: elements of the (..., rows, len / 2) block one funnel stage computes
+#: at once: above it the stage runs over blocks of processor rows, so its
+#: temporaries (about six planes of the block) stay near 6 GB instead of
+#: growing with p * n — 64 GB at n = 2^24, p = 256 in one piece
+FUNNEL_BLOCK_ELEMENTS = 1 << 28
+
+
+def _stage_half_blocked(cr, ci, wr, wi, bottom):
+    """``stage_half`` of (..., p, len) planes, over blocks of the p rows
+    where the whole stage would pass FUNNEL_BLOCK_ELEMENTS; the same
+    arithmetic on every element, so the result is the same bits."""
+    p, half = cr.shape[-2], cr.shape[-1] // 2
+    lead = 1
+    for d in cr.shape[:-2]:
+        lead *= d
+    rows = max(1, FUNNEL_BLOCK_ELEMENTS // (lead * half))
+    if rows >= p:
+        return stage_half(cr, ci, wr, wi, bottom)
+    outr = torch.empty(cr.shape[:-1] + (half,), dtype=cr.dtype,
+                       device=cr.device)
+    outi = torch.empty_like(outr)
+    for a in range(0, p, rows):
+        br, bi = stage_half(cr[..., a:a + rows, :], ci[..., a:a + rows, :],
+                            wr, wi, bottom[a:a + rows])
+        outr[..., a:a + rows, :] = br
+        outi[..., a:a + rows, :] = bi
+    return outr, outi
+
+
 def funnel(xr, xi, p, tables=None):
     """Replicated funnel phase.  xr/xi: (..., n) -> (..., p, n // p)."""
     n = xr.shape[-1]
@@ -40,7 +69,7 @@ def funnel(xr, xi, p, tables=None):
     for i in range(k):
         wr, wi = tables[i]
         bottom = (pis >> (k - 1 - i)) & 1
-        cr, ci = stage_half(cr, ci, wr, wi, bottom)
+        cr, ci = _stage_half_blocked(cr, ci, wr, wi, bottom)
     return cr, ci
 
 

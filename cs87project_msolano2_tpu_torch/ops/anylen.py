@@ -43,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..resilience.inject import maybe_fault
+
 #: the largest odd factor the mixedradix m x m DFT matrix takes; above
 #: it the O(m^2) product loses to a Bluestein pad
 MIXEDRADIX_MAX_ODD = 512
@@ -368,6 +370,7 @@ def bluestein_executor(key, params: dict) -> Callable:
     conv = _padded_conv(_sub_executor(key, pad, (), mode), 1.0 / pad)
 
     def run(xr, xi):
+        maybe_fault("anylen")  # resilience injection site
         br, bi, hr, hi = tables(xr)
         ar = xr * br - xi * bi
         ai = xr * bi + xi * br
@@ -393,6 +396,7 @@ def rader_executor(key, params: dict) -> Callable:
     conv = _padded_conv(_sub_executor(key, pad, (), mode), 1.0 / pad)
 
     def run(xr, xi):
+        maybe_fault("anylen")  # resilience injection site
         perm_in, src, hr, hi = tables(xr)
         ar, ai = _pad_to(xr.index_select(-1, perm_in),
                          xi.index_select(-1, perm_in), pad)
@@ -423,6 +427,7 @@ def mixedradix_executor(key, params: dict) -> Callable:
     sub_fn = _sub_executor(key, n2, (m,), mode) if n2 > 1 else None
 
     def run(xr, xi):
+        maybe_fault("anylen")  # resilience injection site
         dr, di, tr, ti = tables(xr)
         batch = xr.shape[:-1]
         ar = xr.reshape(batch + (m, n2))

@@ -64,6 +64,7 @@ import functools
 import torch
 
 from ..hw.inventory import sm_count
+from ..resilience.inject import maybe_fault
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
 from .precision import (
@@ -1406,6 +1407,7 @@ def fft_pi_layout_cuda_rql(xr, xi, tile: int | None = None,
     runs both kernels' bf16 instantiations on bf16 planes and tables
     (the intermediate in bf16); the result is float32 either way.
     Validates tile/cb before any launch."""
+    maybe_fault("tube")  # resilience injection site
     n = xr.shape[-1]
     tile, R, cb = rql_blocking(n, tile, cb)
     lead = xr.shape[:-1]
@@ -1432,6 +1434,7 @@ def fft_pi_layout_cuda2(xr, xi, tile: int | None = None,
     intermediate in bf16, as the reference's); the result is float32
     either way.  The blocking is rql's (``rql_blocking``), validated
     before any launch."""
+    maybe_fault("tube")  # resilience injection site
     n = xr.shape[-1]
     tile, R, cb = rql_blocking(n, tile, cb)
     lead = xr.shape[:-1]
@@ -1468,6 +1471,7 @@ def fft_pi_layout_cuda_fused(xr, xi, tile: int | None = None,
     tables in bf16); the result is float32 either way.  R = n/tile < 2
     takes the tile kernel, on the same storage, as the reference does.
     Validates tile/qb/cw before any launch."""
+    maybe_fault("tube")  # resilience injection site
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fused")
     tile, R, qb, cw = fused_blocking(n, tile, qb, cw)
     dev = xr.device
@@ -1495,6 +1499,7 @@ def fft_pi_layout_cuda_fourstep(xr, xi, tile: int | None = None,
     and tables in bf16); the result is float32 either way.  R = n/tile
     < 2 takes the tile kernel, as the reference does.  Validates tile/cb
     before any launch."""
+    maybe_fault("tube")  # resilience injection site
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_fourstep")
     tile, R, cb = fourstep_blocking(n, tile, cb)
     dev = xr.device
@@ -1526,6 +1531,7 @@ def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
     runs the kernel's bf16 instantiation (planes, both carries and
     tables in bf16); the result is float32 either way.  Needs R = n/tile
     >= 4; validates every parameter before any launch."""
+    maybe_fault("tube")  # resilience injection site
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_sixstep")
     tile, R1, R2, cb1, cb2 = sixstep_blocking(n, tile, r2, cb1, cb2)
     dev = xr.device
@@ -1547,6 +1553,7 @@ def fft_pi_layout_cuda_mf(xr, xi, R: int = LANE, cb: int | None = None,
     view, its tensor-core passes set by `precision`, then ``tile_fft`` on
     the R rows of n/R points — two launches.  fp32 storage only; every
     parameter is validated before any launch (``mf_blocking``)."""
+    maybe_fault("tube")  # resilience injection site
     n = _one_transform(xr, xi, "fft_pi_layout_cuda_mf")
     check_mf_storage(precision)
     R, C, cb = mf_blocking(n, R, cb)
@@ -1571,6 +1578,7 @@ def fft_rows_cuda(xr, xi, natural: bool = True,
     `natural=False` returns pi layout (per-row bit-reversed).  `storage`
     as ``fft_pi_layout_cuda_rql``'s; the natural-order gather runs on
     the float32 result."""
+    maybe_fault("tube")  # resilience injection site
     n = xr.shape[-1]
     if n < LANE or n > MAX_ROW_TILE or not is_power_of_two(n):
         raise ValueError(

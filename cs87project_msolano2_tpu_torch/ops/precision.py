@@ -79,6 +79,10 @@ _DTYPE_BYTES = {"float32": 4, "bfloat16": 2}
 #: its budget promotes to the next entry; "highest" is fp32's twin
 PROMOTE_CHAIN = ("bf16", "default", "split3", "fp32")
 
+#: the environment override of every mode's budget, for chaos and smoke
+#: runs (0 makes every sampled batch violate its budget)
+BUDGET_ENV = "PIFFT_PRECISION_BUDGET"
+
 #: the error-compensated mode of the funnel's dot, and the default
 SPLIT3 = "split3"
 
@@ -120,6 +124,38 @@ def storage_bytes(mode: str) -> int:
 def dtype_bytes(dtype: str) -> int:
     """Bytes per element of a storage dtype name."""
     return _DTYPE_BYTES[dtype]
+
+
+#: override values already warned about in this process: a rejected
+#: PIFFT_PRECISION_BUDGET is announced once, not per call
+_BUDGET_WARNED: set = set()
+
+
+def error_budget(mode: str) -> float:
+    """The mode's max relative-error contract.  ``PIFFT_PRECISION_BUDGET``
+    overrides every mode's budget; a value that is not finite and at
+    least 0 (a NaN would make every ``err > budget`` false and disable
+    enforcement) is rejected with one warning, and the committed budget
+    stands."""
+    import math
+    import os
+    import sys
+
+    _check_mode(mode)
+    env = os.environ.get(BUDGET_ENV, "").strip()
+    if env:
+        try:
+            val = float(env)
+        except ValueError:
+            val = None
+        if val is not None and math.isfinite(val) and val >= 0.0:
+            return val
+        if env not in _BUDGET_WARNED:
+            _BUDGET_WARNED.add(env)
+            print(f"# {BUDGET_ENV}={env!r} is not a finite "
+                  f"non-negative float; override ignored, committed "
+                  f"budgets stand", file=sys.stderr)
+    return ERROR_BUDGETS[mode]
 
 
 def torch_dtype(storage: Optional[str]):

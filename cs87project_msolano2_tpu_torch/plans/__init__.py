@@ -21,6 +21,7 @@ Consumer entry points:
     plan_for(shape, domain="r2c")      # real input, half-spectrum out
     plan_for(shape, backend="gpu")     # the gpu backend (hw.lowering)
     tune(key)                          # explicit tuning race (card only)
+    measured_ms(key)                   # (ms, plan): the bench's policy
 
 ``plan``/``plan_for``/``get_plan`` NEVER tune implicitly: they serve the
 cache when it has an entry and the static default otherwise (set
@@ -136,6 +137,58 @@ def tune_or_static(key: PlanKey, *, force: bool = False,
             print(f"# not tuning ({e}); using static plan",
                   file=sys.stderr)
         return get_plan(key, device)
+
+
+def measured_ms(key: PlanKey, *, verbose: bool = True, device="cuda",
+                timer=None):
+    """(per-call ms, plan) for `key`: the bench's measurement policy (the
+    reference's ``measured_ms``).  A fresh race already timed its winner
+    by the loop slope and that time is taken; a stored or static plan is
+    timed with the race's own timer (``autotune.default_timer``, or
+    `timer(fn, key)`).  A plan that demoted while being timed gets one
+    forced re-race, whose winner is taken if it ran healthy; a plan that
+    failed outright is re-raced once.  TRANSIENT faults re-raise: the
+    moment failed, not the plan."""
+    import functools
+
+    from .autotune import default_timer
+
+    timer = timer or functools.partial(default_timer, device=device)
+    plan = tune_or_static(key, verbose=verbose, device=device)
+    if plan.source == "tuned" and plan.ms is not None:
+        return plan.ms, plan
+    try:
+        ms = timer(plan.fn, plan.key)
+    except Exception as e:
+        from ..resilience import FaultKind, classify
+
+        kind = classify(e)
+        if kind is FaultKind.TRANSIENT:
+            raise
+        if verbose:
+            print(f"# plan {plan.variant} {plan.params} failed "
+                  f"({kind.value} {type(e).__name__}); re-tuning",
+                  file=sys.stderr)
+        plan = tune_or_static(key, force=True, verbose=verbose,
+                              device=device)
+        if plan.ms is None:  # the static plan: nothing was raced
+            raise
+        return plan.ms, plan
+    if plan.degraded:
+        # before a time of the chain is taken, one forced re-race may
+        # find a kernel that still runs
+        try:
+            retuned = tune_or_static(key, force=True, verbose=verbose,
+                                     device=device)
+        except TuningError as e:
+            if verbose:
+                print(f"# re-race after demotion failed ({e}); keeping "
+                      f"the degraded measurement", file=sys.stderr)
+            retuned = None
+        if retuned is not None and retuned.ms is not None \
+                and not retuned.degraded:
+            return retuned.ms, retuned
+    return ms, plan
 
 
 def plan(n: int, batch: tuple = (), layout: str = "natural",

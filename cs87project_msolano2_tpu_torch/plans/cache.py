@@ -232,11 +232,13 @@ def _release_store_lock(fd: int, lock_path: str) -> None:
 
 
 def store(plan: Plan, persist: bool = True) -> None:
-    """Memoize and (unless disabled) merge into the disk store.  Disk
-    failures are swallowed, with a warn: a read-only HOME must never
-    break the transform that just tuned successfully."""
+    """Memoize and (unless disabled) merge into the disk store.  A
+    degraded plan is memoized only: a demotion belongs to this session,
+    and on disk it would taint every later one.  Disk failures are
+    swallowed, with a warn: a read-only HOME must never break the
+    transform that just tuned successfully."""
     memoize(plan)
-    if not persist:
+    if not persist or plan.degraded:
         return
     path = store_path(plan.key.device_kind)
     if path is None:

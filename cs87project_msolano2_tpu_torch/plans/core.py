@@ -19,6 +19,7 @@ import sys
 from typing import Callable, Optional
 
 from ..ops.precision import PRECISIONS
+from ..resilience.inject import maybe_fault
 
 LAYOUTS = ("natural", "pi")
 DOMAINS = ("c2c", "r2c", "c2r")
@@ -219,6 +220,12 @@ class Plan:
     time when known; `tuning` the full race record.  `device` is where
     numpy input to ``execute`` goes: None means the card, or the CPU
     for a key of the CPU's kind; tensors run where they lie.
+
+    `degraded`/`demotions` are the degradation chain's trail: when the
+    chosen kernel dies of a CAPACITY or PERMANENT fault the executor
+    walks the chain (``resilience.degrade``) and every step lands here,
+    in the in-process cache and in the warn line, never in the disk
+    store.
     """
 
     key: PlanKey
@@ -228,18 +235,24 @@ class Plan:
     ms: Optional[float] = None
     tuning: list = dataclasses.field(default_factory=list)
     device: Optional[str] = None
+    degraded: bool = False
+    demotions: list = dataclasses.field(default_factory=list)
     _fn: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
     def fn(self) -> Callable:
         """The (xr, xi) -> (yr, yi) executor on tensors, built lazily
-        from the ladder and cached on the plan."""
+        from the ladder, wrapped in the degradation chain (a CAPACITY or
+        PERMANENT kernel fault demotes down the chain instead of killing
+        the caller) and cached on the plan."""
         if self._fn is None:
             from . import ladder
+            from ..resilience.degrade import resilient_executor
 
-            self._fn = ladder.build_executor(self.key, self.variant,
-                                             self.params)
+            self._fn = resilient_executor(
+                self, ladder.build_executor(self.key, self.variant,
+                                            self.params))
         return self._fn
 
     def execute(self, xr, xi, *, source=None):
@@ -249,7 +262,9 @@ class Plan:
         that shares memory with the caller's.  `source` is the caller's
         own input where (xr, xi) are planes split from it for this call
         (``models.fft``'s plane split), which then need no copy; by
-        default (xr, xi) are the caller's."""
+        default (xr, xi) are the caller's.  The dispatch point: the
+        ``plan`` injection site."""
+        maybe_fault("plan")
         xr, xi = self._planes(xr, xi, source, both=True)
         return self.fn(xr, xi)
 
@@ -306,9 +321,18 @@ class Plan:
         (the reference's ``Plan.storage_bytes``)."""
         from ..ops.precision import storage_bytes
 
-        if self.variant == "stages" or self.key.backend == "gpu":
+        served = self.served_variant()
+        if served.startswith("precision:"):
+            return storage_bytes(served.split(":", 1)[1])
+        if served in ("stages", "torch-fft", "numpy-ref") \
+                or self.key.backend == "gpu":
             return 4
         return storage_bytes(self.effective_precision())
+
+    def served_variant(self) -> str:
+        """The variant or chain rung that serves this plan now: the last
+        demotion's rung on a degraded plan, else the variant."""
+        return self.demotions[-1]["to"] if self.degraded else self.variant
 
     def describe(self) -> dict:
         d = {"variant": self.variant, "params": dict(self.params),
@@ -317,15 +341,23 @@ class Plan:
             d["precision"] = self.effective_precision()
         if self.ms is not None:
             d["ms"] = round(self.ms, 4)
+        if self.degraded:
+            d["degraded"] = True
+            d["demoted_to"] = self.demotions[-1]["to"]
+            d["demotions"] = [dict(rec) for rec in self.demotions]
         return d
 
     def to_record(self) -> dict:
-        return {
+        rec = {
             "variant": self.variant,
             "params": dict(self.params),
             "ms": self.ms,
             "tuning": [r.to_record() for r in self.tuning],
         }
+        if self.degraded:
+            rec["degraded"] = True
+            rec["demotions"] = [dict(d) for d in self.demotions]
+        return rec
 
     @classmethod
     def from_record(cls, key: PlanKey, rec: dict,
@@ -338,4 +370,6 @@ class Plan:
             ms=rec.get("ms"),
             tuning=[CandidateResult.from_record(r)
                     for r in rec.get("tuning") or []],
+            degraded=bool(rec.get("degraded", False)),
+            demotions=[dict(d) for d in rec.get("demotions") or []],
         )

@@ -12,6 +12,9 @@ unambiguous meanings, as in the reference) and message PATTERN second.
 The patterns are the CUDA runtime's own names and messages
 (``cudaGetErrorName`` / ``cudaGetErrorString``).
 
+:class:`KernelBuildError` marks a kernel that failed to build or load:
+the degradation chain re-raises it, as it does a sticky error.
+
 :func:`sticky` names the errors that poison the CUDA context: after an
 illegal or misaligned address or a launch failure every later call in
 the process fails, so a caller that would try the next thing (a tuning
@@ -68,6 +71,13 @@ class LoweringError(PifftError):
     plan, demote."""
 
     kind = FaultKind.PERMANENT
+
+
+class KernelBuildError(LoweringError):
+    """A kernel source failed to build (nvcc or ptxas refused it, no
+    nvcc) or its library failed to load.  PERMANENT, but never demoted:
+    the degradation chain re-raises it, since serving a library rung in
+    its place would hide a broken kernel behind a library call."""
 
 
 class CollectiveTimeout(TransientBackendError):

@@ -14,7 +14,9 @@ The library's name carries a hash of the flags and of every source and
 header (``csrc/*.cu``, ``csrc/*.cuh``), so editing either rebuilds it;
 the ``_build/`` directory is not committed.  ptxas's report (registers,
 shared memory, spills per kernel) is kept beside the library.  Nothing
-is ever fetched.  A failed build raises with nvcc's stderr.
+is ever fetched.  A failed build raises ``KernelBuildError`` with nvcc's
+stderr, and so does a library that fails to load: the degradation
+chain never demotes a kernel that did not build.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import shutil
 import subprocess
 import tempfile
 from functools import lru_cache
+
+from ..resilience.taxonomy import KernelBuildError
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -56,7 +60,7 @@ def nvcc_path() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
         "kernels are built on a machine with the CUDA toolkit")
 
@@ -102,11 +106,11 @@ def build() -> str:
         failed = [f"nvcc failed (exit {rc}) on {os.path.basename(src)}:"
                   f"\n{out}" for src, (rc, out) in zip(srcs, done) if rc]
         if failed:
-            raise RuntimeError("\n".join(failed))
+            raise KernelBuildError("\n".join(failed))
         lib = os.path.join(tmp, "lib.so")
         [(rc, out)] = _run_all([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
         if rc:
-            raise RuntimeError(f"nvcc link failed (exit {rc}):\n{out}")
+            raise KernelBuildError(f"nvcc link failed (exit {rc}):\n{out}")
         log = os.path.join(tmp, "ptxas.txt")
         with open(log, "w") as f:
             f.writelines(f"== {os.path.basename(src)}\n{out}"
@@ -120,7 +124,11 @@ def build() -> str:
 def load_kernels() -> ctypes.CDLL:
     """Load (building if needed) and type the flat pifft_* C API.  Each
     launcher returns the cudaError_t of its launch (0 = success)."""
-    lib = ctypes.CDLL(build())
+    path = build()
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelBuildError(f"loading {path} failed: {e}") from e
     c = ctypes
     ptr = c.c_void_p
     lib.pifft_tile_fft.restype = c.c_int

@@ -22,7 +22,9 @@ Two timers:
   only as many calls later, so they rotate too: each call reads its
   input and writes its output cold, as under ``time_ms``'s flush.  The
   autotuner times every candidate this way
-  (``plans.autotune.default_timer``).
+  (``plans.autotune.default_timer``), ``slope_ms`` any call on given
+  operands (the bench, the backends' phase timers), and
+  ``fitted_window`` narrows the window for a call of many milliseconds.
 
 On CPU tensors both use the host clock, which is honest there.
 """
@@ -52,6 +54,8 @@ SLOPE_REPS = 5
 #: cycles the card spins before each timed replay, so the host has
 #: enqueued the whole graph before the start event fires (about 10 ms)
 SPIN_CYCLES = 20_000_000
+#: the longest run ``fitted_window`` aims a window's k2 calls at, ms
+FITTED_RUN_MS = 200.0
 
 
 def _device_of(args):
@@ -215,3 +219,47 @@ def loop_slope_ms(fn: Callable, arg_sets: Sequence[tuple], k1: int,
         torch.cuda.synchronize(dev)
         for g in graphs.values():
             g.reset()
+
+
+def fitted_window(est_ms: float, elements: int) -> tuple[int, int]:
+    """``slope_window(elements)`` narrowed for a call that takes about
+    `est_ms`: k2 no more than FITTED_RUN_MS / est_ms calls (at least 2),
+    k1 a sixteenth of k2 (at least 1).  A funnel of tens of
+    milliseconds then costs a few calls a reading, not hundreds, and a
+    call of microseconds keeps the reference's window."""
+    k1, k2 = slope_window(elements)
+    if est_ms > 0:
+        k2 = max(2, min(k2, int(FITTED_RUN_MS / est_ms)))
+        k1 = max(1, min(k1, k2 // 16))
+    return k1, k2
+
+
+def slope_ms(fn: Callable, *args, consumes: bool = False,
+             window: Optional[tuple] = None, reps: int = SLOPE_REPS) -> float:
+    """Per-call ms of ``fn(*args)`` by the loop slope (``loop_slope_ms``)
+    over `window` (default: the reference's window for the largest
+    tensor argument, ``slope_window``), the calls rotating over copies
+    of the tensor arguments, as many as keep the L2 from serving a call
+    (``rotation_copies``).  `consumes`: fn writes over its tensor
+    arguments, so every copy gets them back before each timed run."""
+    from ..hw.inventory import l2_bytes
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = rotation_copies(nbytes, l2_bytes(tensors[0].device))
+
+    def copy():
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    sets = [copy() for _ in range(copies)] if consumes \
+        else [args] + [copy() for _ in range(copies - 1)]
+    before = None
+    if consumes:
+        def before():
+            for s in sets:
+                for a, b in zip(s, args):
+                    if isinstance(a, torch.Tensor):
+                        a.copy_(b)
+    window = window or slope_window(max(t.numel() for t in tensors))
+    return loop_slope_ms(fn, sets, *window, reps=reps, before=before)

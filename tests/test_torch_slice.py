@@ -286,7 +286,10 @@ def test_port_imports_no_jax():
         "pkg.__name__ + '.') if not m.name.endswith('__main__')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 21, mods\n"
-        "assert pkg.__name__ + '.utils.roofline' in mods, mods\n"
+        "new = ['utils.roofline', 'bench', 'harness.run_experiments', "
+        "'analyze.records', 'resilience.inject', 'resilience.retry', "
+        "'resilience.journal', 'resilience.degrade']\n"
+        "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cs87project_msolano2_tpu' or "
         "m.startswith('cs87project_msolano2_tpu.')]\n"
@@ -296,3 +299,23 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax_and_refuses_the_cpu():
+    """chip_smoke.py names no module of JAX or of the JAX package, and
+    with no card it exits non-zero and prints no result."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    bad = [m for m in names if m.split(".")[0] in
+           ("jax", "cs87project_msolano2_tpu")]
+    assert not bad, bad
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0 and proc.stdout == ""
