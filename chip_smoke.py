@@ -88,11 +88,29 @@ own line, every
 row present and none degraded, the 2^26 rows' plans checked once
 against torch.fft in complex128; then the harness's (n, p) sweep on the
 ``cuda`` backend over n in {2^16, 2^20, 2^24} and p in {1, 4, 16, 64,
-256}, 3 reps, and its verify pass, the TSV printed, no row DEGRADED).
-The last line of
+256}, 3 reps, and its verify pass, the TSV printed, no row DEGRADED;
+the record's ``c_ms``, ``vs_baseline`` and ``cpun2^K`` rows present
+and positive) and the rest of the algorithm and its backends (phase
+15: ``tube_planned`` on the plan store phases 8 and 14 wrote, as the
+sharded path runs it — each processor's ``funnel_single`` chain then
+its 1-D segment at n = 2^27, p = 2 (sixstep) and p = 8 (the store's
+winner at 2^24, else fourstep); the funnel's (p, s) planes at n = 2^20,
+p = 64 (rows) and n = 2^24, p = 4 (the stage tube) — each case's
+variant, its launches counted with torch.fft and numpy.fft refused,
+its result against numpy in complex128 and against ``tube_cuda`` on
+the same funnel output, both tubes' slopes; one
+``PIFFT_FAULT=resolve:capacity:1.0:1`` firing sending the rows case to
+the stage tube with one warning; the C core's golden test (``-t``) on
+serial and pthreads beside its capacity and this process's affinity
+mask; the harness on serial, pthreads, torch-scan and einsum, -T 3
+--verify, every cell verified and none DEGRADED; BASELINE config 1).
+Each phase's seconds are printed as it ends.  The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
+The loop slopes (``slope_ms``) read a call of more than about a
+millisecond over the window that takes about 200 ms a run, not the
+reference's 256 or 1024 calls, as the race's timer does.
 
 Bounds and carry ceilings come from the port's ``utils/roofline.py``:
 NVIDIA's data-sheet peaks for the card by name (3.35 TB/s of HBM
@@ -232,6 +250,22 @@ def log(msg):
     print(msg, flush=True)
 
 
+class PhaseClock:
+    """Seconds of each phase on the host clock: ``start(name)`` closes
+    the running phase, logs its seconds, and opens `name` (None closes
+    the last)."""
+
+    def __init__(self):
+        self.name, self.t0, self.seconds = None, time.perf_counter(), {}
+
+    def start(self, name):
+        now = time.perf_counter()
+        if self.name is not None:
+            self.seconds[self.name] = round(now - self.t0, 1)
+            log(f"# {self.name} took {now - self.t0:.1f} s")
+        self.name, self.t0 = name, now
+
+
 def rel_l2(a, b):
     import torch
 
@@ -268,17 +302,19 @@ def random_complex(rng, shape, device, n=None):
 
 def slope_ms(fn, *args, consumes=False):
     """Per-call ms of ``fn(*args)`` by the loop slope
-    (``utils.timing.slope_ms``: k calls in one CUDA graph, device time
-    per call with no host work between calls) over the reference's
-    windows, the calls rotating over copies of the tensor arguments, as
-    many as keep the L2 from serving a call (``rotation_copies``), as
-    the race times a candidate.  `consumes`: fn writes over its tensor
-    arguments, so every copy gets them back before each timed run."""
-    from cs87project_msolano2_tpu_torch.utils.timing import (
-        slope_ms as rotated_slope_ms,
-    )
+    (``utils.timing.fitted_slope_ms``: k calls in one CUDA graph, device
+    time per call with no host work between calls), the calls rotating
+    over copies of the tensor arguments, as many as keep the L2 from
+    serving a call (``window_copies``), as the race times a candidate.
+    The window is the reference's for the operands' size, narrowed for
+    a call of more than about a millisecond to what takes FITTED_RUN_MS
+    a run (``fitted_window``, as the backends time a phase): the slope
+    of a 16 ms call is read over a dozen calls, not hundreds.
+    `consumes`: fn writes over its tensor arguments, so every copy gets
+    them back before each timed run."""
+    from cs87project_msolano2_tpu_torch.utils.timing import fitted_slope_ms
 
-    return rotated_slope_ms(fn, *args, consumes=consumes)
+    return fitted_slope_ms(fn, *args, consumes=consumes)
 
 
 def domain_subplan(plan):
@@ -675,16 +711,25 @@ def phase_measurement(dev):
     line = buf.getvalue().strip().splitlines()[-1]
     log(line)
     rec = json.loads(line)
-    want = ["ms", "library_fft_ms"] + [
+    want = ["ms", "library_fft_ms", "c_ms", "vs_baseline"] + [
         f"{p}2^{k}_ms" for k in BENCH_LOGNS for p in ("n", "rfft", "bf16_")
-    ] + [f"gpu2^{k}_ms" for k in bench.BACKEND_ROW_LOGNS]
+    ] + [f"{p}2^{k}_ms" for k in bench.BACKEND_ROW_LOGNS
+         for p in ("gpu", "cpun")]
     missing = [w for w in want if w not in rec]
+    not_positive = [w for w in want if w in rec and not rec[w] > 0]
     degraded = [k for k, v in rec.items()
                 if k.endswith("degraded") and v]
     log(f"# phase 14 bench: exit {rc} in {bench_s:.1f} s, missing "
-        f"{missing}, degraded {degraded}, launches (captured included) "
-        f"{launched}")
-    if rc != 0 or missing or degraded or not launched.get("gpu_rows"):
+        f"{missing}, not positive {not_positive}, degraded {degraded}, "
+        f"launches (captured included) {launched}")
+    log(f"# phase 14 C baseline: c_ms {rec.get('c_ms')} (pthreads, N=2^20, "
+        f"best of 3 on the host: {host_cpu()}, {len(os.sched_getaffinity(0))}"
+        f" cores this process may use), flagship {rec.get('ms')} ms, "
+        f"vs_baseline {rec.get('vs_baseline')}; cpun2^8 "
+        f"{rec.get('cpun2^8_ms')} ms, cpun2^10 {rec.get('cpun2^10_ms')} ms "
+        f"({rec.get('cpun2^10_plan')})")
+    if rc != 0 or missing or not_positive or degraded \
+            or not launched.get("gpu_rows"):
         raise AssertionError("phase 14 bench failed")
 
     n = 1 << 26
@@ -761,6 +806,373 @@ def phase_measurement(dev):
             "checks_2^26": checks}, tsv
 
 
+def host_cpu():
+    """The host CPU: its model name from ``/proc/cpuinfo`` (else, where
+    a sandbox reports none or "unknown", its vendor, family and model
+    numbers there, else ``lscpu``'s model name), its architecture and
+    the vector extension PyTorch's CPU kernels use."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name")
+    if name in (None, "", "unknown") and "vendor_id" in fields:
+        name = (f"{fields['vendor_id']} family {fields.get('cpu family')} "
+                f"model {fields.get('model')}")
+    if name is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    import torch
+
+    return (f"{name or 'unknown model'} ({platform.machine()}, "
+            f"{torch.backends.cpu.get_cpu_capability()})")
+
+
+#: phase 15's planned-tube cases: (label, log2 n, p, how the tube is
+#: driven — "segments": each processor's funnel_single chain, then
+#: tube_planned on its 1-D segment, as the sharded path runs it;
+#: "planes": the funnel's (p, s) planes, then tube_planned on them —
+#: and the static ladder's variant for that shape (a batch of segments
+#: longer than 2^16 takes rql over the batch, where the reference's plan
+#: layer refuses it and takes its stage tube)
+PLANNED_CASES = (("n=2^27 p=2", 27, 2, "segments", "sixstep"),
+                 ("n=2^27 p=8", 27, 8, "segments", "fourstep"),
+                 ("n=2^20 p=64", 20, 64, "planes", "rows"),
+                 ("n=2^24 p=4", 24, 4, "planes", "rql"))
+#: the planned tube vs tube_cuda on the same funnel output, rel L2: two
+#: float32 kernel paths (tube_cuda runs rql at every s)
+TUBE_TOL = 1e-6
+#: phase 15's harness sweeps: backend -> (n grid, p grid), -T 3
+#: --verify; pthreads' p-grid is clipped at the core's capacity, the
+#: einsum grid is the committed einsum dataset's (p * n <= 2^24)
+BACKEND_SWEEPS = (("serial", (1 << 16, 1 << 20), (1, 4, 16, 64)),
+                  ("pthreads", (1 << 16, 1 << 20, 1 << 24), (1, 4, 16, 64)),
+                  ("torch-scan", (1 << 16, 1 << 20, 1 << 24),
+                   (1, 4, 16, 64)),
+                  ("einsum", (1 << 12, 1 << 14, 1 << 16), (1, 4, 16, 64)))
+#: the pthreads run whose worker threads phase 15 reads the affinity of
+PINNING_N = 1 << 22
+#: BASELINE config 1 (the float64 direct DFT) vs numpy, rel L2
+CONFIG1_TOL = 1e-12
+
+
+def planned_case(dev, rng, ref_cache, label, k, p, drive, static):
+    """One planned-tube case of phase 15: the funnel, then
+    ``tube_planned`` (counted, torch.fft and numpy.fft refused), the
+    variant checked against the store's winner or the static ladder's,
+    the result against numpy in complex128 (natural order) and against
+    ``tube_cuda`` on the same funnel output, and both tubes timed by the
+    loop slope on one call's operands.  Returns (row, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.models.pi_fft import (
+        funnel,
+        funnel_single,
+        resolve_tube_plan,
+        tube_planned,
+    )
+    from cs87project_msolano2_tpu_torch.ops.bits import to_natural
+    from cs87project_msolano2_tpu_torch.ops.cuda_fft import tube_cuda
+
+    n = 1 << k
+    s = n // p
+    if k not in ref_cache:
+        ref_cache.clear()
+        xr, xi = random_complex(rng, (n,), dev)
+        x = xr.cpu().numpy().astype(np.complex128)
+        x.imag = xi.cpu().numpy()
+        ref_cache[k] = (xr, xi, np.fft.fft(x))
+        del x
+    xr, xi, ref = ref_cache[k]
+    shape = (s,) if drive == "segments" else (p, s)
+    key = plans.make_key(s, shape[:-1], layout="pi", device=dev)
+    stored = plans.cache.lookup(key)
+    want = stored.variant if stored is not None and stored.source != \
+        "static" else static
+    plan = resolve_tube_plan(shape, device=dev)
+    got_variant = None if plan is None else plan.variant
+
+    def funnel_out():
+        if drive == "segments":
+            return [funnel_single(xr, xi, pi, p) for pi in range(p)]
+        return [funnel(xr, xi, p)]
+
+    def planned(parts):
+        return [tube_planned(fr, fi, n, p) for fr, fi in parts]
+
+    parts = funnel_out()
+    torch.cuda.synchronize()
+    outs, launched = counted(planned, parts)
+    yr = torch.cat([o[0].reshape(-1) for o in outs])
+    yi = torch.cat([o[1].reshape(-1) for o in outs])
+    del outs
+    nr, ni = to_natural(yr, yi)
+    got = nr.cpu().numpy().astype(np.complex128)
+    got.imag = ni.cpu().numpy()
+    del nr, ni
+    err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    del got
+    outs = [tube_cuda(fr, fi, n, p) for fr, fi in parts]
+    cr = torch.cat([o[0].reshape(-1) for o in outs])
+    ci = torch.cat([o[1].reshape(-1) for o in outs])
+    del outs
+    err_cuda = rel_l2(torch.complex(yr, yi), torch.complex(cr, ci))
+    del yr, yi, cr, ci
+    fr, fi = (t.contiguous() for t in parts[0])
+    del parts
+    torch.cuda.empty_cache()
+    planned_ms = slope_ms(lambda a, b: tube_planned(a, b, n, p),
+                                 fr, fi)
+    cuda_ms = slope_ms(lambda a, b: tube_cuda(a, b, n, p), fr, fi)
+    calls = p if drive == "segments" else 1
+    want_launches = {} if want is None else {
+        name: c * calls for name, c in VARIANT_LAUNCHES[want].items()}
+    row = {"variant": got_variant, "expected": want,
+           "stored": None if stored is None else stored.variant,
+           "launches": launched, "rel_l2_numpy": err,
+           "rel_l2_tube_cuda": err_cuda,
+           "tube_planned_ms": planned_ms, "tube_cuda_ms": cuda_ms,
+           "drive": drive}
+    log(f"# phase 15 planned tube {label} ({drive}, s=2^"
+        f"{s.bit_length() - 1}): resolved {got_variant} (expected {want}; stored "
+        f"{row['stored']}), launches {launched} (expected "
+        f"{want_launches}), rel L2 {err:.3e} vs numpy complex128 (bound "
+        f"{PATH_TOL}), {err_cuda:.3e} vs tube_cuda (bound {TUBE_TOL}); "
+        f"slope ms of one {'segment' if calls > 1 else 'call'}: "
+        f"tube_planned {planned_ms:.4f}, tube_cuda (rql) {cuda_ms:.4f}")
+    if not (got_variant == want and launched == want_launches
+            and err <= PATH_TOL and err_cuda <= TUBE_TOL):
+        raise AssertionError(f"phase 15 planned tube {label} failed")
+    if label == "n=2^20 p=64":
+        # the resolve fault on card planes: it re-raises, with no warning
+        # and nothing launched (the stage tube is a plain version, which
+        # card planes never fall back to); one firing, so the next call
+        # resolves its kernel again
+        from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+        from cs87project_msolano2_tpu_torch.resilience import (
+            InjectedFault,
+            classify,
+        )
+
+        os.environ["PIFFT_FAULT"] = "resolve:capacity:1.0:1"
+        buf = io.StringIO()
+        raised = None
+        try:
+            with contextlib.redirect_stderr(buf):
+                counted(planned, [(fr, fi)])
+        except InjectedFault as e:
+            raised = classify(e).value
+        finally:
+            os.environ.pop("PIFFT_FAULT")
+        faulted = {k: v for k, v in cf.launch_counts().items() if v}
+        warned = buf.getvalue().count("DEGRADED to the stage tube")
+        (fy,), after = counted(planned, [(fr, fi)])
+        nr, ni = to_natural(fy[0].reshape(-1), fy[1].reshape(-1))
+        got = nr.cpu().numpy().astype(np.complex128)
+        got.imag = ni.cpu().numpy()
+        e_after = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        log(f"# phase 15 PIFFT_FAULT=resolve:capacity:1.0:1 on {label}: "
+            f"raised {raised}, {warned} warning(s), launches {faulted}; "
+            f"the next call: launches {after}, rel L2 {e_after:.3e} vs "
+            f"numpy complex128")
+        row["resolve_fault"] = {"raised": raised, "warnings": warned,
+                                "launches": faulted,
+                                "next_launches": after,
+                                "next_rel_l2_numpy": e_after}
+        if not (raised == "capacity" and warned == 0 and faulted == {}
+                and after == want_launches and e_after <= PATH_TOL):
+            raise AssertionError("phase 15 resolve fault failed")
+    return row, launched
+
+
+def observed_pinning(x, p):
+    """{thread id: allowed cores} of the C core's pthreads workers, read
+    while they run: a pthreads run of `x` at `p` (a warm-up and three
+    timed runs, each starting its own workers) in a second thread, this
+    one polling ``/proc/self/task`` for threads that were not there
+    before and reading each one's affinity until it ends (the last read
+    is the one after the core set the thread's mask)."""
+    import threading
+
+    from cs87project_msolano2_tpu_torch.backends.cpu import NativeBackend
+
+    before = set(os.listdir("/proc/self/task"))
+    runner = []
+    done = threading.Event()
+
+    def run():
+        runner.append(str(threading.get_native_id()))
+        try:
+            NativeBackend("pthreads").run(x, p, reps=3, timers=False)
+        finally:
+            done.set()
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    seen = {}
+    while not done.is_set():
+        for tid in os.listdir("/proc/self/task"):
+            if tid in before:
+                continue
+            try:
+                seen[tid] = sorted(os.sched_getaffinity(int(tid)))
+            except OSError:
+                pass  # the worker ended between the listing and the read
+    thread.join()
+    for tid in runner:
+        seen.pop(tid, None)
+    return seen
+
+
+def phase_backends(dev, rng):
+    """Phase 15: the rest of the algorithm and its backends on the card.
+    (a) the planned tube (``models.pi_fft.tube_planned``) as the sharded
+    path runs it, on the plan store phases 8 and 14 wrote
+    (PLANNED_CASES), and the ``resolve`` fault; (b) the C core on the
+    card's host: ``-t`` on serial and pthreads, its capacity beside this
+    process's affinity and what its pinning does; (c) the harness on
+    serial, pthreads, torch-scan and einsum (BACKEND_SWEEPS, -T 3
+    --verify), every cell verified, none DEGRADED; (d) BASELINE config
+    1.  Returns (rows, the planned tube's launches); raises on any
+    failure."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cs87project_msolano2_tpu_torch.backends.cpu import (
+        NativeBackend,
+        num_cores,
+    )
+    from cs87project_msolano2_tpu_torch.cli import main as cli_main
+    from cs87project_msolano2_tpu_torch.harness import run_experiments
+    from cs87project_msolano2_tpu_torch.models.direct_dft import dft_direct
+
+    rows = {}
+    launches = {}
+    ref_cache = {}
+    for case in PLANNED_CASES:
+        t0 = time.perf_counter()
+        row, launched = planned_case(dev, rng, ref_cache, *case)
+        row["s"] = time.perf_counter() - t0
+        log(f"# phase 15 planned tube {case[0]}: {row['s']:.1f} s")
+        rows[f"planned {case[0]}"] = row
+        for name, c in launched.items():
+            launches[name] = launches.get(name, 0) + c
+        torch.cuda.empty_cache()
+    ref_cache.clear()
+    log(f"# phase 15 planned tube launches (counted, torch.fft refused): "
+        f"{launches}")
+
+    # (b) the C core on this host
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs = [cli_main(["-t", "-b", b]) for b in ("serial", "pthreads")]
+    golden = buf.getvalue().strip().splitlines()
+    for line in golden:
+        log(f"# phase 15 {line}")
+    allowed = sorted(os.sched_getaffinity(0))
+    cap = NativeBackend("pthreads").capacity()
+    cores = num_cores()
+    xp = rng.standard_normal(PINNING_N) + 1j * rng.standard_normal(PINNING_N)
+    workers = observed_pinning(xp, cap or 1)
+    masks = sorted({tuple(m) for m in workers.values()})
+    pinned = sum(len(m) == 1 for m in workers.values())
+    if not workers:
+        how = "no worker thread observed"
+    elif pinned == len(workers):
+        how = (f"every worker pinned to one core (cores "
+               f"{sorted({m[0] for m in workers.values()})})")
+    else:
+        how = (f"{len(workers) - pinned} of {len(workers)} workers "
+               f"unpinned (the core's fallback), masks {masks}")
+    log(f"# phase 15 C core on {host_cpu()}: pifft_capacity(pthreads) "
+        f"{cap}, pifft_num_cores {cores}, os.sched_getaffinity "
+        f"{len(allowed)} cores {allowed}; observed at p={cap}, n=2^"
+        f"{PINNING_N.bit_length() - 1}: {len(workers)} worker threads, "
+        f"{how}; golden exits {rcs} in {time.perf_counter() - t0:.1f} s")
+    rows["c_core"] = {"capacity": cap, "num_cores": cores,
+                      "affinity": allowed, "workers_seen": len(workers),
+                      "workers_pinned": pinned,
+                      "worker_masks": [list(m) for m in masks],
+                      "golden": golden}
+    if rcs != [0, 0] or len(golden) != 8 or \
+            any(not line.endswith("PASSED") for line in golden):
+        raise AssertionError("phase 15 C core golden test failed")
+
+    # (c) the harness on the new backends, in this process
+    out = tempfile.mkdtemp(prefix="pifft-harness15-")
+    sweeps = {}
+    try:
+        for backend, ns, ps in BACKEND_SWEEPS:
+            t0 = time.perf_counter()
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                rc = run_experiments.main(
+                    ["--backends", backend, "--n-grid",
+                     ",".join(map(str, ns)), "--p-grid",
+                     ",".join(map(str, ps)), "-T", "3", "--verify",
+                     "--seed", str(SEED), "--out", out])
+            took = time.perf_counter() - t0
+            path = run_experiments.result_path(out, backend)
+            with open(path) as f:
+                tsv = [line.rstrip("\n") for line in f]
+            for line in tsv:
+                log(f"# phase 15 harness tsv {backend}\t{line}")
+            cap_b = NativeBackend(backend).capacity() \
+                if backend in ("serial", "pthreads") else None
+            cells = [(n, p) for n in ns for p in ps
+                     if p <= n and (cap_b is None or p <= cap_b)]
+            verified = [line for line in err.getvalue().splitlines()
+                        if line.startswith(f"# {backend}: verified")]
+            marked = [line for line in tsv if line.endswith("DEGRADED")]
+            log(f"# phase 15 harness {backend}: exit {rc} in {took:.1f} s, "
+                f"{len(tsv)} rows, {len(cells)} cells, DEGRADED rows "
+                f"{len(marked)}, {verified}")
+            sweeps[backend] = {"s": took, "tsv": tsv, "cells": cells}
+            if (rc != 0 or len(tsv) != 3 * len(cells) or marked
+                    or verified != [f"# {backend}: verified {len(cells)}/"
+                                    f"{len(cells)} cells vs numpy fft "
+                                    f"(0 skipped)"]):
+                log(err.getvalue()[-4000:])
+                raise AssertionError(f"phase 15 harness {backend} failed")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    rows["harness"] = sweeps
+
+    # (d) BASELINE config 1: the float64 direct DFT at N = 1024
+    x1 = rng.standard_normal(1024) + 1j * rng.standard_normal(1024)
+    y1 = dft_direct(x1, np.complex128)
+    ref1 = np.fft.fft(x1)
+    e1 = float(np.linalg.norm(y1 - ref1) / np.linalg.norm(ref1))
+    log(f"# phase 15 BASELINE config 1 dft_direct N=1024 complex128: rel "
+        f"L2 {e1:.3e} vs numpy.fft (bound {CONFIG1_TOL}), dtype "
+        f"{y1.dtype}")
+    rows["config1"] = {"rel_l2": e1}
+    if not (e1 <= CONFIG1_TOL and y1.dtype == np.complex128):
+        raise AssertionError("phase 15 config 1 failed")
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -812,10 +1224,12 @@ def run(store) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     kind = torch.cuda.get_device_name(0)
+    clock = PhaseClock()
 
     def bound_ms(nbytes, flops, bf16_flops=0):
         return roofline.bound_ms(nbytes, flops, kind, bf16_flops)
 
+    clock.start("phase 1")
     # phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -826,6 +1240,7 @@ def run(store) -> int:
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    clock.start("phase 2")
     # phase 2: build the kernels from csrc/
     t0 = time.perf_counter()
     buildlib.build()
@@ -839,6 +1254,7 @@ def run(store) -> int:
                     or "spill" in line or "Compiling entry" in line:
                 log(f"# ptxas {line.strip()}")
 
+    clock.start("phase 3")
     # phase 3: each kernel vs its plain version at the main path's shapes
     R, T = 64, 1 << 14
     cases = {}
@@ -887,10 +1303,18 @@ def run(store) -> int:
         check_kernel(label, cf.tile_fft, cf.tile_fft_plain,
                      (*xt, *flat_tables(tile, dev)))
         cases[label].pop("args")
+    # the row counts at 2^13 and 2^14 that give a blocking not checked
+    # yet (the main path's 64 x 2^14 and 128 x 2^13 above, the
+    # 2^22-point checks just run): one check for each blocking
+    checked = {(T, cf.tile_blocking(R, T, sms)),
+               (T // 2, cf.tile_blocking(128, T // 2, sms)),
+               (T, tile_blocks[T]), (T // 2, tile_blocks[T // 2])}
     for tile in (1 << 13, 1 << 14):
         by_blocking = {}
         for rows in TILE_CLUSTER_ROWS:
-            by_blocking.setdefault(cf.tile_blocking(rows, tile, sms), rows)
+            auto = cf.tile_blocking(rows, tile, sms)
+            if (tile, auto) not in checked:
+                by_blocking.setdefault(auto, rows)
         for auto, rows in by_blocking.items():
             tile_blocks[f"{rows}x{tile}"] = auto
             xt = random_complex(rng, (rows, tile), dev)
@@ -1305,6 +1729,7 @@ def run(store) -> int:
     # the main path, counted: config 2, config 3, the paper's backend
     cf.reset_launch_counts()
 
+    clock.start("phase 4")
     # phase 4: config 2 — one N=2^20 complex64 fft through the rql plan
     n2 = 1 << 20
     x2 = torch.complex(*random_complex(rng, (n2,), dev))
@@ -1327,6 +1752,7 @@ def run(store) -> int:
             and y2.shape == (n2,) and torch.isfinite(y2).all()):
         raise AssertionError("config 2 out of tolerance")
 
+    clock.start("phase 5")
     # phase 5: config 3 — 4096 rows of 4096 points through the rows plan
     x3r, x3i = random_complex(rng, (4096, 4096), dev)
     pl3 = plans.plan_for((4096, 4096), device=dev)
@@ -1348,6 +1774,7 @@ def run(store) -> int:
         raise AssertionError("config 3 out of tolerance")
     del x3r, x3i, y3r, y3i, y3, ref3
 
+    clock.start("phase 6")
     # phase 6: the paper's path — funnel + tube on the kernels, n=2^20
     x = make_input(n2, SEED)
     ref = np.fft.fft(x.astype(np.complex128))
@@ -1384,6 +1811,7 @@ def run(store) -> int:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never launched: {launches}")
 
+    clock.start("phase 6b")
     # phase 6b: the large-n 1-D path, counted — fft in natural order on
     # the fourstep and sixstep plans, one launch of one kernel each
     def counts():
@@ -1443,6 +1871,7 @@ def run(store) -> int:
     launches.update(fourstep=large_launches["fourstep"],
                     sixstep=large_launches["sixstep"])
 
+    clock.start("phase 7")
     # phase 7: times per call — the loop slope (device time per call,
     # no host work between calls, operands cold), and beside it the
     # CUDA-event median of REPS calls with the L2 flushed (what a caller
@@ -1452,6 +1881,18 @@ def run(store) -> int:
                        before=before)[0]
 
     timings = {}
+    library_seen = {}
+
+    def library_times(lib):
+        """(slope ms, event ms) of the library call ``lib[0](*lib[1:])``,
+        read once for each function and operand shapes: torch.fft's time
+        does not depend on the values, so rows that share a shape share
+        the reading"""
+        fn, *args = lib
+        key = (fn, tuple((tuple(a.shape), a.dtype) for a in args))
+        if key not in library_seen:
+            library_seen[key] = (slope_ms(*lib), timed(*lib))
+        return library_seen[key]
 
     def kernel_row(label, kernel, plain, args, nbytes, flops, lib,
                    plain_reps=REPS, bf16_flops=0, bound_flops=None):
@@ -1467,8 +1908,8 @@ def run(store) -> int:
         dev_ms = device_ms(kernel, *args)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0]
-        lib_ms = slope_ms(*lib) if lib is not None else None
-        lib_event_ms = timed(*lib) if lib is not None else None
+        lib_ms, lib_event_ms = library_times(lib) if lib is not None \
+            else (None, None)
         bms, by = bound_ms(nbytes, flops if bound_flops is None
                            else bound_flops, bf16_flops)
         timings[label] = {"ms": ms, "event_ms": event_ms,
@@ -1534,14 +1975,12 @@ def run(store) -> int:
         for qb in (1, 2):
             for cw in FUSED_CWS:
                 run_f = (lambda *a, qb=qb, cw=cw: cf.fused(*a, qb=qb, cw=cw))
-                fused_by[f"qb={qb} cw={cw}"] = {
-                    "ms": timed(run_f, *f_args),
-                    "device_ms": device_ms(run_f, *f_args)}
+                fused_by[f"qb={qb} cw={cw}"] = {"ms": timed(run_f, *f_args)}
         timings[f"{name} blocking"] = {"auto": {"qb": qbf, "cw": cwf},
                                        "ms": fused_by}
         log(f"# phase 7 {name}({Rf},{tf}) by blocking (automatic qb={qbf} "
-            f"cw={cwf}), CUDA events / device: "
-            + ", ".join(f"{k}: {v['ms']:.4f} / {ms_text(v['device_ms'])} ms"
+            f"cw={cwf}), CUDA events: "
+            + ", ".join(f"{k}: {v['ms']:.4f} ms"
                         for k, v in fused_by.items()))
 
     # fourstep at 2^22 and 2^24 and sixstep at 2^25 and 2^27: bytes are
@@ -1586,8 +2025,7 @@ def run(store) -> int:
         event_ms = timed(fn, *args, before=before)
         plain_ms = time_ms(plain, *args, reps=plain_reps, warmup=1,
                            flush_l2=True)[0] if plain is not None else None
-        lib_ms = slope_ms(*lib)
-        lib_event_ms = timed(*lib)
+        lib_ms, lib_event_ms = library_times(lib)
         nbytes = roofline.fft_min_hbm_bytes(n) * count
         flops = 5 * n * int(np.log2(n)) * count
         bms, by = bound_ms(nbytes, flops)
@@ -1764,15 +2202,12 @@ def run(store) -> int:
                           min(2048 // n, rows) or 1,
                           cf.MAX_SMEM_TILE // n}):
             run_g = (lambda *t, br=br: cf.gpu_rows(*t, block_rows=br))
-            row[br] = {"ms": timed(run_g, *a),
-                       "device_ms": device_ms(run_g, *a)}
+            row[br] = {"ms": timed(run_g, *a)}
         blocking[f"{rows}x{n}"] = {"auto": cf.gpu_rows_blocking(rows, n),
                                    "ms_by_block_rows": row}
         log(f"# phase 7 gpu_rows({rows},{n}) by block_rows (automatic "
-            f"{cf.gpu_rows_blocking(rows, n)}), CUDA events / device: "
-            + ", ".join(f"{br}: {v['ms']:.4f} / "
-                        f"{ms_text(v['device_ms'])} ms"
-                        for br, v in row.items()))
+            f"{cf.gpu_rows_blocking(rows, n)}), CUDA events: "
+            + ", ".join(f"{br}: {v['ms']:.4f} ms" for br, v in row.items()))
     timings["gpu_rows blocking"] = blocking
 
     # the bf16 storage instantiations at the shapes phase 3 checked them,
@@ -1836,6 +2271,7 @@ def run(store) -> int:
                  5 * k << k, 1, 1 << k,
                  PLAIN_REPS_2_27 if k == 27 else REPS)
 
+    clock.start("phase 7b")
     # phase 7b: device time of one natural-order large-n fft by kernel,
     # from torch.profiler, and the card's idle share of that call
     profiles = {}
@@ -1859,6 +2295,7 @@ def run(store) -> int:
             + "; ".join(f"{name} {ms:.4f}" for name, ms in top))
         del xl
 
+    clock.start("phase 8")
     # phase 8: the tuned path, counted — the race at N=2^20 (pi layout),
     # the opted-in race of the natural-order key that fft's plan lookup
     # runs on a miss, then fft served by the stored winner
@@ -2018,6 +2455,7 @@ def run(store) -> int:
         raise AssertionError(f"the sweep raced no carry kernel: "
                              f"{sweep_launches}")
 
+    clock.start("phase 9")
     # phase 9: the matmul funnel, counted — fft through Plan(key, "mf")
     # at N=2^20 in pi and natural order, in every fp32-storage mode, each
     # call one launch of matmul_funnel and one of tile_fft
@@ -2064,6 +2502,7 @@ def run(store) -> int:
     log(f"# mf path launches: {mf_launches}")
     launches.update(matmul_funnel=mf_launches["matmul_funnel"])
 
+    clock.start("phase 10")
     # phase 10: the gpu backend, counted — plan_for(..., backend="gpu")
     # at config 3 and at 64 rows of 2^18 (gpu-rows), 2^20 (gpu-stages),
     # the refused pi-layout 2^20 key, then a race of the 4096 x 4096 key
@@ -2150,6 +2589,7 @@ def run(store) -> int:
                            "entries": [r.to_record()
                                        for r in tuned_gpu.tuning]}
 
+    clock.start("phase 11")
     # phase 11: the bf16 storage mode at full size, counted — each shape
     # of BF16_PATHS through the plan layer (its static plan, or a Plan
     # built with its variant) in natural order (fft, or fft_planes_fast
@@ -2302,14 +2742,28 @@ def run(store) -> int:
                                  "storage_bytes": tuned16.storage_bytes(),
                                  "entries": race16}
 
+    clock.start("phase 12")
     # phase 12: the real and any-length domains
     domains = phase_domains(dev, rng, timed)
 
     # no plan of phases 4-12 demoted, then phase 13: the resilience
     # layer; phase 14: the bench and the harness sweep
     no_demotions("before phase 13")
+    clock.start("phase 13")
     resilience = phase_resilience(dev, rng)
+    clock.start("phase 14")
     measurement, harness_tsv = phase_measurement(dev)
+    # phase 15: the planned tube, the C core, the new backends' sweeps
+    # and config 1
+    clock.start("phase 15")
+    backends15, planned_launches = phase_backends(dev, rng)
+    clock.start(None)
+    log(f"# seconds by phase: {clock.seconds}; all phases "
+        f"{sum(clock.seconds.values()):.1f} s")
+    for name in ("sixstep", "tile_fft"):
+        if not planned_launches.get(name):
+            raise AssertionError(f"the planned tube never launched {name}: "
+                                 f"{planned_launches}")
 
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
@@ -2356,7 +2810,8 @@ def run(store) -> int:
             "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "planned_tube_launches": planned_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -2366,7 +2821,8 @@ def run(store) -> int:
                     "gpu_backend": gpu_backend, "hw_probe": hw,
                     "bf16": bf16_path, "domains": domains,
                     "resilience": resilience, "bench": measurement,
-                    "harness_tsv": harness_tsv,
+                    "harness_tsv": harness_tsv, "backends": backends15,
+                    "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),
                               "winner_natural": tuned_nat.describe(),

@@ -1,2 +1,3 @@
-"""Backends behind the reference's run contract: ``torch`` (the plain
-funnel/tube) and ``cuda`` (the funnel, then the tube on the kernels)."""
+"""Backends behind the reference's run contract: the native C core
+(``serial``, ``pthreads``) and the tensor backends (``torch``,
+``torch-scan``, ``torch-unrolled``, ``cuda``, ``einsum``)."""

@@ -13,7 +13,8 @@ bench's record format (``bench.py`` at the repository root):
      "library": "torch.fft.fft", "library_fft_ms": ...,
      "vs_library_fft": ..., "roofline_util": ..., ...,
      "n2^22_ms": ..., "n2^22_vs_library": ..., "rfft2^22_ms": ...,
-     "bf16_2^22_ms": ..., ..., "gpu2^8_ms": ..., ...}
+     "bf16_2^22_ms": ..., ..., "gpu2^8_ms": ..., "cpun2^8_ms": ..., ...,
+     "c_ms": ..., "vs_baseline": ...}
 
 * vs_library_fft / n2^K_vs_library — library time over the port's:
   above 1 the port is faster than ``torch.fft.fft`` on the same card.
@@ -26,8 +27,17 @@ bench's record format (``bench.py`` at the repository root):
   at the domain's and storage's minimum traffic (``roofline_util``),
   its share of the ceiling, and the bytes the plan declares
   (``utils.roofline.fft_hbm_bytes``; no counter meters them yet).
-* ``gpu2^K_*`` — the same pi-layout shape under the ``gpu`` plan backend
-  (``hw.lowering``) at BACKEND_ROW_LOGNS, tagged backend "gpu".
+* ``gpu2^K_*`` and ``cpun2^K_*`` — the same pi-layout shape under the
+  ``gpu`` and ``cpu-native`` plan backends (``hw.lowering``) at
+  BACKEND_ROW_LOGNS, tagged with their backend; a cpun row's share of
+  the bound is against the host's DRAM ceiling
+  (``hw.inventory.peak_bytes_per_s("cpu-native")``).
+* c_ms / vs_baseline — the native C core's time at the flagship N
+  (``measure_c_baseline_ms``: pthreads, p the largest power of two not
+  above the core's ``pifft_num_cores``, best of 3 by total_ms, on the
+  host) and that time over the flagship's: above 1 the card is faster
+  than the C baseline.  Left out of ``--smoke`` runs, whose toy-n
+  flagship makes the ratio meaningless, as the reference leaves it.
 
 Timing is the race's: ``plans.measured_ms`` — a freshly raced winner's
 loop slope, else the stored or static plan timed by
@@ -35,7 +45,8 @@ loop slope, else the stored or static plan timed by
 rotating over copies of the planes), a plan that demoted while timed
 re-raced once.  Keys the plan store lacks are raced first, as the
 reference races the keys its cache lacks.  The library rows take
-``utils.timing.slope_ms``.
+``utils.timing.slope_ms``.  The cpun rows run on the host, so their race
+and time are the host clock's (``plans.autotune.default_timer``).
 
 Resilience: every measurement runs under ``resilience.call_with_retry``
 (TRANSIENT faults retried, the rest straight through) after a
@@ -54,9 +65,9 @@ holds on the CPU, where the chain ends on the library rungs.  On the
 card the chain ends at rql, so every kernel refusing leaves nothing to
 serve; the card's chaos run caps the fault at one firing
 (``PIFFT_FAULT=tube:capacity:1.0:1``) and the flagship lands on rql.  The
-reference's conv / overlap-save rows, its C-core baseline, the serving
-suites and the event and trace outputs are not ported yet; nor is its
-smoke-only forced sixstep cell.
+reference's conv / overlap-save rows, the serving suites and the event
+and trace outputs come with the apps and serving; its smoke-only forced
+sixstep cell is left out (the card's 2^25-2^27 rows run sixstep).
 """
 
 from __future__ import annotations
@@ -73,8 +84,11 @@ LARGE_LOGNS = (22, 24, 25, 26, 27)
 SMOKE_N = 1 << 12
 SMOKE_LARGE_LOGNS = (13,)
 
-#: the gpu backend's rows, at bounded n in every tier, as the reference
+#: the gpu and cpu-native backends' rows, at bounded n in every tier, as
+#: the reference
 BACKEND_ROW_LOGNS = (8, 10)
+BACKEND_ROW_BACKENDS = ("gpu", "cpu-native")
+BACKEND_ROW_PREFIX = {"gpu": "gpu", "cpu-native": "cpun"}
 
 #: the library transform every c2c row is compared with
 LIBRARY = "torch.fft.fft"
@@ -177,7 +191,9 @@ def _row_fields(tag: str, nn: int, ms: float, plan, domain: str = "c2c",
     """The fields every row kind shares: ms, GFLOP/s on the given flop
     count, the plan, the degraded flag, and the roofline figures of the
     variant or rung that served (a demoted row is judged by its rung's
-    carries), at the served plan's storage width."""
+    carries), at the served plan's storage width, against the ceiling of
+    the plan's backend (``hw.inventory.peak_bytes_per_s``)."""
+    from .hw.inventory import peak_bytes_per_s
     from .utils.roofline import (
         fft_hbm_bytes,
         plan_carry_passes,
@@ -199,8 +215,9 @@ def _row_fields(tag: str, nn: int, ms: float, plan, domain: str = "c2c",
     storage = plan.storage_bytes()
     out[f"{tag}_hbm_bytes"] = fft_hbm_bytes(nn, passes or 0, domain,
                                             storage)
-    util = roofline_utilization(nn, ms, plan.key.device_kind, domain,
-                                storage)
+    util = roofline_utilization(
+        nn, ms, plan.key.device_kind, domain, storage,
+        peak=peak_bytes_per_s(plan.key.backend, plan.key.device_kind))
     if util is not None:
         out[f"{tag}_roofline_util"] = round(util, 3)
         if ceil:
@@ -307,25 +324,41 @@ def measure_precision_row(logn: int, mode: str, device,
     return out
 
 
-def measure_backend_row(logn: int, device, smoke: bool = False) -> dict:
-    """The pi-layout c2c row at n = 2^logn under the ``gpu`` plan
-    backend (``hw.lowering``), tagged backend "gpu"."""
+def measure_backend_row(logn: int, backend: str, device,
+                        smoke: bool = False) -> dict:
+    """The pi-layout c2c row at n = 2^logn under the plan backend
+    `backend` (``hw.lowering``: "gpu" or "cpu-native"), tagged with
+    it."""
     from . import plans
 
     nn = 1 << logn
-    tag = f"gpu2^{logn}"
-    key = plans.make_key(nn, layout="pi", backend="gpu", device=device)
+    tag = f"{BACKEND_ROW_PREFIX[backend]}2^{logn}"
+    key = plans.make_key(nn, layout="pi", backend=backend, device=device)
     try:
         ms, plan = _measure(key, device, smoke, SEED_BACKEND,
-                            f"gpu n={nn}")
+                            f"{backend} n={nn}")
     except Exception as e:
-        return _warn_row(f"gpu 2^{logn}", e)
+        return _warn_row(f"{backend} 2^{logn}", e)
     out = _row_fields(tag, nn, ms, plan)
-    out[f"{tag}_backend"] = "gpu"
+    out[f"{tag}_backend"] = backend
     if smoke:
         out[f"{tag}_parity_relerr"] = _pi_parity(plan, nn, SEED_BACKEND,
                                                  device)
     return out
+
+
+def measure_c_baseline_ms() -> float:
+    """The C baseline (the reference's ``measure_c_baseline_ms``): the
+    native core's pthreads variant at N, p the largest power of two not
+    above ``pifft_num_cores``, best of 3 by total_ms, on the host."""
+    from .backends.cpu import NativeBackend, num_cores
+    from .cli import make_input
+
+    p = 1
+    while p * 2 <= num_cores():
+        p *= 2
+    return NativeBackend("pthreads").run(make_input(N, seed=0), p,
+                                         reps=3).total_ms
 
 
 def main(argv=None) -> int:
@@ -420,10 +453,16 @@ def main(argv=None) -> int:
             rows.update(cell(f"{prefix}2^{logn}",
                              lambda logn=logn, measure=measure: measure(
                                  logn, device, smoke=args.smoke)))
-    for logn in BACKEND_ROW_LOGNS:
-        rows.update(cell(f"gpu2^{logn}",
-                         lambda logn=logn: measure_backend_row(
-                             logn, device, smoke=args.smoke)))
+    for backend in BACKEND_ROW_BACKENDS:
+        for logn in BACKEND_ROW_LOGNS:
+            rows.update(cell(
+                f"{BACKEND_ROW_PREFIX[backend]}2^{logn}",
+                lambda logn=logn, backend=backend: measure_backend_row(
+                    logn, backend, device, smoke=args.smoke)))
+    # the C baseline runs at the full flagship N: against a smoke run's
+    # toy-n flagship the ratio would mean nothing, so smoke omits it
+    c_ms = None if args.smoke else cell(
+        "c_baseline", lambda: {"c_ms": measure_c_baseline_ms()})["c_ms"]
 
     ms = flagship["ms"]
     lib_ms = library.get("library_ms")
@@ -456,6 +495,9 @@ def main(argv=None) -> int:
     if lib_ms is not None:
         record["library_fft_ms"] = round(lib_ms, 4)
         record["vs_library_fft"] = round(lib_ms / ms, 2)
+    if c_ms is not None:
+        record["c_ms"] = round(c_ms, 4)
+        record["vs_baseline"] = round(c_ms / ms, 1)
     record.update(rows)
     emit_record(record)
     return 0

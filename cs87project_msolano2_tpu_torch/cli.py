@@ -2,18 +2,25 @@
 
     python -m cs87project_msolano2_tpu_torch -n 1048576 -p 4 -b cuda --verify
     python -m cs87project_msolano2_tpu_torch -t -b cuda
+    python -m cs87project_msolano2_tpu_torch -n 65536 -p 4 -b pthreads
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
-        [--backend {cuda,gpu}]
+        [--backend {cuda,gpu,cpu-native}]
     python -m cs87project_msolano2_tpu_torch hw probe [--json | -v | --cores]
     python -m cs87project_msolano2_tpu_torch faults {list|inject <spec>}
 
 The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
-tube_ms); ``-t`` runs the exact 8-point golden test for p in {1,2,4,8};
+tube_ms) for any backend of the registry (``-b``: the native C core's
+``serial``/``pthreads``/``cpu`` on the host, the tensor backends
+``torch``, ``torch-scan``, ``torch-unrolled``, ``cuda`` and ``einsum``);
+``-t`` runs the 8-point golden test for p in {1,2,4,8} (the C core's
+own, ``pifft_golden_test``, for the native backends; exact, or within
+the backend's ``golden_atol``);
 ``plan`` manages the persistent plan store (``plans.cache``); ``hw
 probe`` prints the device inventory (``hw.inventory``); ``faults``
 lists the fault-injection sites or runs one transform under an injected
 fault and says how the retry and degradation policies carried it
-(``resilience``).  Runs on the card unless ``--device cpu`` is given.
+(``resilience``).  The tensor backends run on the card unless
+``--device cpu`` is given; a p above a backend's capacity is refused.
 """
 
 from __future__ import annotations
@@ -37,12 +44,17 @@ def make_input(n: int, seed: int = 0) -> np.ndarray:
 
 
 def run_golden(backend_name: str, device=None) -> int:
+    """The golden test at p in {1, 2, 4, 8}: the C core's own for the
+    native backends, else one run checked within ``golden_atol``."""
     b = get_backend(backend_name, device)
     ok_all = True
     for p in (1, 2, 4, 8):
-        res = b.run(verify.golden_input(), p)
-        nat = verify.pi_layout_to_natural(res.out)
-        ok = verify.golden_check_tol(nat, b.golden_atol)
+        if hasattr(b, "golden_test"):
+            ok = b.golden_test(p)
+        else:
+            res = b.run(verify.golden_input(), p)
+            nat = verify.pi_layout_to_natural(res.out)
+            ok = verify.golden_check_tol(nat, b.golden_atol)
         print(f"golden test: backend={backend_name} n=8 p={p} ... "
               f"{'PASSED' if ok else 'FAILED'}")
         ok_all &= ok
@@ -95,10 +107,12 @@ def plan_main(argv) -> int:
                          "rides the c2c plan at n/2")
     ap.add_argument("--force", action="store_true",
                     help="warm/sweep: re-tune even on a cache hit")
-    ap.add_argument("--backend", choices=("cuda", "gpu"), default=None,
+    ap.add_argument("--backend", choices=("cuda", "gpu", "cpu-native"),
+                    default=None,
                     help="plan backend: cuda (the port's kernels, the "
-                         "default for warm/sweep) or gpu (hw.lowering); "
-                         "show lists every backend unless one is given")
+                         "default for warm/sweep), gpu or cpu-native "
+                         "(hw.lowering); show lists every backend unless "
+                         "one is given")
     args = ap.parse_args(argv)
 
     from . import plans
@@ -326,12 +340,14 @@ def main(argv=None) -> int:
     ap.add_argument("-b", "--backend", default="cuda",
                     choices=list_backends())
     ap.add_argument("--reps", type=int, default=1,
-                    help="timed repetitions (median)")
+                    help="timed repetitions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verify", action="store_true",
                     help="also check the result against numpy's FFT")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu (plain versions)")
+                    help="the tensor backends' device: cuda (default) or "
+                         "cpu (plain versions); the native core runs on "
+                         "the host")
     args = ap.parse_args(argv)
 
     if args.t:
@@ -341,6 +357,11 @@ def main(argv=None) -> int:
         return 2
 
     b = get_backend(args.backend, args.device)
+    cap = b.capacity()
+    if cap is not None and args.p > cap:
+        print(f"error: p={args.p} exceeds backend '{args.backend}' "
+              f"capacity {cap}", file=sys.stderr)
+        return 2
     x = make_input(args.n, args.seed)
     try:
         res = b.run(x, args.p, reps=args.reps)

@@ -18,9 +18,16 @@ deleted TSV takes its journal with it).  Every cell runs under
 probe: TRANSIENT faults retry on the 30/60/120 s ladder, CAPACITY and
 PERMANENT ones (ValueError's infeasible cell among them) re-raise at
 once.  All timing runs before any verification, as in the reference.
-The backends are ``torch`` (the plain funnel and stage tube) and
-``cuda`` (the funnel as tensor ops, the tube on the kernels), on the
-card unless ``--device cpu``.
+The backends are the registry's (``backends.registry``): the native C
+core's ``serial`` and ``pthreads`` (``cpu``) on the host, and the tensor
+backends ``torch`` (the plain funnel and stage tube), ``torch-scan``
+(the constant-geometry tube), ``torch-unrolled``, ``cuda`` (the funnel
+as tensor ops, the tube on the kernels) and ``einsum`` (the phased
+einsum model), on the card unless ``--device cpu``.  Each backend's
+capacity is probed and the p-grid clipped to it (the reference's
+probe-and-clip: ``pthreads`` takes at most the core's
+``pifft_capacity``); a cell the backend refuses (an einsum cell past
+its capacity) is skipped with a note.
 """
 
 from __future__ import annotations
@@ -92,8 +99,8 @@ def done_counts(path: str, journal: Journal | None = None) -> Counter:
 def grid_cells(backend_name: str, ns: list[int], ps: list[int],
                device=None):
     """(backend, cells): every (n, p) of the grids with p <= n, p
-    clipped to the backend's capacity where it has one (the port's
-    virtual processors have none)."""
+    clipped to the backend's capacity where it has one (the native
+    ``pthreads`` core's; virtual processors have none)."""
     backend = get_backend(backend_name, device)
     cap = backend.capacity()
     ps_eff = [p for p in ps if cap is None or p <= cap]
@@ -209,7 +216,9 @@ def main(argv=None) -> int:
              "run_experiments",
         description=__doc__.splitlines()[0])
     ap.add_argument("--backends", default="cuda",
-                    help="comma-separated backend list (torch, cuda)")
+                    help="comma-separated backend list (serial, pthreads, "
+                         "cpu, torch, torch-scan, torch-unrolled, cuda, "
+                         "einsum)")
     ap.add_argument("--n-grid", default="1024..8192",
                     help="'a,b,c' or 'lo..hi' powers of two")
     ap.add_argument("--p-grid", default="1..32")

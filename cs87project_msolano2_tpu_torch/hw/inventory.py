@@ -28,6 +28,10 @@ from typing import Optional
 #: field rename or removal; additions are compatible
 INVENTORY_SCHEMA = 1
 
+#: the host DRAM ceiling of the cpu-native backend, GB/s, where
+#: PIFFT_DRAM_GBPS does not say (the reference's DRAM_DEFAULT_GBPS)
+DRAM_DEFAULT_GBPS = 50
+
 
 def cpu_cores() -> int:
     """Cores this process may run on (its affinity mask where the
@@ -41,16 +45,24 @@ def cpu_cores() -> int:
 def peak_bytes_per_s(backend: str,
                      device_kind: str = "") -> Optional[float]:
     """The memory-bandwidth ceiling (bytes/s) the roofline divides by
-    for a plan backend on the card named `device_kind`: both port
-    backends ("cuda", "gpu") run on the card, so its data-sheet HBM
-    rate (``utils.roofline.peak_bytes_per_s``); None for an unknown
-    card or any other backend (timings there mean nothing)."""
-    from ..plans.core import BACKENDS
+    for a plan backend on the card named `device_kind`: "cuda" and
+    "gpu" run on the card, so its data-sheet HBM rate
+    (``utils.roofline.peak_bytes_per_s``, None for an unknown card);
+    "cpu-native" runs on the host, so PIFFT_DRAM_GBPS GB/s where it
+    parses, else DRAM_DEFAULT_GBPS (the reference's rule); None for any
+    other backend."""
     from ..utils.roofline import peak_bytes_per_s as card_peak
 
-    if backend not in BACKENDS:
-        return None
-    return card_peak(device_kind)
+    if backend in ("cuda", "gpu"):
+        return card_peak(device_kind)
+    if backend == "cpu-native":
+        env = os.environ.get("PIFFT_DRAM_GBPS", "").strip()
+        try:
+            gbps = float(env) if env else DRAM_DEFAULT_GBPS
+        except ValueError:
+            gbps = DRAM_DEFAULT_GBPS
+        return gbps * 1e9
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,7 +197,9 @@ def main(argv=None) -> int:
                                       "probe", description="capacity probes")
     ap.add_argument("-v", action="store_true", help="verbose device info")
     ap.add_argument("--cores", action="store_true",
-                    help="print the host's core count instead")
+                    help="print the host's core count instead (the cores "
+                         "this process may use, then the C core's "
+                         "pifft_num_cores)")
     ap.add_argument("--json", action="store_true",
                     help="print the full typed inventory as JSON")
     args = ap.parse_args(argv)
@@ -193,7 +207,10 @@ def main(argv=None) -> int:
         print(probe().to_json())
         return 0
     if args.cores:
+        from ..backends.cpu import num_cores
+
         print(cpu_cores())
+        print(f"pifft_num_cores {num_cores()}")
         return 0
     count = _card_count()
     if args.v and count:

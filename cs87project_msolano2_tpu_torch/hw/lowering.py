@@ -1,5 +1,5 @@
-"""The ``gpu`` plan backend: the reference's ``hw/lowering.py`` gpu
-family, on the port's own kernel.
+"""The ``gpu`` and ``cpu-native`` plan backends: the reference's
+``hw/lowering.py`` families, the gpu one on the port's own kernel.
 
 ``plans.ladder`` dispatches here for keys whose ``backend`` is "gpu";
 the variant names are disjoint from the ``cuda`` family's, so a stored
@@ -28,8 +28,19 @@ n) is not a power of two raises, as the reference's static default
 does (its any-length variants are the ``cuda`` family's).  A key in
 bf16 mode gets what the reference's gpu family gives it: the same candidates and default, run in float32 (the gpu
 family has no narrow storage, so ``Plan.storage_bytes`` charges 4
-bytes); the reference's ``cpu-native`` family is not ported
-(``plans.core`` refuses the backend).
+bytes).
+
+``plans.ladder`` dispatches "cpu-native" keys here too: the reference's
+cpu-native family (hw/lowering.py:158-359), the native C core as a
+ladder rung.  Its one variant, ``cpu-native``, runs each row of the
+planes through the core's pthreads variant on the host
+(``backends.cpu.NativeBackend``) with `p` virtual processors, the raced
+parameter (the paper's p sweep as a plan axis): capacity first
+(``native_capacity_p``), then one halving, then 1.  The planes go to
+the host and the result comes back to their device.  Where the core
+cannot be built the rung raises the build error
+(``resilience.KernelBuildError``, which the degradation chain never
+demotes): unlike the reference's rung it has no numpy stand-in.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from ..ops.cuda_fft import (
     gpu_rows_plain,
 )
 from ..plans.core import PlanKey, offline_kind
+from ..utils.device import as_planes
 
 #: above this n the static default serves ``gpu-rows`` only to a key
 #: that names a card (the reference's bound, hw/lowering.py:42)
@@ -115,8 +127,8 @@ def _nrows(key: PlanKey) -> int:
 
 
 def _check_key(key: PlanKey) -> None:
-    # the precision mode is not checked: the gpu family serves every
-    # mode in float32, as the reference's does
+    # the precision mode is not checked: the gpu and cpu-native families
+    # serve every mode in float32, as the reference's do
     if key.domain != "c2c" or not is_power_of_two(key.n):
         raise ValueError(
             f"backend={key.backend!r} serves power-of-two c2c (and the "
@@ -144,6 +156,10 @@ def candidates(key: PlanKey) -> list:
     if sub is not None:
         return candidates(sub)
     _check_key(key)
+    if key.backend == "cpu-native":
+        cap = native_capacity_p(key.n)
+        return [("cpu-native", {"p": p})
+                for p in sorted({cap, max(cap // 2, 1), 1}, reverse=True)]
     cands = []
     if 2 <= key.n <= GPU_ROWS_MAX_N:
         cands.append(("gpu-rows", {"block_rows": None}))
@@ -164,6 +180,8 @@ def static_default(key: PlanKey):
     if sub is not None:
         return static_default(sub)
     _check_key(key)
+    if key.backend == "cpu-native":
+        return "cpu-native", {"p": native_capacity_p(key.n)}
     small = 2 <= key.n <= GPU_ROWS_STATIC_MAX_N
     large_ok = (2 <= key.n <= GPU_ROWS_MAX_N
                 and not offline_kind(key.device_kind))
@@ -190,6 +208,11 @@ def build_executor(key: PlanKey, variant: str, params: dict):
                                   key.domain, key.n)
     _check_key(key)
     natural = key.layout == "natural"
+    if key.backend == "cpu-native":
+        if variant != "cpu-native":
+            raise ValueError(f"unknown {key.backend} plan variant "
+                             f"{variant!r}")
+        return _native_executor(key.n, int(params.get("p") or 1), natural)
     if variant == "gpu-stages":
         if not natural:
             raise ValueError("the stage path only produces natural order")
@@ -206,3 +229,51 @@ def build_executor(key: PlanKey, variant: str, params: dict):
         return to_natural(yr, yi) if natural else (yr, yi)
 
     return gpu_run
+
+
+# --------------------------------------------------------- cpu-native
+
+def native_capacity_p(n: int) -> int:
+    """The largest sensible virtual-processor count for an n-point
+    native run: the cores this process may use, clipped by the core's
+    own capacity probe, rounded down to a power of two and clipped by n
+    (the reference's probe-and-clip rule as a plan bound).  Raises the
+    build error where the core cannot be built."""
+    from ..backends.cpu import NativeBackend
+    from .inventory import cpu_cores
+
+    cores = max(cpu_cores(), 1)
+    cap = NativeBackend("pthreads").capacity()
+    if cap:
+        cores = min(cores, cap)
+    p = 1 << (cores.bit_length() - 1)
+    return max(min(p, n), 1)
+
+
+def _native_executor(n: int, p: int, natural: bool):
+    """The cpu-native rung's executor: every trailing-axis row of the
+    planes through the core's pthreads variant at `p` (one warm-up run,
+    then one timed, as ``NativeBackend.run``), pi layout or, for a
+    natural key, the bit-reversal gather after it; the planes go to the
+    host and the result comes back as float32 planes on their device."""
+    from ..backends.cpu import NativeBackend
+
+    if p & (p - 1) or not 1 <= p <= n:
+        raise ValueError(f"cpu-native p={p} must be a power of two in "
+                         f"[1, n={n}]")
+    native = NativeBackend("pthreads")
+    native.capacity()  # builds the core now: a missing one raises here
+
+    def native_run(xr, xi):
+        shape = xr.shape
+        x = (xr.detach().to("cpu", torch.float32).numpy()
+             + 1j * xi.detach().to("cpu", torch.float32).numpy())
+        flat = np.ascontiguousarray(x.reshape(-1, n), dtype=np.complex64)
+        out = np.empty_like(flat)
+        for i in range(flat.shape[0]):
+            out[i] = native.run(flat[i], p, reps=1).out
+        yr, yi = as_planes(out.real.reshape(shape), out.imag.reshape(shape),
+                           xr.device)
+        return to_natural(yr, yi) if natural else (yr, yi)
+
+    return native_run

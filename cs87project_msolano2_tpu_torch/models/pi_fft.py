@@ -14,10 +14,16 @@ For N = 2^m inputs and P = 2^k virtual processors (the reference's
 The concatenation of the P segments is the global DIF output, the DFT in
 bit-reversed order ("pi layout").  Twiddle tables are per-level (wr, wi)
 tensors (``ops.twiddle.device_tables`` / ``tables_from_reference``).
+
+Three tubes compute the same segment transform: ``tube`` (the unrolled
+stages), ``tube_scan`` (the constant-geometry stages, ``fft_stages_scan``)
+and ``tube_planned`` (the segment as a standalone s-point pi-layout plan
+from ``plans``, so on the kernels of the ladder).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops.bits import ilog2
@@ -107,4 +113,111 @@ def pi_fft_pi_layout(xr, xi, p, tables=None):
     tables = _tables_for(n, tables, xr.device)
     fr, fi = funnel(xr, xi, p, tables)
     tr, ti = tube(fr, fi, n, p, tables)
+    return tr.reshape(*xr.shape[:-1], n), ti.reshape(*xi.shape[:-1], n)
+
+
+def resolve_tube_plan(shape, plan=None, precision=None, min_segment=None,
+                      device="cuda"):
+    """The tube-plan resolution of ``tube_planned`` and the sharded
+    paths, the reference's policy case for case: an explicit Plan passes
+    through, ``False`` pins the stage tube (None), and otherwise the
+    plan for `shape` on `device` — None (the stage tube) where the
+    segment is at or below `min_segment`, where the plan layer has no
+    kernel for the shape (``plans.plan_for`` raises ValueError: segments
+    shorter than the row kernel's least tile), or where it would serve
+    the ``stages`` variant.  A batch of segments longer than 2^16 takes
+    ``rql``, where the reference's plan layer refuses it.
+
+    A fault while resolving (the ``resolve`` injection site, or the plan
+    layer failing): on the CPU a CAPACITY or PERMANENT one gives None
+    with one ``plans.warn`` line, as in the reference, and a TRANSIENT
+    one re-raises for the retry layer; on the card every one re-raises,
+    as the degradation chain ends at the kernel rungs there, so that no
+    fault sends card planes to the plain stage tube.  Faults while the
+    plan executes are its degradation chain's."""
+    if plan is False:
+        return None
+    if plan is not None:
+        return plan
+    if min_segment is not None and shape[-1] <= min_segment:
+        return None
+    from .. import plans
+    from ..resilience import FaultKind, classify, maybe_fault
+
+    try:
+        maybe_fault("resolve")
+        resolved = plans.plan_for(shape, layout="pi", precision=precision,
+                                  device=device)
+    except ValueError:
+        return None
+    except Exception as e:
+        kind = classify(e)
+        if kind is FaultKind.TRANSIENT or torch.device(device).type != "cpu":
+            raise
+        plans.warn(f"tube-plan resolution for shape {tuple(shape)} "
+                   f"DEGRADED to the stage tube ({kind.value}: "
+                   f"{type(e).__name__}: {str(e)[:200]})")
+        return None
+    return None if resolved.variant == "stages" else resolved
+
+
+def tube_planned(sr, si, n, p, plan=None, precision=None):
+    """Tube phase through the plan layer: a segment's tube is a
+    standalone s-point pi-layout transform (the n-plan's levels k..
+    are a fresh s-plan's levels 0..), so the plan for the segments'
+    shape serves it — ``rql``, ``fourstep`` or ``sixstep`` for a 1-D
+    segment above 2^16, ``rows`` for a batch of segments of at most
+    2^16, ``rql`` for a batch of longer ones.  The stage ``tube`` serves
+    whatever ``resolve_tube_plan`` gives no plan."""
+    plan = resolve_tube_plan(sr.shape, plan, precision, device=sr.device)
+    if plan is None:
+        return tube(sr, si, n, p)
+    return plan.execute(sr, si)
+
+
+def fft_stages_scan(xr, xi):
+    """All log2(m) DIF stages over the trailing axis in one constant
+    geometry (the Pease FFT): every stage pairs the two halves (a, b) =
+    (x[:m/2], x[m/2:]), computes (a + b, (a - b) * w_l) and writes the
+    two results interleaved; with stage-l twiddles w_l[pos] =
+    W_m^{(pos >> l) << l} the result is the standard DIF output (pi
+    layout) with no permutation.  The twiddles are the reference's:
+    k = (pos >> l) << l, the float32 angle k * (-2 pi / m), cos and sin
+    on the device.  k * (-2 pi / m) is the reference's angle only while
+    k is exact in float32, k < 2^24, so for m <= 2^25.  A plain loop over
+    the stages: eager PyTorch has no compile ceiling to keep it under."""
+    m = xr.shape[-1]
+    levels = ilog2(m)
+    if levels == 0:
+        return xr, xi
+    h = m // 2
+    pos = torch.arange(h, dtype=torch.int32, device=xr.device)
+    step = float(np.float32(-2.0 * np.pi / m))
+    shape = xr.shape
+    cr, ci = xr, xi
+    for lvl in range(levels):
+        ar, br = cr[..., :h], cr[..., h:]
+        ai, bi = ci[..., :h], ci[..., h:]
+        ang = ((pos >> lvl) << lvl).to(torch.float32) * step
+        wr, wi = torch.cos(ang), torch.sin(ang)
+        dr, di = ar - br, ai - bi
+        ur = dr * wr - di * wi
+        ui = dr * wi + di * wr
+        cr = torch.stack((ar + br, ur), dim=-1).reshape(shape)
+        ci = torch.stack((ai + bi, ui), dim=-1).reshape(shape)
+    return cr, ci
+
+
+def tube_scan(sr, si, n, p):
+    """Tube phase on the constant-geometry stages: the segment-local
+    s-point DIF of ``tube``, by ``fft_stages_scan``."""
+    return fft_stages_scan(sr, si)
+
+
+def pi_fft_pi_layout_scan(xr, xi, p, tables=None):
+    """pi-FFT with the funnel (log2 p stages) and the constant-geometry
+    tube.  xr/xi: (..., n) -> (..., n), pi layout."""
+    n = xr.shape[-1]
+    fr, fi = funnel(xr, xi, p, _tables_for(n, tables, xr.device))
+    tr, ti = tube_scan(fr, fi, n, p)
     return tr.reshape(*xr.shape[:-1], n), ti.reshape(*xi.shape[:-1], n)

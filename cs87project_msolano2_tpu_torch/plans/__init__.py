@@ -20,6 +20,7 @@ Consumer entry points:
     plan_for(shape).execute(xr, xi)    # batched rows over the trailing axis
     plan_for(shape, domain="r2c")      # real input, half-spectrum out
     plan_for(shape, backend="gpu")     # the gpu backend (hw.lowering)
+    plan_for(shape, backend="cpu-native")  # the C core, p raced
     tune(key)                          # explicit tuning race (card only)
     measured_ms(key)                   # (ms, plan): the bench's policy
 
@@ -196,8 +197,9 @@ def plan(n: int, batch: tuple = (), layout: str = "natural",
          device="cuda", backend: str = "cuda") -> Plan:
     """The single dispatch point: ``plan(n).execute(xr, xi)``.  Numpy
     input to ``execute`` goes to `device` — the card by default.
-    `backend` picks the lowering family: "cuda" (the port's kernels)
-    or "gpu" (``hw.lowering``)."""
+    `backend` picks the lowering family: "cuda" (the port's kernels),
+    "gpu" or "cpu-native" (``hw.lowering``; cpu-native runs the C core
+    on the host, the planes' device whatever it is)."""
     return get_plan(make_key(n, batch, layout, precision, domain=domain,
                              backend=backend, device=device), str(device))
 

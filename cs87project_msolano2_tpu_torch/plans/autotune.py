@@ -39,6 +39,8 @@ from .core import (
 
 #: the seed of the race's input planes
 TIMER_SEED = 0
+#: host-clock calls a cpu-native candidate is timed over (the median)
+HOST_REPS = 10
 
 
 class TuningUnavailable(RuntimeError):
@@ -62,29 +64,46 @@ def _log(verbose: bool, msg: str) -> None:
 def default_timer(fn: Callable, key: PlanKey, device="cuda") -> float:
     """Per-call ms of `fn` on planes shaped ``key.input_shape()``, drawn
     from a seeded ``torch.Generator`` on `device`, by the loop slope
-    (``utils.timing.loop_slope_ms``) over the reference's windows for
-    the input's size (``slope_window``).  The calls rotate over copies
-    of the drawn planes, as many as the card's L2 asks
-    (``rotation_copies``), so each reads its input cold; an executor
-    that writes over its input gets the drawn planes back in every copy
-    before each timed run, untimed.  The layout's bit-reversal gather
-    is wherever the plan puts it, as the race must time what the plan
-    serves.  On a CPU device the host clock times the same runs."""
+    (``utils.timing.loop_slope_ms``) over the race's window for the
+    input's size (``race_window``: the reference's windows up to 2^24
+    elements, narrower past it, so a 2^27 candidate is read over 32
+    calls, not 256).  The calls rotate over copies of the drawn planes,
+    as many as the card's L2 asks (``window_copies``), so each reads its
+    input cold; an executor that writes over its input gets the drawn
+    planes back in every copy before each timed run, untimed.  Window
+    and copies depend on the key alone, so every candidate of a race is
+    read under one rule.  The layout's bit-reversal gather is wherever
+    the plan puts it, as the race must time what the plan serves.  On a
+    CPU device the host clock times the same runs.  A cpu-native key
+    runs on the host whatever `device` is: its planes are drawn there
+    and the host clock's median of HOST_REPS calls times them
+    (``utils.timing.time_ms``), as the reference times its native
+    rows."""
     import math
 
     import torch
 
     from ..hw.inventory import l2_bytes
-    from ..utils.timing import loop_slope_ms, rotation_copies, slope_window
+    from ..utils.timing import (
+        loop_slope_ms,
+        race_window,
+        time_ms,
+        window_copies,
+    )
 
+    if key.backend == "cpu-native":
+        device = "cpu"
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(TIMER_SEED)
     shape = key.input_shape()
     xr = torch.randn(shape, generator=gen, device=dev)
     xi = torch.randn(shape, generator=gen, device=dev)
+    if key.backend == "cpu-native":
+        return time_ms(fn, xr, xi, reps=HOST_REPS, warmup=1)[0]
     elements = math.prod(shape)
-    copies = rotation_copies(8 * elements, l2_bytes(dev))
+    window = race_window(elements)
+    copies = window_copies(8 * elements, l2_bytes(dev), window)
     arg_sets = [(xr.clone(), xi.clone()) for _ in range(copies)]
     before = None
     if getattr(fn, "consumes_input", False):
@@ -94,8 +113,7 @@ def default_timer(fn: Callable, key: PlanKey, device="cuda") -> float:
             for a, b in arg_sets:
                 a.copy_(xr)
                 b.copy_(xi)
-    k1, k2 = slope_window(elements)
-    return loop_slope_ms(fn, arg_sets, k1, k2, before=before)
+    return loop_slope_ms(fn, arg_sets, *window, before=before)
 
 
 def tune(key: PlanKey, *, force: bool = False,

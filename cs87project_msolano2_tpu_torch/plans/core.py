@@ -4,8 +4,9 @@ obtained (tuned, cached, or static default).
 A :class:`PlanKey` is everything the kernel choice may depend on, with
 the reference's field names (``plans/core.py``) and the port's backend
 tags: ``"cuda"``, the port's kernel family (where the reference's
-``"tpu"`` family stands, and the default), and ``"gpu"``, the
-reference's ``hw/lowering`` family (``hw.lowering``).  A :class:`Plan`
+``"tpu"`` family stands, and the default), ``"gpu"``, the reference's
+``hw/lowering`` family (``hw.lowering``), and ``"cpu-native"``, its
+native C core as a rung (``hw.lowering``).  A :class:`Plan`
 binds a key to one variant + parameter set from :mod:`.ladder` and runs
 it.  Keys serialize to a stable JSON token (the disk store's dictionary
 key), plans to a JSON record.
@@ -20,13 +21,15 @@ from typing import Callable, Optional
 
 from ..ops.precision import PRECISIONS
 from ..resilience.inject import maybe_fault
+from ..utils.debug import check_finite
 
 LAYOUTS = ("natural", "pi")
 DOMAINS = ("c2c", "r2c", "c2r")
 #: the port's lowering families: "cuda" (the default; the reference's
-#: "tpu" kernel family on the card) and "gpu" (the reference's
-#: hw/lowering gpu family, ``hw.lowering``)
-BACKENDS = ("cuda", "gpu")
+#: "tpu" kernel family on the card), "gpu" (the reference's hw/lowering
+#: gpu family, ``hw.lowering``) and "cpu-native" (the native C core on
+#: the host, ``hw.lowering``'s cpu-native family)
+BACKENDS = ("cuda", "gpu", "cpu-native")
 
 # bump when PlanKey/Plan serialization or ladder parameter semantics
 # change incompatibly: stale disk stores are then ignored wholesale, and
@@ -82,9 +85,9 @@ class PlanKey:
     n is the real-side length in every domain.  The real domains take
     natural layout only (the half-spectrum has no pi order) and n >= 2;
     even n rides the c2c plan at n/2, odd n the any-length path.
-    backend: the lowering family — "cuda" (the default) or "gpu"; keys
-    of the two differ in their tokens, so a winner raced under one never
-    serves the other.
+    backend: the lowering family — "cuda" (the default), "gpu" or
+    "cpu-native"; keys of each differ in their tokens, so a winner raced
+    under one never serves another.
     """
 
     device_kind: str
@@ -100,9 +103,7 @@ class PlanKey:
         if self.layout not in LAYOUTS:
             raise ValueError(f"layout={self.layout!r} not in {LAYOUTS}")
         if self.backend not in BACKENDS:
-            raise ValueError(f"backend={self.backend!r} not in {BACKENDS} "
-                             f"(the reference's 'cpu-native' is not ported "
-                             f"yet)")
+            raise ValueError(f"backend={self.backend!r} not in {BACKENDS}")
         if self.precision not in PRECISIONS:
             raise ValueError(
                 f"precision={self.precision!r} not in {PRECISIONS}")
@@ -266,7 +267,9 @@ class Plan:
         ``plan`` injection site."""
         maybe_fault("plan")
         xr, xi = self._planes(xr, xi, source, both=True)
-        return self.fn(xr, xi)
+        out = self.fn(xr, xi)
+        check_finite(f"plan {self.variant}", *out)
+        return out
 
     def execute_inverse(self, xr, xi):
         """Inverse via the conj trick (natural layout, c2c only: the real
@@ -325,7 +328,7 @@ class Plan:
         if served.startswith("precision:"):
             return storage_bytes(served.split(":", 1)[1])
         if served in ("stages", "torch-fft", "numpy-ref") \
-                or self.key.backend == "gpu":
+                or self.key.backend in ("gpu", "cpu-native"):
             return 4
         return storage_bytes(self.effective_precision())
 

@@ -17,7 +17,9 @@ Variants (the reference's names):
                serves it.
 * ``rql``    — ops.cuda_fft.fft_pi_layout_cuda_rql: the long-range
                kernel, then the tile kernel; 1-D n above MAX_ROW_TILE
-               and below FOURSTEP_MIN_N.
+               and below FOURSTEP_MIN_N, and a pi-layout batch of rows
+               above MAX_ROW_TILE (the planned tube's (p, s) segments),
+               which the reference's plan layer refuses.
 * ``fourstep`` — ops.cuda_fft.fft_pi_layout_cuda_fourstep: the whole
                transform in one cooperative launch; 1-D
                FOURSTEP_MIN_N <= n < SIXSTEP_MIN_N.  ``separable=False``
@@ -59,9 +61,10 @@ kernels' bf16 instantiations); ``mf`` refuses it (fp32 storage only,
 the reference's own refusal); ``stages`` runs float32 whatever the
 mode.
 
-Keys whose ``backend`` is "gpu" go to ``hw.lowering`` (``gpu-rows``,
-``gpu-stages``) in ``candidates``, ``static_default`` and
-``build_executor``, as the reference's ladder.py:235/327/439 do; the
+Keys whose ``backend`` is "gpu" or "cpu-native" go to ``hw.lowering``
+(``gpu-rows``, ``gpu-stages``, ``cpu-native``) in ``candidates``,
+``static_default`` and ``build_executor``, as the reference's
+ladder.py:235/327/439 do; the
 ``cuda`` family below never sees them.  The crossovers follow
 the reference (``ladder.py:54-73``, ``353-386``) and depend only on the
 key, never on whether a card is present, so CPU tests exercise the same
@@ -244,7 +247,7 @@ def candidates(key: PlanKey) -> list:
     the key's mode has more than one mode (bf16: bf16 then split3),
     every entry is raced once per mode, the mode pinned in
     ``params["precision"]``.  gpu keys take ``hw.lowering.candidates``."""
-    if key.backend == "gpu":
+    if key.backend in ("gpu", "cpu-native"):
         from ..hw import lowering
 
         return lowering.candidates(key)
@@ -313,6 +316,11 @@ def _base_candidates(key: PlanKey) -> list:
             # likewise sixstep below its crossover: the second carry
             # pass should lose to fourstep's one
             cands += sixstep_candidates(key.n)
+    elif key.layout != "natural" and key.n > MAX_ROW_TILE:
+        # a batch of pi-layout rows past the row kernel: rql over the
+        # batch (the 1-D kernels take one transform)
+        cands = [(v, dict(p)) for v, p in FLAGSHIP_LADDER if v == "rql"]
+        cands.append(("rql", {"tile": MAX_SMEM_TILE, "cb": None}))
     return cands
 
 
@@ -321,14 +329,15 @@ def static_default(key: PlanKey):
     rows; for a 1-D n above MAX_ROW_TILE (tile 2^14, the largest
     shared-memory tile; None = the automatic block or split) ``sixstep``
     from SIXSTEP_MIN_N, ``fourstep`` from FOURSTEP_MIN_N, and ``rql``
-    below that or where neither is feasible; the stage path elsewhere
-    (natural order only).  Never a raced-only variant (fused,
+    below that or where neither is feasible; ``rql`` for a pi-layout
+    batch of rows above MAX_ROW_TILE; the stage path elsewhere (natural
+    order only).  Never a raced-only variant (fused,
     two-kernel): those serve a key only once a race chose them.  An
     even-n real-domain key takes its half-length c2c subkey's default;
     an n that is not a power of two takes ``anylen.plan_variant``'s
     variant at the cheapest pad, and refuses pi layout.  gpu keys take
     ``hw.lowering.static_default``."""
-    if key.backend == "gpu":
+    if key.backend in ("gpu", "cpu-native"):
         from ..hw import lowering
 
         return lowering.static_default(key)
@@ -357,6 +366,8 @@ def static_default(key: PlanKey):
             return "fourstep", {"tile": MAX_SMEM_TILE, "cb": None,
                                 "separable": True}
         return "rql", {"tile": MAX_SMEM_TILE, "cb": None}
+    if key.layout != "natural" and key.n > MAX_ROW_TILE:
+        return "rql", {"tile": MAX_SMEM_TILE, "cb": None}
     if key.layout != "natural":
         raise ValueError(
             f"pi-layout output requires a kernel-eligible shape "
@@ -378,7 +389,7 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     through ``hw.lowering.build_executor``."""
     from ..ops import cuda_fft
     from ..ops.bits import to_natural
-    if key.backend == "gpu":
+    if key.backend in ("gpu", "cpu-native"):
         from ..hw import lowering
 
         return lowering.build_executor(key, variant, params)
@@ -415,7 +426,7 @@ def build_executor(key: PlanKey, variant: str, params: dict):
     if variant not in ("rql", "two-kernel", "fourstep", "sixstep", "fused",
                        "fused-alias", "mf"):
         raise ValueError(f"unknown plan variant {variant!r}")
-    if key.batch != ():
+    if key.batch != () and variant != "rql":
         raise ValueError(f"variant {variant!r} is a 1-D whole-transform "
                          f"path; key has batch={key.batch}")
     tile = params.get("tile")

@@ -4,7 +4,8 @@ reference's ``resilience/inject.py``).
 Injection sites are one-line ``maybe_fault("<site>")`` probes at the
 places real faults strike: the kernel-variant entry points of
 ``ops/cuda_fft.py`` (site ``tube``: a kernel is the tube transform),
-plan dispatch (``plans/core.py``, ``plan``), the any-length executors
+plan dispatch (``plans/core.py``, ``plan``), tube-plan resolution
+(``models.pi_fft.resolve_tube_plan``, ``resolve``), the any-length executors
 (``ops/anylen.py``, ``anylen``), the bench's measurement loops
 (``bench``) and the harness's sweep cells (``harness``).  The sites of
 modules the port does not have yet keep their names here and fire
@@ -48,8 +49,8 @@ KNOWN_SITES = {
             "two-kernel / fused / fourstep / sixstep / mf / rows) — the "
             "segment transform every plan executes",
     "plan": "plans.core.Plan.execute dispatch",
-    "resolve": "tube-plan resolution for the sharded paths (not ported "
-               "yet: comes with models.pi_fft.resolve_tube_plan)",
+    "resolve": "tube-plan resolution (models.pi_fft.resolve_tube_plan, "
+               "behind tube_planned and the sharded paths)",
     "shard": "the sharded pi-FFT entries (not ported yet: comes with "
              "the parallel configs)",
     "collective": "collective supervision (not ported yet: comes with "

@@ -1,7 +1,11 @@
-"""Build (at first use) and load the port's CUDA kernels.
+"""Build (at first use) and load the port's CUDA kernels and its copy
+of the native C core.
 
 The counterpart of the reference's ``utils/buildlib.py``, which builds
-the native C core.  Here every ``csrc/*.cu`` is compiled for Hopper
+the native C core.  ``build_native``/``load_native`` do that for the
+port's own copy in ``native/`` (``gcc -O3 -fPIC -pthread``, the
+library named by a hash of the sources and flags, written atomically
+into ``_build/``).  Every ``csrc/*.cu`` is compiled for Hopper
 (``sm_90a``) by its own nvcc process, all started together, and the
 objects are linked into one shared library with a plain C interface,
 loaded with ctypes:
@@ -35,6 +39,14 @@ from ..resilience.taxonomy import KernelBuildError
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
+#: the C core's library sources and headers (main.c and
+#: how_many_cores.c are the reference's command-line tools, not built)
+NATIVE_SOURCES = ("pifft_core.c", "pifft_backends.c")
+NATIVE_HEADERS = ("pifft.h", "pifft_internal.h")
+#: -ffp-contract=off keeps the arithmetic the reference's ISO C build
+#: does (no fused multiply-add contraction on any host)
+NATIVE_FLAGS = ("-O3", "-fPIC", "-pthread", "-ffp-contract=off", "-shared")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
@@ -314,3 +326,79 @@ def load_kernels() -> ctypes.CDLL:
     lib.pifft_cuda_error_name.restype = c.c_char_p
     lib.pifft_cuda_error_name.argtypes = [c.c_int]
     return lib
+
+
+def native_library_path(src_dir: str = NATIVE_DIR,
+                        build_dir: str = BUILD_DIR) -> str:
+    """The C core's library path in `build_dir`: its name carries a hash
+    of the flags and of each source and header in `src_dir`."""
+    h = hashlib.sha256(" ".join(NATIVE_FLAGS).encode())
+    for name in NATIVE_SOURCES + NATIVE_HEADERS:
+        with open(os.path.join(src_dir, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return os.path.join(build_dir, f"libpifft_native_{h.hexdigest()[:16]}.so")
+
+
+def build_native(src_dir: str = NATIVE_DIR,
+                 build_dir: str = BUILD_DIR) -> str:
+    """Compile the C core (``gcc -O3 -fPIC -pthread``) into its hashed
+    library if it is missing; returns the path.  The library is written
+    under a temporary name and renamed into place, so processes that
+    build at once each rename a whole file and a loader never sees a
+    partial one.  A failed build raises ``KernelBuildError`` with the
+    compiler's output."""
+    path = native_library_path(src_dir, build_dir)
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    gcc = shutil.which("gcc")
+    if gcc is None:
+        raise KernelBuildError("gcc not found on PATH; the native C core "
+                               "is built with gcc at first use")
+    fd, tmp = tempfile.mkstemp(dir=build_dir, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        [(rc, out)] = _run_all([[gcc, *NATIVE_FLAGS, "-o", tmp,
+                                 *(os.path.join(src_dir, s)
+                                   for s in NATIVE_SOURCES), "-lm"]])
+        if rc:
+            raise KernelBuildError(
+                f"gcc failed (exit {rc}) on the native C core:\n{out}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def type_native(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the flat pifft_* C API's signatures on a loaded core (the
+    reference's, utils/buildlib.py:52-71)."""
+    c = ctypes
+    lib.pifft_run.restype = c.c_int
+    lib.pifft_run.argtypes = [
+        c.c_char_p, c.c_int64, c.c_int32, c.c_void_p, c.c_void_p,
+        c.POINTER(c.c_double),
+    ]
+    lib.pifft_capacity.restype = c.c_int
+    lib.pifft_capacity.argtypes = [c.c_char_p]
+    lib.pifft_num_cores.restype = c.c_int
+    lib.pifft_bit_reverse_permute.restype = None
+    lib.pifft_bit_reverse_permute.argtypes = [c.c_int64, c.c_void_p,
+                                              c.c_void_p]
+    lib.pifft_golden_test.restype = c.c_int
+    lib.pifft_golden_test.argtypes = [c.c_char_p, c.c_int32]
+    return lib
+
+
+@lru_cache(maxsize=1)
+def load_native() -> ctypes.CDLL:
+    """Load (building if needed) and type the C core's library.  Raises
+    ``KernelBuildError`` where it cannot be built or loaded: nothing
+    stands in for it."""
+    path = build_native()
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelBuildError(f"loading {path} failed: {e}") from e
+    return type_native(lib)

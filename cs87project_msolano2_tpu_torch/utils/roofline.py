@@ -138,15 +138,17 @@ def fft_hbm_bytes(n: int, carry_passes: int = 0, domain: str = "c2c",
 
 def roofline_utilization(n: int, ms: float, device_name: str,
                          domain: str = "c2c",
-                         storage_bytes: int = 4) -> Optional[float]:
-    """The achieved share of the card's data-sheet bandwidth of an
-    n-point transform taking `ms` a call, charging the minimum traffic
-    of its domain and storage (``fft_min_hbm_bytes``), so the figure
-    reads against the 1/(1+p) ceiling of the path's carry passes (the
+                         storage_bytes: int = 4,
+                         peak: Optional[float] = None) -> Optional[float]:
+    """The achieved share of the card's data-sheet bandwidth (or of
+    `peak` bytes/s where given: another backend's ceiling) of an n-point
+    transform taking `ms` a call, charging the minimum traffic of its
+    domain and storage (``fft_min_hbm_bytes``), so the figure reads
+    against the 1/(1+p) ceiling of the path's carry passes (the
     reference's ``roofline_utilization``, without its metered counter).
     None for a card the table does not know or a time that is not
     positive."""
-    peak = peak_bytes_per_s(device_name)
+    peak = peak or peak_bytes_per_s(device_name)
     if peak is None or ms is None or ms <= 0.0:
         return None
     return fft_min_hbm_bytes(n, domain, storage_bytes) / (ms * 1e-3) / peak

@@ -22,9 +22,10 @@ Two timers:
   only as many calls later, so they rotate too: each call reads its
   input and writes its output cold, as under ``time_ms``'s flush.  The
   autotuner times every candidate this way
-  (``plans.autotune.default_timer``), ``slope_ms`` any call on given
-  operands (the bench, the backends' phase timers), and
-  ``fitted_window`` narrows the window for a call of many milliseconds.
+  (``plans.autotune.default_timer``, over ``race_window``: one window
+  for every candidate of a key, from the input's size), ``slope_ms`` any
+  call on given operands (the bench), and ``fitted_slope_ms`` one call
+  over a window fitted to its length (the backends' phase timers).
 
 On CPU tensors both use the host clock, which is honest there.
 """
@@ -56,6 +57,9 @@ SLOPE_REPS = 5
 SPIN_CYCLES = 20_000_000
 #: the longest run ``fitted_window`` aims a window's k2 calls at, ms
 FITTED_RUN_MS = 200.0
+#: ``race_window`` halves the big window for each doubling of the input
+#: past this many elements
+RACE_HALVING_ELEMENTS = 1 << 24
 
 
 def _device_of(args):
@@ -115,6 +119,19 @@ def slope_window(elements: int) -> tuple[int, int]:
     """The reference's (k1, k2) for an input of `elements` elements."""
     return SLOPE_WINDOW_BIG if elements >= SLOPE_BIG_ELEMENTS \
         else SLOPE_WINDOW_SMALL
+
+
+def race_window(elements: int) -> tuple[int, int]:
+    """The race's (k1, k2) for an input of `elements` elements: the
+    reference's window (``slope_window``) up to RACE_HALVING_ELEMENTS,
+    halved (k1 at least 1) for each doubling past it, so that a run
+    takes about as long at 2^27 as at 2^24 — (2, 32) at 2^27, where a
+    candidate takes milliseconds a call.  One window for every
+    candidate of a key: the race reads them all under one rule."""
+    k1, k2 = slope_window(elements)
+    shift = max(0, (elements - 1).bit_length()
+                - RACE_HALVING_ELEMENTS.bit_length() + 1)
+    return max(1, k1 >> shift), max(2, k2 >> shift)
 
 
 def slope_from(measure: Callable[[int], float], k1: int, k2: int,
@@ -234,19 +251,30 @@ def fitted_window(est_ms: float, elements: int) -> tuple[int, int]:
     return k1, k2
 
 
+def window_copies(plane_bytes: int, l2_bytes: Optional[int],
+                  window: tuple) -> int:
+    """``rotation_copies``, at most the window's k2: a run of k2 calls
+    reads copies 0..k2-1 whichever the count past k2, so the copies
+    beyond it would change no call's reads and only cost a warm-up call
+    each."""
+    return min(rotation_copies(plane_bytes, l2_bytes), window[1])
+
+
 def slope_ms(fn: Callable, *args, consumes: bool = False,
-             window: Optional[tuple] = None, reps: int = SLOPE_REPS) -> float:
+             window: Optional[tuple] = None,
+             reps: int = SLOPE_REPS) -> float:
     """Per-call ms of ``fn(*args)`` by the loop slope (``loop_slope_ms``)
     over `window` (default: the reference's window for the largest
     tensor argument, ``slope_window``), the calls rotating over copies
     of the tensor arguments, as many as keep the L2 from serving a call
-    (``rotation_copies``).  `consumes`: fn writes over its tensor
+    (``window_copies``).  `consumes`: fn writes over its tensor
     arguments, so every copy gets them back before each timed run."""
     from ..hw.inventory import l2_bytes
 
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    copies = rotation_copies(nbytes, l2_bytes(tensors[0].device))
+    window = window or slope_window(max(t.numel() for t in tensors))
+    copies = window_copies(nbytes, l2_bytes(tensors[0].device), window)
 
     def copy():
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a
@@ -261,5 +289,31 @@ def slope_ms(fn: Callable, *args, consumes: bool = False,
                 for a, b in zip(s, args):
                     if isinstance(a, torch.Tensor):
                         a.copy_(b)
-    window = window or slope_window(max(t.numel() for t in tensors))
     return loop_slope_ms(fn, sets, *window, reps=reps, before=before)
+
+
+def fitted_slope_ms(fn: Callable, *args, consumes: bool = False,
+                    reps: int = SLOPE_REPS) -> float:
+    """``slope_ms`` over the window fitted to one call's time
+    (``fitted_window``): one warm-up and one timed call (where fn writes
+    over its tensor arguments, `consumes`, on copies of them restored
+    before each call), then the slope.  On the card the cached blocks
+    of those calls go back first, as a graph's private pool cannot take
+    them."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    probe = args
+    restore = None
+    if consumes:
+        probe = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args)
+
+        def restore():
+            for a, b in zip(probe, args):
+                if isinstance(a, torch.Tensor):
+                    a.copy_(b)
+    est = time_ms(fn, *probe, reps=1, warmup=1, before=restore)[0]
+    del probe
+    if tensors[0].device.type == "cuda":
+        torch.cuda.empty_cache()
+    window = fitted_window(est, max(t.numel() for t in tensors))
+    return slope_ms(fn, *args, consumes=consumes, window=window, reps=reps)

@@ -5,7 +5,9 @@ record with every row kind, the chaos run (``PIFFT_FAULT`` armed)
 completes degraded with the demotion trail, the four ``--resume``
 cases, the environment fingerprint, ``plans.measured_ms`` with an
 injected timer, and the reference's own loader reading the port's
-record (n, domain, precision and backend of each row)."""
+record (n, domain, precision and backend of each row); the cpu-native
+rows under ``--smoke`` and ``c_ms``/``vs_baseline`` against the native
+core at a small N."""
 
 import json
 import os
@@ -137,16 +139,17 @@ def test_bench_resume_recomputes_only_killed_cell(tmp_path, capsys):
     rc1, rec1 = _bench_record(capsys, ["--smoke", "--journal", jpath])
     assert rc1 == 0
     lines = open(jpath).read().splitlines()
-    assert json.loads(lines[-1])["cell"] == "gpu2^10"
+    # the last cell of a smoke run: the last backend row
+    assert json.loads(lines[-1])["cell"] == "cpun2^10"
     with open(jpath, "w") as fh:
         fh.write("\n".join(lines[:-1]))
-        fh.write('\n{"cell": "gpu2^10", "gpu2^10_ms"')  # cut by a kill
+        fh.write('\n{"cell": "cpun2^10", "cpun2^10_ms"')  # cut by a kill
     rc2, rec2 = _bench_record(capsys, ["--smoke", "--journal", jpath,
                                        "--resume"])
     assert rc2 == 0
     assert set(rec1) == set(rec2)
-    assert Journal(jpath).get("gpu2^10")["gpu2^10_ms"] == \
-        rec2["gpu2^10_ms"]
+    assert Journal(jpath).get("cpun2^10")["cpun2^10_ms"] == \
+        rec2["cpun2^10_ms"]
 
 
 def test_bench_resume_refuses_mismatched_config(tmp_path, capsys,
@@ -310,3 +313,55 @@ def test_reference_loader_reads_the_port_s_record(tmp_path, capsys):
     s = samples["gpu2^8_ms"]
     assert (s.n, s.backend) == (256, "gpu")
     assert samples["n2^10_vs_library"].n == 1024
+
+
+def test_bench_smoke_cpu_native_rows(capsys):
+    rc, rec = _bench_record(capsys, ["--smoke"])
+    assert rc == 0 and records.validate_record(rec) == []
+    for tag in ("cpun2^8", "cpun2^10"):
+        # the C core's stages are no path of the carry model (the
+        # reference's table leaves it out): no carries, no ceiling
+        assert all(f"{tag}_{f}" in rec for f in ("ms", "gflops", "plan",
+                                                  "hbm_bytes",
+                                                  "roofline_util")), tag
+        assert f"{tag}_roofline_ceiling" not in rec
+        assert rec[f"{tag}_backend"] == "cpu-native"
+        assert rec[f"{tag}_plan"]["variant"] == "cpu-native"
+        assert rec[f"{tag}_ms"] > 0 and f"{tag}_degraded" not in rec
+    # a smoke run's toy-n flagship makes the C ratio meaningless
+    assert "c_ms" not in rec and "vs_baseline" not in rec
+
+
+def test_measure_c_baseline_ms_at_a_small_n(monkeypatch):
+    monkeypatch.setattr(bench, "N", 1 << 12)
+    ms = bench.measure_c_baseline_ms()
+    assert 0 < ms < 1e4
+
+
+def test_bench_record_carries_vs_baseline(capsys, monkeypatch):
+    """A full (non-smoke) record at small sizes, its plan times injected:
+    c_ms is the native core's at N and vs_baseline = c_ms / ms."""
+    monkeypatch.setattr(bench, "N", 1 << 9)
+    monkeypatch.setattr(bench, "LARGE_LOGNS", (10,))
+
+    def measured_ms(key, device="cuda", **kw):
+        return 0.25, plans.get_plan(key, str(device))
+
+    monkeypatch.setattr(plans, "measured_ms", measured_ms)
+    monkeypatch.setattr(bench, "measure_library_ms",
+                        lambda n, device, smoke=False: 0.5)
+    calls = []
+    real = bench.measure_c_baseline_ms
+
+    def c_baseline():
+        calls.append(bench.N)
+        return real()
+
+    monkeypatch.setattr(bench, "measure_c_baseline_ms", c_baseline)
+    rc, rec = _bench_record(capsys, [])
+    assert rc == 0 and calls == [1 << 9]
+    assert records.validate_record(rec) == []
+    assert rec["c_ms"] > 0
+    assert rec["vs_baseline"] == round(rec["c_ms"] / 0.25, 1)
+    assert rec["cpun2^8_ms"] == 0.25 and rec["gpu2^10_ms"] == 0.25
+    assert "smoke" not in rec

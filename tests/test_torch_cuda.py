@@ -779,3 +779,61 @@ def test_bf16_path_on_card_vs_numpy(cuda_device, shape):
     y = y.cpu().numpy()
     ref = np.fft.fft(x.astype(np.complex128))
     assert 1e-4 < rel_err(y.real, y.imag, ref.real, ref.imag) <= 3e-2
+
+
+# ------------------------------------- the planned tube and new backends
+
+
+@pytest.mark.parametrize("shape,variant", [((1 << 17,), "rql"),
+                                           ((8, 1 << 12), "rows"),
+                                           ((2, 1 << 17), "rql")])
+def test_tube_planned_on_card_vs_its_plain_version(cuda_device, shape,
+                                                   variant):
+    """The planned tube on card planes launches its plan's kernels and
+    agrees with the same plan on the CPU (its plain versions)."""
+    from cs87project_msolano2_tpu_torch.models.pi_fft import (
+        resolve_tube_plan,
+        tube_planned,
+    )
+
+    assert resolve_tube_plan(shape, device=cuda_device).variant == variant
+    xr, xi = _planes(40, shape, cuda_device)
+    n = 4 * shape[-1]
+    before = cf.tile_fft.launches
+    yk = tube_planned(xr, xi, n, 4)
+    assert cf.tile_fft.launches == before + 1
+    yp = tube_planned(xr.cpu(), xi.cpu(), n, 4)
+    assert rel_err(*(t.cpu() for t in yk), *yp) <= FP32_TOL
+
+
+@pytest.mark.parametrize("backend,p", [("einsum", 4), ("torch-scan", 16),
+                                       ("einsum", 1)])
+def test_tensor_backends_on_card_vs_numpy(cuda_device, backend, p):
+    from cs87project_msolano2_tpu_torch.backends.registry import get_backend
+
+    n = 1 << 14
+    rng = np.random.default_rng(41)
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    res = get_backend(backend, cuda_device).run(x, p, reps=1)
+    got = res.out[bit_reverse_indices(n)]
+    ref = np.fft.fft(x.astype(np.complex128))
+    assert rel_err(got.real, got.imag, ref.real, ref.imag) <= SPLIT3_TOL
+    assert res.tube_ms > 0 and (res.funnel_ms > 0) == (p > 1)
+    assert not res.degraded
+
+
+def test_cpu_native_plan_takes_card_planes(cuda_device):
+    """The cpu-native rung runs card planes through the C core on the
+    host and hands the result back on the card."""
+    from cs87project_msolano2_tpu_torch import plans
+
+    plan = plans.plan_for((3, 1024), layout="pi", backend="cpu-native",
+                          device=cuda_device)
+    xr, xi = _planes(42, (3, 1024), cuda_device)
+    yr, yi = plan.execute(xr, xi)
+    assert yr.device.type == "cuda" and yr.shape == (3, 1024)
+    ref = np.fft.fft(xr.cpu().numpy().astype(np.complex128)
+                     + 1j * xi.cpu().numpy(), axis=-1)[
+        ..., bit_reverse_indices(1024)]
+    assert rel_err(yr.cpu(), yi.cpu(), ref.real, ref.imag) <= SPLIT3_TOL

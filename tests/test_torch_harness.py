@@ -5,7 +5,11 @@ and path helpers, the 5-column TSV contract, resume from the TSV and
 the journal, the stale journal that dies with its TSV, ``DEGRADED``
 rows, the ``harness`` injection site, ``verify_pass`` on the ``torch``
 backend, and the sweep's output against the reference ``jax``
-backend's at (n, p) = (2^10, 1) and (2^10, 8)."""
+backend's at (n, p) = (2^10, 1) and (2^10, 8); the registry against the
+reference's, ``-b <each> -t`` and ``--verify``, the sweep on the native,
+scan and einsum backends with the native core's capacity clipping the
+p-grid, and ``utils.debug.enable_checks`` stopping a NaN at its
+phase."""
 
 import functools
 import importlib.util
@@ -233,3 +237,130 @@ def test_main_sweeps_then_verifies(tmp_path, capsys):
         path = he.result_path(str(tmp_path), backend)
         assert path in printed.out and len(_rows(path)) == 6
         assert f"# {backend}: verified 6/6" in printed.err
+
+
+# ------------------------------------------- the registry's new backends
+
+REGISTRY = ("serial", "pthreads", "cpu", "torch", "torch-scan",
+            "torch-unrolled", "cuda", "einsum")
+#: the reference's name for each port backend (the "pallas" of the
+#: reference is the port's "cuda", its "jax*" the port's "torch*")
+REF_NAME = {"serial": "serial", "pthreads": "pthreads", "cpu": "cpu",
+            "torch": "jax", "torch-scan": "jax-scan",
+            "torch-unrolled": "jax-unrolled", "cuda": "pallas",
+            "einsum": "einsum"}
+
+
+def test_registry_lists_every_backend():
+    from cs87project_msolano2_tpu.backends.registry import (
+        list_backends as ref_list_backends,
+    )
+    from cs87project_msolano2_tpu_torch.backends.registry import (
+        list_backends,
+    )
+
+    assert tuple(list_backends()) == REGISTRY
+    assert sorted(REF_NAME[b] for b in REGISTRY) == sorted(
+        ref_list_backends())
+    for name in REGISTRY:
+        b = get_backend(name, CPU)
+        ref = ref_get_backend(REF_NAME[name])
+        assert getattr(ref, "golden_atol", 0.0) == b.golden_atol
+    with pytest.raises(ValueError, match="unknown backend"):
+        get_backend("jax", CPU)
+
+
+@pytest.mark.parametrize("backend", REGISTRY)
+def test_cli_golden_and_verify_on_every_backend(backend, capsys):
+    from cs87project_msolano2_tpu_torch.cli import main as cli_main
+
+    assert cli_main(["-t", "-b", backend, "--device", CPU]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [line.rsplit(" ", 1)[-1] for line in out] == ["PASSED"] * 4
+    assert cli_main(["-n", "1024", "-p", "4", "-b", backend, "--verify",
+                     "-o", "--device", CPU]) == 0
+    printed = capsys.readouterr()
+    assert "# verified vs numpy fft" in printed.err
+    assert printed.out.split("\t")[:2] == ["1024", "4"]
+
+
+def test_cli_refuses_p_above_capacity(capsys):
+    from cs87project_msolano2_tpu_torch.backends.cpu import num_cores
+    from cs87project_msolano2_tpu_torch.cli import main as cli_main
+
+    p = 1 << num_cores().bit_length()  # the first power of two above
+    assert cli_main(["-n", str(4 * p), "-p", str(p), "-b", "pthreads"]) == 2
+    assert "exceeds backend 'pthreads' capacity" in capsys.readouterr().err
+
+
+def test_main_on_the_new_backends(tmp_path, capsys):
+    from cs87project_msolano2_tpu_torch.backends.cpu import num_cores
+
+    backends = ("serial", "pthreads", "torch-scan", "einsum")
+    assert he.main(["--backends", ",".join(backends), "--n-grid",
+                    "256,1024", "--p-grid", "1,4,64", "-T", "1",
+                    "--verify", "--device", CPU, "--out",
+                    str(tmp_path)]) == 0
+    printed = capsys.readouterr()
+    for backend in backends:
+        rows = _rows(he.result_path(str(tmp_path), backend))
+        ps = {int(r[1]) for r in rows}
+        if backend == "pthreads":
+            # probe and clip: p above the core's capacity is no cell
+            assert ps == {p for p in (1, 4, 64) if p <= num_cores()}
+        else:
+            assert ps == {1, 4, 64}
+        assert all(len(r) == 5 for r in rows)
+        assert f"# {backend}: verified {len(rows)}/{len(rows)}" \
+            in printed.err
+
+
+@pytest.mark.parametrize("backend", ["serial", "pthreads", "einsum"])
+def test_new_backends_match_the_reference_s(backend):
+    x = make_input(1 << 10, 4)
+    got = get_backend(backend, CPU).run(x, 4, fetch=True, timers=False)
+    ref = ref_get_backend(backend).run(x, 4, fetch=True, timers=False)
+    if backend == "einsum":
+        # float32 products in two libraries: within the split3 budget
+        err = np.max(np.abs(got.out - ref.out)) / np.max(np.abs(ref.out))
+        assert err <= 1e-5
+    else:
+        assert np.array_equal(got.out, ref.out)
+
+
+@pytest.mark.parametrize("backend,phase", [("torch", "funnel"),
+                                           ("einsum", "funnel"),
+                                           ("serial", "tube")])
+def test_debug_checks_stop_a_nan_at_its_phase(backend, phase):
+    from cs87project_msolano2_tpu_torch.utils import debug
+
+    x = make_input(256, 0)
+    x[7] = np.nan
+    run = get_backend(backend, CPU).run
+    assert np.isnan(run(x, 4, timers=False).out).any()  # checks off
+    debug.enable_checks()
+    try:
+        with pytest.raises(FloatingPointError, match=f"the {phase} phase"):
+            run(x, 4, timers=False)
+    finally:
+        debug.disable_checks()
+    assert np.isnan(run(x, 4, timers=False).out).any()  # off again
+
+
+def test_debug_checks_stop_a_nan_in_a_plan():
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.utils import debug
+
+    plan = plans.plan_for((4, 256), layout="pi", device=CPU)
+    xr = np.ones((4, 256), np.float32)
+    xr[1, 3] = np.inf
+    debug.enable_checks()
+    try:
+        with pytest.raises(FloatingPointError, match="plan rows"):
+            plan.execute(xr, np.zeros_like(xr))
+        plan.execute(np.ones_like(xr), np.zeros_like(xr))
+    finally:
+        debug.disable_checks()
+    debug.assert_disjoint_cover(64, 8, 8)
+    with pytest.raises(AssertionError, match="does not tile"):
+        debug.assert_disjoint_cover(64, 8, 7)

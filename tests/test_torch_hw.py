@@ -1,5 +1,9 @@
-"""The ``gpu`` plan backend and the device inventory on the CPU (plain
-versions), mirroring the reference's tests/test_hw.py: the twiddle stack
+"""The ``gpu`` and ``cpu-native`` plan backends and the device inventory
+on the CPU (plain versions), mirroring the reference's tests/test_hw.py:
+the cpu-native family (its ceiling's environment override, the p race
+capacity first, static defaults, executors against numpy in both
+layouts and against the reference's rung, the build error with no
+numpy stand-in, the host-clock race); the twiddle stack
 bit-identical to the JAX package's, the gpu-rows plain version against
 the reference's ``fft_rows_gpu`` (interpret mode) and numpy float64, the
 kernel's blocking rules, the backend's candidates, static defaults and
@@ -13,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from cs87project_msolano2_tpu.hw import inventory as ref_inventory
 from cs87project_msolano2_tpu.hw import lowering as ref_lowering
 from cs87project_msolano2_tpu.plans.core import PlanKey as RefPlanKey
 from cs87project_msolano2_tpu_torch import plans
+from cs87project_msolano2_tpu_torch.backends.cpu import num_cores
 from cs87project_msolano2_tpu_torch.cli import main as cli_main
 from cs87project_msolano2_tpu_torch.hw import inventory, lowering
 from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
@@ -298,7 +304,7 @@ def test_backend_axis_token_round_trip_and_distinct():
     a = plans.make_key(256, device="cpu")
     b = plans.make_key(256, backend="gpu", device="cpu")
     assert a.backend == "cuda" and b.backend == "gpu"
-    assert BACKENDS == ("cuda", "gpu")
+    assert BACKENDS == ("cuda", "gpu", "cpu-native")
     assert a.token() != b.token()
     assert PlanKey.from_token(b.token()) == b
     assert json.loads(b.token())["backend"] == "gpu"
@@ -307,8 +313,11 @@ def test_backend_axis_token_round_trip_and_distinct():
 def test_bogus_and_unported_backends_refused():
     with pytest.raises(ValueError, match="not in"):
         plans.make_key(256, backend="phi", device="cpu")
-    with pytest.raises(ValueError, match="'cpu-native' is not ported yet"):
-        plans.make_key(256, backend="cpu-native", device="cpu")
+    # the reference's TPU family is the port's "cuda"; no "tpu" tag here
+    with pytest.raises(ValueError, match="not in"):
+        plans.make_key(256, backend="tpu", device="cpu")
+    assert plans.make_key(256, backend="cpu-native",
+                          device="cpu").backend == "cpu-native"
 
 
 def test_per_backend_winners_cached_separately(plan_cache_tmp):
@@ -391,11 +400,14 @@ def test_probe_returns_typed_inventory_on_the_cpu():
     assert json.loads(inv.to_json()) == d
 
 
-def test_peak_bytes_per_s_per_backend():
-    for backend in BACKENDS:
+def test_peak_bytes_per_s_per_backend(monkeypatch):
+    for backend in ("cuda", "gpu"):
         assert inventory.peak_bytes_per_s(backend, CARD) == 3.35e12
         assert inventory.peak_bytes_per_s(backend, "mystery") is None
-    assert inventory.peak_bytes_per_s("cpu-native", CARD) is None
+    monkeypatch.delenv("PIFFT_DRAM_GBPS", raising=False)
+    # the host's DRAM ceiling, whatever card is named
+    assert inventory.peak_bytes_per_s("cpu-native", CARD) == 50e9
+    assert inventory.peak_bytes_per_s("cpu-interpret", CARD) is None
 
 
 def test_cli_hw_probe(capsys):
@@ -403,7 +415,9 @@ def test_cli_hw_probe(capsys):
     d = json.loads(capsys.readouterr().out)
     assert d["platform"] == "cpu" and d["schema"] == 1
     assert cli_main(["hw", "probe", "--cores"]) == 0
-    assert int(capsys.readouterr().out) >= 1
+    cores, native = capsys.readouterr().out.splitlines()
+    assert int(cores) >= 1
+    assert native == f"pifft_num_cores {num_cores()}"
     assert cli_main(["hw", "probe"]) == 0
     assert capsys.readouterr().out.strip() == "0"
     assert cli_main(["hw"]) == 2
@@ -424,3 +438,156 @@ def test_roofline_charges_gpu_rows_by_row_length():
     assert roofline.plan_carry_passes("gpu-stages") is None
     ms, by = roofline.bound_ms(16 << 20, 0, CARD, bf16_flops=3 << 30)
     assert by == "bytes" and ms == pytest.approx(16 * 2 ** 20 / 3.35e9)
+
+
+# ------------------------------------------------------------ cpu-native
+
+
+@pytest.fixture(scope="module")
+def reference_core(tmp_path_factory):
+    """The reference's cpu-native rung on its own library, built by its
+    own Makefile from a copy of its sources in a temporary directory, so
+    the library in the reference's tree is neither written nor read
+    here while other workers' reference tests load it."""
+    import os
+    import shutil
+
+    from cs87project_msolano2_tpu.utils import buildlib as ref_buildlib
+
+    src = tmp_path_factory.mktemp("ref") / "native"
+    shutil.copytree(ref_buildlib.NATIVE_DIR, src,
+                    ignore=shutil.ignore_patterns("*.so", "pifft",
+                                                  "how-many-cpu-cores"))
+    saved = (ref_buildlib.NATIVE_DIR, ref_buildlib.LIB_PATH)
+    ref_buildlib.NATIVE_DIR = str(src)
+    ref_buildlib.LIB_PATH = os.path.join(str(src), "libpifft.so")
+    ref_buildlib.load_native.cache_clear()
+    ref_lowering._native_or_none.cache_clear()
+    try:
+        yield ref_lowering
+    finally:
+        ref_buildlib.NATIVE_DIR, ref_buildlib.LIB_PATH = saved
+        ref_buildlib.load_native.cache_clear()
+        ref_lowering._native_or_none.cache_clear()
+
+
+def cpun_key(n=256, layout="pi", domain="c2c", batch=()):
+    return plans.make_key(n, batch, layout=layout, domain=domain,
+                          backend="cpu-native", device="cpu")
+
+
+def test_peak_bytes_per_s_cpu_native_env_override(monkeypatch):
+    monkeypatch.delenv("PIFFT_DRAM_GBPS", raising=False)
+    assert inventory.DRAM_DEFAULT_GBPS == ref_inventory.DRAM_DEFAULT_GBPS
+    for env in (None, "123.5", "not-a-number"):
+        if env is not None:
+            monkeypatch.setenv("PIFFT_DRAM_GBPS", env)
+        assert inventory.peak_bytes_per_s("cpu-native") == \
+            ref_inventory.peak_bytes_per_s("cpu-native")
+    monkeypatch.setenv("PIFFT_DRAM_GBPS", "123.5")
+    assert inventory.peak_bytes_per_s("cpu-native") == 123.5e9
+    assert inventory.probe().bandwidth["cpu-native"] == 123.5e9
+
+
+def test_cpu_native_candidates_sweep_p_capacity_first(reference_core):
+    for n in (4, 1024):
+        cands = lowering.candidates(cpun_key(n))
+        assert cands and all(v == "cpu-native" for v, _ in cands)
+        ps = [prm["p"] for _, prm in cands]
+        assert ps == sorted(ps, reverse=True) and ps[-1] == 1
+        assert ps[0] == lowering.native_capacity_p(n)
+        assert cands == reference_core.candidates(
+            RefPlanKey(device_kind="cpu", n=n, layout="pi",
+                       backend="cpu-native"))
+
+
+def test_cpu_native_static_default_and_capacity_p(reference_core):
+    cap = lowering.native_capacity_p(1 << 20)
+    assert cap == reference_core.native_capacity_p(1 << 20)
+    assert cap & (cap - 1) == 0 and cap <= inventory.cpu_cores()
+    assert lowering.native_capacity_p(2) <= 2
+    assert lowering.static_default(cpun_key(1024)) == \
+        ("cpu-native", {"p": lowering.native_capacity_p(1024)})
+    assert plans.get_plan(cpun_key(1024), "cpu").variant == "cpu-native"
+    # the even real domains ride the half-length c2c key
+    r2c = cpun_key(512, layout="natural", domain="r2c")
+    assert lowering.static_default(r2c) == lowering.static_default(
+        cpun_key(256, layout="natural"))
+    with pytest.raises(ValueError, match="power-of-two"):
+        lowering.static_default(cpun_key(100, layout="natural"))
+    assert plans.get_plan(cpun_key(256), "cpu").storage_bytes() == 4
+
+
+@pytest.mark.parametrize("layout", ["pi", "natural"])
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_cpu_native_plan_executes_with_numpy_parity(layout, batch,
+                                                    reference_core):
+    n = 256
+    plan = plans.get_plan(cpun_key(n, layout, batch=batch), "cpu")
+    xr, xi = _planes(30, batch + (n,))
+    yr, yi = plan.execute(xr, xi)
+    assert yr.dtype == torch.float32 and yr.shape == batch + (n,)
+    got = yr.numpy() + 1j * yi.numpy()
+    if layout == "pi":
+        got = got[..., bit_reverse_indices(n)]
+    ref = np.fft.fft(xr.astype(np.complex128) + 1j * xi, axis=-1)
+    assert rel_err(got.real, got.imag, ref.real, ref.imag) <= SPLIT3_TOL
+    # the reference's rung on the same planes: the same C arithmetic
+    ref_key = RefPlanKey(device_kind="cpu", n=n, batch=batch,
+                         layout=layout, backend="cpu-native")
+    rr, ri = reference_core.build_executor(ref_key, "cpu-native",
+                                           dict(plan.params))(xr, xi)
+    assert np.array_equal(yr.numpy(), np.asarray(rr))
+    assert np.array_equal(yi.numpy(), np.asarray(ri))
+
+
+def test_cpu_native_real_domain_rides_the_c2c_rung():
+    n = 512
+    plan = plans.get_plan(cpun_key(n, "natural", "r2c"), "cpu")
+    x, _ = _planes(31, (n,))
+    yr, yi = plan.execute(x, np.zeros_like(x))
+    ref = np.fft.rfft(x.astype(np.float64))
+    assert yr.shape == (n // 2 + 1,)
+    assert rel_err(yr.numpy(), yi.numpy(), ref.real, ref.imag) \
+        <= SPLIT3_TOL
+
+
+def test_cpu_native_refuses_bad_p_and_variants():
+    with pytest.raises(ValueError, match="power of two"):
+        lowering.build_executor(cpun_key(256), "cpu-native", {"p": 3})
+    with pytest.raises(ValueError, match="power of two"):
+        lowering.build_executor(cpun_key(8), "cpu-native", {"p": 16})
+    with pytest.raises(ValueError, match="unknown"):
+        lowering.build_executor(cpun_key(256), "gpu-rows", {})
+
+
+def test_cpu_native_without_the_core_raises_the_build_error(monkeypatch):
+    """No numpy stand-in: a core that cannot be built raises its build
+    error (never demoted by the degradation chain)."""
+    from cs87project_msolano2_tpu_torch.backends import cpu as native
+    from cs87project_msolano2_tpu_torch.resilience import KernelBuildError
+
+    def no_core():
+        raise KernelBuildError("gcc failed (exit 1) on the native C core")
+
+    monkeypatch.setattr(native, "load_native", no_core)
+    with pytest.raises(KernelBuildError, match="gcc failed"):
+        lowering.build_executor(cpun_key(256), "cpu-native", {"p": 1})
+    with pytest.raises(KernelBuildError):
+        lowering.candidates(cpun_key(256))
+
+
+def test_cpu_native_race_on_the_host_clock():
+    """The race's timer runs a cpu-native candidate on the host (the
+    default timer, no CUDA graph), each p timed, the winner stored
+    under its own backend token."""
+    key = PlanKey(device_kind=CARD, n=1024, layout="pi",
+                  backend="cpu-native")
+    plan = plans.tune(key, allow_offline=True, persist=False,
+                      verbose=False, device="cpu")
+    assert plan.variant == "cpu-native" and plan.ms > 0
+    assert [r.params for r in plan.tuning] == \
+        [p for _, p in lowering.candidates(key)]
+    assert all(r.status in ("won", "lost") for r in plan.tuning)
+    assert key.token() != PlanKey(device_kind=CARD, n=1024,
+                                  layout="pi").token()

@@ -288,7 +288,8 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 21, mods\n"
         "new = ['utils.roofline', 'bench', 'harness.run_experiments', "
         "'analyze.records', 'resilience.inject', 'resilience.retry', "
-        "'resilience.journal', 'resilience.degrade']\n"
+        "'resilience.journal', 'resilience.degrade', 'backends.cpu', "
+        "'models.direct_dft', 'utils.debug', 'probes']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cs87project_msolano2_tpu' or "

@@ -200,3 +200,53 @@ def test_time_ms_is_unchanged_on_the_host():
     ms, out = timing.time_ms(lambda: time.sleep(0.001) or 7, reps=3,
                              warmup=1)
     assert out == 7 and ms >= 1.0
+
+
+@pytest.mark.parametrize("elements,want", [
+    (1 << 20, (64, 1024)), (1 << 24, (16, 256)), ((1 << 24) + 1, (8, 128)),
+    (1 << 25, (8, 128)), (1 << 26, (4, 64)), (1 << 27, (2, 32))])
+def test_race_window_by_size(elements, want):
+    # the reference's windows up to 2^24 elements, halved per doubling
+    # past it; one window per key, whatever the candidate
+    assert timing.race_window(elements) == want
+
+
+@pytest.mark.parametrize("plane_bytes,window,want", [
+    (8 << 20, (64, 1024), 8), (8 << 20, (1, 4), 4), (8 << 20, (1, 2), 2),
+    (1 << 30, (2, 32), 1)])
+def test_window_copies_are_the_rotation_at_most_k2(plane_bytes, window,
+                                                   want):
+    assert timing.window_copies(plane_bytes, 50 << 20, window) == want
+
+
+def test_fitted_slope_ms_fits_the_window_and_restores_the_probe(
+        monkeypatch):
+    """One timed call (50 ms, injected) fits the window; the probe of an
+    fn that writes over its planes runs on copies, so the slope gets the
+    caller's planes unchanged."""
+    captured = {}
+
+    def fake_time_ms(fn, *args, before=None, **kw):
+        before()
+        fn(*args)
+        return 50.0, None
+
+    def fake_slope(fn, arg_sets, k1, k2, reps, before):
+        captured.update(window=(k1, k2), copies=len(arg_sets),
+                        first=arg_sets[0][0].clone())
+        return 0.5
+
+    monkeypatch.setattr(timing, "time_ms", fake_time_ms)
+    monkeypatch.setattr(timing, "loop_slope_ms", fake_slope)
+    x = torch.ones(1 << 10)
+
+    def consume(a):
+        a.mul_(2.0)
+        return a
+
+    assert timing.fitted_slope_ms(consume, x, consumes=True) == 0.5
+    assert captured["window"] == timing.fitted_window(50.0, 1 << 10) \
+        == (1, 4)
+    assert captured["copies"] == 1  # no L2 on the CPU
+    assert torch.equal(x, torch.ones(1 << 10))
+    assert torch.equal(captured["first"], x)
