@@ -97,13 +97,24 @@ its 1-D segment at n = 2^27, p = 2 (sixstep) and p = 8 (the store's
 winner at 2^24, else fourstep); the funnel's (p, s) planes at n = 2^20,
 p = 64 (rows) and n = 2^24, p = 4 (the stage tube) — each case's
 variant, its launches counted with torch.fft and numpy.fft refused,
-its result against numpy in complex128 and against ``tube_cuda`` on
+its result against torch.fft in complex128 and against ``tube_cuda`` on
 the same funnel output, both tubes' slopes; one
 ``PIFFT_FAULT=resolve:capacity:1.0:1`` firing sending the rows case to
 the stage tube with one warning; the C core's golden test (``-t``) on
 serial and pthreads beside its capacity and this process's affinity
 mask; the harness on serial, pthreads, torch-scan and einsum, -T 3
---verify, every cell verified and none DEGRADED; BASELINE config 1).
+--verify, every cell verified and none DEGRADED; BASELINE config 1)
+and the parallel configs on torch.distributed (phase 16,
+``phase_parallel``: BASELINE configs 3, 4 and 5 at full size through
+the sharded entry points on a world-1 NCCL job, each counted —
+``COLLECTIVE_CALLS`` 0, 4, 4 a call — and timed beside its unsharded
+twin; the same configs, ``pi_fft_sharded`` at n = 2^27 and
+``pi_fft_sharded_batched`` on a 2 x 2 mesh on four gloo ranks sharing
+the card, every output assembled here and held to ``torch.fft`` in
+complex128 or to u_true; the collective-free escape bit for bit
+against the primary, an unhealthy report that skips the dispatch, a
+stall on every rank aborted, agreed and escaped; the sharded harness,
+-T 3 --verify).
 Each phase's seconds are printed as it ends.  The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
@@ -121,6 +132,8 @@ TFLOP/s of dense bf16 on them for the H100 SXM).
 from __future__ import annotations
 
 import atexit
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -855,13 +868,16 @@ PLANNED_CASES = (("n=2^27 p=2", 27, 2, "segments", "sixstep"),
 #: float32 kernel paths (tube_cuda runs rql at every s)
 TUBE_TOL = 1e-6
 #: phase 15's harness sweeps: backend -> (n grid, p grid), -T 3
-#: --verify; pthreads' p-grid is clipped at the core's capacity, the
-#: einsum grid is the committed einsum dataset's (p * n <= 2^24)
+#: --verify; pthreads' p-grid is clipped at the core's capacity; the
+#: pthreads and torch-scan grids stop at 2^22 and the einsum grid at
+#: 2^15 (tube segments up to 2^15) to keep the run inside its time: the
+#: 2^24 runs (1.2 s a pthreads run at p = 1, the torch-scan funnels at
+#: p = 64) and the einsum tube at s = 2^16 took most of the phase
 BACKEND_SWEEPS = (("serial", (1 << 16, 1 << 20), (1, 4, 16, 64)),
-                  ("pthreads", (1 << 16, 1 << 20, 1 << 24), (1, 4, 16, 64)),
-                  ("torch-scan", (1 << 16, 1 << 20, 1 << 24),
+                  ("pthreads", (1 << 16, 1 << 20, 1 << 22), (1, 4, 16, 64)),
+                  ("torch-scan", (1 << 16, 1 << 20, 1 << 22),
                    (1, 4, 16, 64)),
-                  ("einsum", (1 << 12, 1 << 14, 1 << 16), (1, 4, 16, 64)))
+                  ("einsum", (1 << 12, 1 << 14, 1 << 15), (1, 4, 16, 64)))
 #: the pthreads run whose worker threads phase 15 reads the affinity of
 PINNING_N = 1 << 22
 #: BASELINE config 1 (the float64 direct DFT) vs numpy, rel L2
@@ -872,8 +888,9 @@ def planned_case(dev, rng, ref_cache, label, k, p, drive, static):
     """One planned-tube case of phase 15: the funnel, then
     ``tube_planned`` (counted, torch.fft and numpy.fft refused), the
     variant checked against the store's winner or the static ladder's,
-    the result against numpy in complex128 (natural order) and against
-    ``tube_cuda`` on the same funnel output, and both tubes timed by the
+    the result against torch.fft in complex128 on the card (natural
+    order) and against ``tube_cuda`` on the same funnel output, and both
+    tubes timed by the
     loop slope on one call's operands.  Returns (row, launches)."""
     import contextlib
     import io
@@ -895,10 +912,12 @@ def planned_case(dev, rng, ref_cache, label, k, p, drive, static):
     if k not in ref_cache:
         ref_cache.clear()
         xr, xi = random_complex(rng, (n,), dev)
-        x = xr.cpu().numpy().astype(np.complex128)
-        x.imag = xi.cpu().numpy()
-        ref_cache[k] = (xr, xi, np.fft.fft(x))
-        del x
+        # the complex128 oracle on the card (numpy's host FFT of 2^27
+        # points took 20 s of the phase); torch.fft is refused only in
+        # the counted calls below
+        ref = torch.fft.fft(torch.complex(xr, xi).to(torch.complex128))
+        ref_cache[k] = (xr, xi, ref.cpu().numpy())
+        del ref
     xr, xi, ref = ref_cache[k]
     shape = (s,) if drive == "segments" else (p, s)
     key = plans.make_key(s, shape[:-1], layout="pi", device=dev)
@@ -952,7 +971,7 @@ def planned_case(dev, rng, ref_cache, label, k, p, drive, static):
     log(f"# phase 15 planned tube {label} ({drive}, s=2^"
         f"{s.bit_length() - 1}): resolved {got_variant} (expected {want}; stored "
         f"{row['stored']}), launches {launched} (expected "
-        f"{want_launches}), rel L2 {err:.3e} vs numpy complex128 (bound "
+        f"{want_launches}), rel L2 {err:.3e} vs torch.fft complex128 (bound "
         f"{PATH_TOL}), {err_cuda:.3e} vs tube_cuda (bound {TUBE_TOL}); "
         f"slope ms of one {'segment' if calls > 1 else 'call'}: "
         f"tube_planned {planned_ms:.4f}, tube_cuda (rql) {cuda_ms:.4f}")
@@ -990,7 +1009,7 @@ def planned_case(dev, rng, ref_cache, label, k, p, drive, static):
         log(f"# phase 15 PIFFT_FAULT=resolve:capacity:1.0:1 on {label}: "
             f"raised {raised}, {warned} warning(s), launches {faulted}; "
             f"the next call: launches {after}, rel L2 {e_after:.3e} vs "
-            f"numpy complex128")
+            f"torch.fft complex128")
         row["resolve_fault"] = {"raised": raised, "warnings": warned,
                                 "launches": faulted,
                                 "next_launches": after,
@@ -1171,6 +1190,564 @@ def phase_backends(dev, rng):
     if not (e1 <= CONFIG1_TOL and y1.dtype == np.complex128):
         raise AssertionError("phase 15 config 1 failed")
     return rows, launches
+
+
+#: phase 16, the parallel configs: the ranks of the job that share the
+#: card (gloo: NCCL refuses two ranks on one GPU)
+PARALLEL_WORLD = 4
+#: BASELINE configs 3 (a batch of 4096 rows of 4096), 4 (the 4096^2 2-D
+#: FFT) and 5 (the 512^3 slab Poisson solve) at full size
+P16_ROWS = (4096, 4096)
+P16_FFT2 = (4096, 4096)
+P16_POISSON = (512, 512, 512)
+#: pi_fft_sharded at n = 2^27 (segments of 2^25 at world 4) and
+#: pi_fft_sharded_batched on the 2 x 2 mesh
+P16_PI_LOGN = 27
+P16_PI_BATCH = (8, 1 << 20)
+#: the stall drill on every rank (the 4096^2 fft2): a deadline over the
+#: healthy call's time, a stall past two deadlines
+P16_DRILL = {"deadline_s": 2.0, "abort_waits": 2, "stall_s": 5.0}
+#: the seeds of phase 16's inputs (made on the card, the same in every
+#: process: ``p16_planes``)
+P16_SEEDS = {"rows": 31, "fft2": 41, "poisson": 51, "pi": 61,
+             "pi_batch": 71}
+#: phase 16's sharded harness: n grid, p grid, reps
+P16_HARNESS = ((1 << 20, 1 << 24), (1, 4, 16, 64), 3)
+#: the slab Poisson solve vs u_true, max |u - u_true| / max |u_true|
+#: (the reference test's bound)
+POISSON_TOL = 1e-3
+
+
+def p16_planes(dev, shape, seed):
+    """Uniform planes in +-1/sqrt(n) from the card's generator: every
+    process of the job makes the same ones from the seed."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + seed)
+    amp = 1.0 / np.sqrt(shape[-1])
+    return tuple((torch.rand(shape, generator=g, device=dev) * 2 - 1) * amp
+                 for _ in range(2))
+
+
+def p16_poisson_problem(dev):
+    """(f, u_true) of the 512^3 solve: u_true seeded and mean-free, f =
+    lap(u_true) by the torch.fft oracle in complex128 (the reference
+    test's construction)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + P16_SEEDS["poisson"])
+    u = torch.randn(P16_POISSON, generator=g, device=dev)
+    u -= u.mean()
+    ksq = None
+    for ax, m in enumerate(P16_POISSON):
+        k = torch.fft.fftfreq(m, 1.0 / m, dtype=torch.float64, device=dev)
+        shape = [1, 1, 1]
+        shape[ax] = m
+        k = (k ** 2).reshape(shape)
+        ksq = k if ksq is None else ksq + k
+    f = torch.fft.ifftn(-ksq * torch.fft.fftn(u.to(torch.float64)))
+    return f.real.to(torch.float32).contiguous(), u
+
+
+def p16_counted(fn, *args):
+    """(result, Hopper launches, collectives, axis copies) of one call,
+    torch.fft and numpy.fft refused (``counted``)."""
+    from cs87project_msolano2_tpu_torch.apps import pde
+    from cs87project_msolano2_tpu_torch.parallel import collectives
+
+    calls0, copies0 = collectives.COLLECTIVE_CALLS, pde.AXIS_COPIES
+    out, launched = counted(fn, *args)
+    return (out, launched, collectives.COLLECTIVE_CALLS - calls0,
+            pde.AXIS_COPIES - copies0)
+
+
+def p16_world1(poisson_path):
+    """The world-1 NCCL job's rank (a spawned process on the card):
+    configs 3, 4 and 5 through the sharded entries and their unsharded
+    twins, each counted (Hopper launches, collectives, axis copies) and
+    timed — the loop slope, CUDA events beside it — and each output,
+    the twins' too, returned for the parent's oracles."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.apps.pde import poisson_solve
+    from cs87project_msolano2_tpu_torch.models.fft import (
+        fft2,
+        fft_planes_fast,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.batched import (
+        fft_batched_planes,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.fft2d import (
+        fft2_sharded_planes,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.mesh import make_mesh
+    from cs87project_msolano2_tpu_torch.parallel.multihost import to_host
+    from cs87project_msolano2_tpu_torch.parallel.poisson3d import (
+        poisson_solve_sharded,
+    )
+    from cs87project_msolano2_tpu_torch.utils.timing import time_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(axis="p")
+    mesh_d = make_mesh(axis="data")
+    dev = mesh.device
+
+    def events(fn, *args):
+        return time_ms(fn, *args, reps=10, warmup=2, flush_l2=True)[0]
+
+    def case(run, twin, args, twin_args, plan_shapes):
+        run(*args)
+        twin(*twin_args)
+        torch.cuda.synchronize()
+        out, launched, colls, copies = p16_counted(run, *args)
+        twin_out, twin_launched, twin_colls, twin_copies = p16_counted(
+            twin, *twin_args)
+        row = {"launches": launched, "collectives": colls,
+               "axis_copies": copies, "twin_launches": twin_launched,
+               "twin_collectives": twin_colls, "twin_axis_copies":
+               twin_copies,
+               "plans": {str(s): plans.plan_for(s, device=dev).variant
+                         for s in plan_shapes},
+               "slope_ms": slope_ms(run, *args),
+               "event_ms": events(run, *args),
+               "twin_slope_ms": slope_ms(twin, *twin_args),
+               "twin_event_ms": events(twin, *twin_args)}
+        return row, to_host(out), to_host(twin_out)
+
+    rows, outs = {}, {}
+    xr, xi = p16_planes(dev, P16_ROWS, P16_SEEDS["rows"])
+    rows["config 3"], outs["config 3"], outs["config 3 twin"] = case(
+        lambda a, b: fft_batched_planes(a, b, mesh_d),
+        lambda a, b: fft_planes_fast(a, b), (xr, xi), (xr, xi), [P16_ROWS])
+    R, C = P16_FFT2
+    xr, xi = p16_planes(dev, P16_FFT2, P16_SEEDS["fft2"])
+    x = torch.complex(xr, xi)
+    rows["config 4"], outs["config 4"], outs["config 4 twin"] = case(
+        lambda a, b: fft2_sharded_planes(a, b, mesh),
+        lambda v: fft2(v), (xr, xi), (x,), [(R, C), (C, R)])
+    del xr, xi, x
+    f = torch.from_numpy(np.load(poisson_path)).to(dev)
+    rows["config 5"], outs["config 5"], outs["config 5 twin"] = case(
+        lambda v: poisson_solve_sharded(v, mesh),
+        lambda v: poisson_solve(v), (f,), (f,), [P16_POISSON])
+    rows["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return rows, outs
+
+
+def p16_rank(poisson_path):
+    """A rank of the world-4 gloo job on the shared card: configs 3, 4
+    and 5 through the sharded entries on the rank's blocks, the pi-FFT
+    at 2^27 and its batched form on the 2 x 2 mesh (blocks returned for
+    the parent's oracles, collectives counted); the escape of configs 4
+    and 5 against the primary, bit for bit; the stall drill; the
+    unhealthy report."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch.parallel import collectives
+    from cs87project_msolano2_tpu_torch.parallel.batched import (
+        fft_batched_planes,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.escape import (
+        clear_unhealthy,
+        fft2_collective_free_planes,
+        poisson_solve_collective_free,
+        report_unhealthy,
+        stall_drill,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.fft2d import (
+        fft2_sharded_planes,
+        fft2_sharded_resilient,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_mesh2d,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.pi_shard import (
+        PLAN_SEGMENT_MIN,
+        pi_fft_sharded,
+        pi_fft_sharded_batched,
+    )
+    from cs87project_msolano2_tpu_torch.models.pi_fft import (
+        resolve_tube_plan,
+    )
+    from cs87project_msolano2_tpu_torch.resilience import watchdog
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(axis="p")
+    mesh_d = make_mesh(axis="data")
+    mesh2 = make_mesh2d(2, 2)
+    dev = mesh.device
+    p, i = mesh.shape["p"], mesh.axis_index("p")
+    out, rec = {}, {}
+
+    def timed_call(label, fn, *args):
+        # torch.fft and numpy.fft refused, as at world 1 (``counted``)
+        torch.cuda.synchronize(dev)
+        calls0 = collectives.COLLECTIVE_CALLS
+        t0 = time.perf_counter()
+        y, launched = counted(fn, *args)
+        rec[label] = {"s": time.perf_counter() - t0,
+                      "collectives": collectives.COLLECTIVE_CALLS - calls0,
+                      "launches": launched}
+        return y
+
+    def rows_of(t, n_rows):
+        b = n_rows // p
+        return t[i * b:(i + 1) * b]
+
+    xr, xi = p16_planes(dev, P16_ROWS, P16_SEEDS["rows"])
+    y = timed_call("config 3", fft_batched_planes, rows_of(xr, P16_ROWS[0]),
+                   rows_of(xi, P16_ROWS[0]), mesh_d)
+    out["config 3"] = tuple(t.cpu().numpy() for t in y)
+    del xr, xi, y
+    xr, xi = p16_planes(dev, P16_FFT2, P16_SEEDS["fft2"])
+    R = P16_FFT2[0]
+    # the first call builds the plans and tables, and gloo's pairs
+    fft2_sharded_planes(rows_of(xr, R), rows_of(xi, R), mesh)
+    y = timed_call("config 4", fft2_sharded_planes, rows_of(xr, R),
+                   rows_of(xi, R), mesh)
+    e = timed_call("config 4 escape", fft2_collective_free_planes, xr, xi,
+                   mesh)
+    rec["config 4 escape"]["bit_identical"] = bool(
+        torch.equal(y[0], e[0]) and torch.equal(y[1], e[1]))
+    out["config 4"] = tuple(t.cpu().numpy() for t in y)
+    x = torch.complex(xr, xi)
+    del xr, xi, e
+    # the unhealthy report: the doomed dispatch is skipped
+    report_unhealthy(dev, "phase 16: reported by the operator")
+    try:
+        yu, rep = timed_call("config 4 unhealthy", fft2_sharded_resilient,
+                             x, mesh)
+    finally:
+        clear_unhealthy()
+    rec["config 4 unhealthy"].update(
+        report=rep.to_record(),
+        bit_identical=bool(torch.equal(yu.real, y[0])
+                           and torch.equal(yu.imag, y[1])))
+    del yu, y
+    # the stall on every rank
+    events0 = len(watchdog.COLLECTIVE_EVENTS)
+    t0 = time.perf_counter()
+    d, _ = counted(lambda: stall_drill("fft2", x, mesh, **P16_DRILL))
+    rec["drill"] = {"s": time.perf_counter() - t0,
+                    "report_ok": d["report_ok"], "report": d["report"],
+                    "collectives": d["collectives"], "events": d["events"],
+                    "bit_identical": bool(torch.equal(d["healthy"],
+                                                      d["escaped"])),
+                    "all_events": [r["kind"] for r in
+                                   watchdog.COLLECTIVE_EVENTS[events0:]]}
+    del d, x
+    f = torch.from_numpy(np.load(poisson_path)).to(dev)
+    s1 = P16_POISSON[0] // p
+    from cs87project_msolano2_tpu_torch.parallel.poisson3d import (
+        poisson_solve_sharded,
+    )
+
+    poisson_solve_sharded(f[i * s1:(i + 1) * s1], mesh)
+    u = timed_call("config 5", poisson_solve_sharded,
+                   f[i * s1:(i + 1) * s1], mesh)
+    ue = timed_call("config 5 escape", poisson_solve_collective_free, f,
+                    mesh)
+    rec["config 5 escape"]["bit_identical"] = bool(torch.equal(u, ue))
+    out["config 5"] = u.cpu().numpy()
+    del f, u, ue
+    torch.cuda.empty_cache()
+    n = 1 << P16_PI_LOGN
+    xr, xi = p16_planes(dev, (n,), P16_SEEDS["pi"])
+    seg = resolve_tube_plan((n // p,), None, min_segment=PLAN_SEGMENT_MIN,
+                            device=dev)
+    pi_fft_sharded(xr, xi, mesh)
+    y = timed_call("pi", pi_fft_sharded, xr, xi, mesh)
+    rec["pi"]["plan"] = None if seg is None else [seg.variant, seg.params]
+    out["pi"] = tuple(t.cpu().numpy() for t in y)
+    del xr, xi, y
+    torch.cuda.empty_cache()
+    xr, xi = p16_planes(dev, P16_PI_BATCH, P16_SEEDS["pi_batch"])
+    b = P16_PI_BATCH[0] // mesh2.shape["data"]
+    d_i = mesh2.axis_index("data")
+    blk = slice(d_i * b, (d_i + 1) * b)
+    pi_fft_sharded_batched(xr[blk], xi[blk], mesh2)
+    y = timed_call("pi batched", pi_fft_sharded_batched, xr[blk], xi[blk],
+                   mesh2)
+    out["pi batched"] = tuple(t.cpu().numpy() for t in y)
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    rec["coords"] = {"p": i, "data2": d_i, "seq2": mesh2.axis_index("p")}
+    return rec, out
+
+
+def p16_check(label, got, oracle):
+    """(errors, ok) of an assembled output against its oracle (natural
+    order; the pi-FFT's pi layout is gathered to natural order first):
+    the transforms max |got - ref| / max |ref| <= 1e-5 and rel L2 within
+    the split3 budget; the Poisson solve max |u - u_true| / max |u_true|
+    (mean-free) <= POISSON_TOL."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch.ops.bits import to_natural
+
+    dev = oracle.device
+    if label == "config 5":
+        u = torch.from_numpy(got).to(dev)
+        u = u - u.mean()
+        err = float((u - oracle).abs().max() / oracle.abs().max())
+        return {"rel_max": err}, err <= POISSON_TOL
+    if isinstance(got, tuple):
+        gr, gi = (torch.from_numpy(t).to(dev) for t in got)
+        if label.startswith("pi"):
+            # the pi layout to natural order on the card (the host's
+            # bit-reversal table of 2^27 entries takes most of a minute)
+            gr, gi = to_natural(gr, gi)
+        g = torch.complex(gr, gi)
+        del gr, gi
+    else:
+        g = torch.from_numpy(got).to(dev)
+    g = g.to(torch.complex128)
+    rel_max = float((g - oracle).abs().max() / oracle.abs().max())
+    l2 = float(torch.linalg.vector_norm(g - oracle)
+               / torch.linalg.vector_norm(oracle))
+    return ({"rel_max": rel_max, "rel_l2": l2},
+            rel_max <= DOMAIN_TOL and l2 <= PATH_TOL)
+
+
+def phase_parallel(dev, rng):
+    """Phase 16: the parallel configs on the card.  (a) A world-1 NCCL
+    job (``p16_world1``): BASELINE configs 3, 4 and 5 at full size
+    through ``fft_batched_planes``, ``fft2_sharded_planes`` and
+    ``poisson_solve_sharded``, collectives counted (0, 4, 4 a call),
+    each timed (slope and events) beside its unsharded twin
+    (``fft_planes_fast``, ``models.fft.fft2``, ``apps.pde.poisson_solve``)
+    with its per-shard plans and launches.  (b) A job of PARALLEL_WORLD
+    gloo ranks sharing the card (``p16_rank``): the same configs, the
+    pi-FFT at 2^27 and batched on the 2 x 2 mesh (no collective), the
+    escape bit for bit, the unhealthy report, the stall drill.  Every
+    output is assembled here and held to its oracle (``torch.fft`` in
+    complex128 on the card, or u_true).  (c) The sharded harness, -T 3
+    --verify, into a temporary directory.  Runs alone after
+    ``buildlib.build()``.  Returns the rows; raises on any failure."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch.harness import (
+        run_sharded_experiments as rse,
+    )
+    from cs87project_msolano2_tpu_torch.parallel.multihost import spawn_local
+
+    rows = {}
+    tmp = tempfile.mkdtemp(prefix="pifft-p16-")
+    try:
+        t0 = time.perf_counter()
+        f, u_true = p16_poisson_problem(dev)
+        poisson_path = os.path.join(tmp, "poisson_f.npy")
+        np.save(poisson_path, f.cpu().numpy())
+        del f
+        torch.cuda.empty_cache()
+        log(f"# phase 16 the 512^3 problem made and saved: "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def oracle(label):
+            if label == "config 5":
+                return u_true
+            if label == "config 3":
+                xr, xi = p16_planes(dev, P16_ROWS, P16_SEEDS["rows"])
+                return torch.fft.fft(torch.complex(xr, xi).to(
+                    torch.complex128), dim=-1)
+            if label == "config 4":
+                xr, xi = p16_planes(dev, P16_FFT2, P16_SEEDS["fft2"])
+                return torch.fft.fft2(torch.complex(xr, xi).to(
+                    torch.complex128))
+            if label == "pi":
+                xr, xi = p16_planes(dev, (1 << P16_PI_LOGN,),
+                                    P16_SEEDS["pi"])
+                return torch.fft.fft(torch.complex(xr, xi).to(
+                    torch.complex128))
+            xr, xi = p16_planes(dev, P16_PI_BATCH, P16_SEEDS["pi_batch"])
+            return torch.fft.fft(torch.complex(xr, xi).to(torch.complex128),
+                                 dim=-1)
+
+        def check(world, label, got, what=""):
+            errs, ok = p16_check(label, got, oracle(label))
+            torch.cuda.empty_cache()
+            log(f"# phase 16 world {world} {label}{what}: {errs} vs the "
+                f"oracle "
+                f"({'u_true, bound ' + str(POISSON_TOL) if label == 'config 5' else f'torch.fft complex128, bounds {DOMAIN_TOL} max, {PATH_TOL} rel L2'})")
+            if not ok:
+                raise AssertionError(f"phase 16 world {world} {label}"
+                                     f"{what} failed: {errs}")
+            return errs
+
+        # (a) world 1, NCCL
+        t0 = time.perf_counter()
+        (w1,) = spawn_local(p16_world1, 1, "nccl", "cuda", poisson_path)
+        w1_rows, w1_outs = w1
+        log(f"# phase 16 world 1 (nccl) job: {time.perf_counter() - t0:.1f}"
+            f" s, max_memory_allocated "
+            f"{w1_rows.pop('max_memory_allocated') / 2**30:.2f} GiB")
+        want_colls = {"config 3": 0, "config 4": 4, "config 5": 4}
+        t0 = time.perf_counter()
+        for label, row in w1_rows.items():
+            row["errors"] = check(1, label, w1_outs[label])
+            # the unsharded twin's output is held to the same oracle
+            row["twin_errors"] = check(1, label, w1_outs[label + " twin"],
+                                       " (its unsharded twin)")
+            log(f"# phase 16 world 1 {label}: plans {row['plans']}, "
+                f"launches a call {row['launches']} (twin "
+                f"{row['twin_launches']}), axis copies "
+                f"{row['axis_copies']} (twin {row['twin_axis_copies']}), "
+                f"COLLECTIVE_CALLS {row['collectives']} (expected "
+                f"{want_colls[label]}); slope {row['slope_ms']:.4f} ms "
+                f"(events {row['event_ms']:.4f}), unsharded twin slope "
+                f"{row['twin_slope_ms']:.4f} (events "
+                f"{row['twin_event_ms']:.4f})")
+            if row["collectives"] != want_colls[label] \
+                    or row["twin_collectives"] or not row["launches"]:
+                raise AssertionError(f"phase 16 world 1 {label}: "
+                                     f"collectives or launches wrong")
+        rows["world 1"] = w1_rows
+        del w1, w1_outs
+        log(f"# phase 16 world 1 checks: {time.perf_counter() - t0:.1f} s")
+
+        # (b) world PARALLEL_WORLD, gloo on the shared card
+        t0 = time.perf_counter()
+        ranks = spawn_local(p16_rank, PARALLEL_WORLD, "gloo", "cuda",
+                            poisson_path)
+        took = time.perf_counter() - t0
+        recs = [r[0] for r in ranks]
+        t0 = time.perf_counter()
+        log(f"# phase 16 world {PARALLEL_WORLD} (gloo, one card) job: "
+            f"{took:.1f} s, max_memory_allocated by rank "
+            f"{[round(r['max_memory_allocated'] / 2**30, 2) for r in recs]}"
+            f" GiB")
+        w4 = {}
+        for label in ("config 3", "config 4", "config 5", "pi"):
+            parts = [r[1][label] for r in ranks]
+            got = (tuple(np.concatenate([q[k] for q in parts])
+                         for k in range(2))
+                   if isinstance(parts[0], tuple) else np.concatenate(parts))
+            w4[label] = {"errors": check(PARALLEL_WORLD, label, got),
+                         "ranks": [r[label] for r in recs]}
+            del got, parts
+        # the 2 x 2 mesh: rank r = (d, q) holds rows block d, segment q
+        blocks = [r[1]["pi batched"] for r in ranks]
+        got = tuple(np.concatenate([np.concatenate(
+            [blocks[d * 2 + q][k] for q in range(2)], axis=1)
+            for d in range(2)]) for k in range(2))
+        w4["pi batched"] = {"errors": check(PARALLEL_WORLD, "pi batched",
+                                            got),
+                            "ranks": [r["pi batched"] for r in recs]}
+        del ranks, blocks, got
+        log(f"# phase 16 world {PARALLEL_WORLD} assembly and checks: "
+            f"{time.perf_counter() - t0:.1f} s")
+        for label in ("config 3", "config 4", "config 5", "pi",
+                      "pi batched", "config 4 escape", "config 5 escape",
+                      "config 4 unhealthy"):
+            rr = [r[label] for r in recs]
+            log(f"# phase 16 world {PARALLEL_WORLD} {label}: seconds by "
+                f"rank {[round(x['s'], 3) for x in rr]}, COLLECTIVE_CALLS "
+                f"{[x['collectives'] for x in rr]}, launches (rank 0) "
+                f"{rr[0]['launches']}"
+                + (f", bit-identical {[x['bit_identical'] for x in rr]}"
+                   if "bit_identical" in rr[0] else "")
+                + (f", segment plan {rr[0]['plan']}" if "plan" in rr[0]
+                   else ""))
+        want = {"config 3": 0, "config 4": 4, "config 5": 4, "pi": 0,
+                "pi batched": 0, "config 4 escape": 0,
+                "config 5 escape": 0, "config 4 unhealthy": 0}
+        for label, c in want.items():
+            if [r[label]["collectives"] for r in recs] != \
+                    [c] * PARALLEL_WORLD:
+                raise AssertionError(f"phase 16 {label}: collectives")
+        for label in ("config 4 escape", "config 5 escape",
+                      "config 4 unhealthy"):
+            if not all(r[label]["bit_identical"] for r in recs):
+                raise AssertionError(f"phase 16 {label}: not bit-identical")
+        for label in ("config 3", "config 4", "config 5", "pi",
+                      "pi batched"):
+            if not all(r[label]["launches"] for r in recs):
+                raise AssertionError(f"phase 16 {label}: a rank launched "
+                                     f"no kernel")
+        # the escapes replay every block's passes: p row and p column
+        # passes for the primary's one of each (fft2), 2p + 2p + 2 for
+        # the solve's 2 + 2 + 2 (every pass here one plan call of the
+        # same launches: 4096- and 512-point rows)
+        p = PARALLEL_WORLD
+        for label, primary, factor in (
+                ("config 4 escape", "config 4", (p, 1)),
+                ("config 4 unhealthy", "config 4", (p, 1)),
+                ("config 5 escape", "config 5", (4 * p + 2, 6))):
+            for r in recs:
+                want = {k: v * factor[0] // factor[1]
+                        for k, v in r[primary]["launches"].items()}
+                if r[label]["launches"] != want:
+                    raise AssertionError(
+                        f"phase 16 {label}: launches {r[label]['launches']}"
+                        f", expected {want} from the primary's "
+                        f"{r[primary]['launches']}")
+        for r in recs:
+            rep = r["config 4 unhealthy"]["report"]
+            if not (rep["escaped"] and rep["waits"] == 0 and
+                    [t["to"] for t in rep["trail"]] == ["collective_free"]):
+                raise AssertionError(f"phase 16 unhealthy report: {rep}")
+        drills = [r["drill"] for r in recs]
+        epochs = {d["report"]["epoch"] for d in drills}
+        log(f"# phase 16 stall drill ({P16_DRILL}, every rank): seconds "
+            f"{[round(d['s'], 2) for d in drills]}, healthy waits "
+            f"{[d['report_ok']['waits'] for d in drills]}, aborted after "
+            f"{[d['report']['waits'] for d in drills]} waits, consensus "
+            f"epochs {sorted(epochs)}, trail "
+            f"{drills[0]['report']['trail']}, bit-identical "
+            f"{[d['bit_identical'] for d in drills]}, collectives in the "
+            f"stalled run {[d['collectives'] for d in drills]}, records "
+            f"{drills[0]['events']}")
+        for d in drills:
+            rep = d["report"]
+            if (d["report_ok"]["escaped"] or not rep["escaped"]
+                    or [t["to"] for t in rep["trail"]] != ["collective_free"]
+                    or not d["bit_identical"] or d["collectives"]
+                    or len(epochs) != 1
+                    or any(k not in d["events"] for k in (
+                        "collective_heartbeat", "collective_abandoned",
+                        "fallback_consensus", "demotion",
+                        "collective_escape_completed"))):
+                raise AssertionError(f"phase 16 stall drill failed: {d}")
+        w4["drill"] = drills
+        rows[f"world {PARALLEL_WORLD}"] = w4
+        del recs, u_true
+        torch.cuda.empty_cache()
+
+        # (c) the sharded harness
+        ns, ps, reps = P16_HARNESS
+        out = os.path.join(tmp, "harness")
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            rc = rse.main(["--n-grid", ",".join(map(str, ns)), "--p-grid",
+                           ",".join(map(str, ps)), "-T", str(reps),
+                           "--verify", "--world", str(PARALLEL_WORLD),
+                           "--seed", str(SEED), "--out", out])
+        took = time.perf_counter() - t0
+        with open(rse.result_path(out)) as fh:
+            tsv = [line.rstrip("\n") for line in fh]
+        for line in tsv:
+            log(f"# phase 16 sharded harness tsv\t{line}")
+        cells = len(ns) * len(ps)
+        notes = [line for line in err.getvalue().splitlines()
+                 if "cross-check" in line or "verified" in line]
+        marked = [line for line in tsv if line.endswith("DEGRADED")]
+        log(f"# phase 16 sharded harness: exit {rc} in {took:.1f} s, "
+            f"{len(tsv)} rows, {cells} cells, DEGRADED rows {len(marked)}; "
+            f"{notes}")
+        if (rc != 0 or len(tsv) != reps * cells or marked
+                or f"# sharded: verified {cells}/{cells} cells vs numpy fft"
+                not in notes):
+            log(err.getvalue()[-4000:])
+            raise AssertionError("phase 16 sharded harness failed")
+        rows["harness"] = {"s": took, "tsv": tsv, "notes": notes}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
 
 
 def main() -> int:
@@ -2757,6 +3334,10 @@ def run(store) -> int:
     # and config 1
     clock.start("phase 15")
     backends15, planned_launches = phase_backends(dev, rng)
+    # phase 16: the parallel configs on torch.distributed
+    clock.start("phase 16")
+    torch.cuda.empty_cache()
+    parallel16 = phase_parallel(dev, rng)
     clock.start(None)
     log(f"# seconds by phase: {clock.seconds}; all phases "
         f"{sum(clock.seconds.values()):.1f} s")
@@ -2764,6 +3345,22 @@ def run(store) -> int:
         if not planned_launches.get(name):
             raise AssertionError(f"the planned tube never launched {name}: "
                                  f"{planned_launches}")
+    # phase 16's counted calls: the world-1 job's sharded entries, and
+    # rank 0's calls of the world-4 job
+    parallel_launches = {}
+    counted16 = [row["launches"] for row in parallel16["world 1"].values()]
+    counted16 += [row["ranks"][0]["launches"] for label, row in
+                  parallel16[f"world {PARALLEL_WORLD}"].items()
+                  if label != "drill"]
+    for launched in counted16:
+        for name, c in launched.items():
+            parallel_launches[name] = parallel_launches.get(name, 0) + c
+    log(f"# phase 16 launches (world 1 counted calls, world "
+        f"{PARALLEL_WORLD} rank 0): {parallel_launches}")
+    for name in ("tile_fft", "long_range_sep"):
+        if not parallel_launches.get(name):
+            raise AssertionError(f"the parallel configs never launched "
+                                 f"{name}: {parallel_launches}")
 
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
@@ -2811,7 +3408,8 @@ def run(store) -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "planned_tube_launches": planned_launches.get(name, 0)})
+            "planned_tube_launches": planned_launches.get(name, 0),
+            "parallel_launches": parallel_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -2822,6 +3420,7 @@ def run(store) -> int:
                     "bf16": bf16_path, "domains": domains,
                     "resilience": resilience, "bench": measurement,
                     "harness_tsv": harness_tsv, "backends": backends15,
+                    "parallel": parallel16,
                     "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),

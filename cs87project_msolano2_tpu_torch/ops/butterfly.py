@@ -46,7 +46,11 @@ def stage_half(xr, xi, wr, wi, bottom):
     s = 1 - 2*bottom, f = bottom ? w : 1.  Returns (..., len // 2).
     """
     half = xr.shape[-1] // 2
-    bottom = torch.as_tensor(bottom, device=xr.device)
+    if not isinstance(bottom, torch.Tensor):
+        # a fill on the device, not a copy from the host: a funnel chain
+        # of one processor (funnel_single) stays capturable in a graph
+        bottom = torch.full((), int(bottom), dtype=torch.int64,
+                            device=xr.device)
     ar, br = xr[..., :half], xr[..., half:]
     ai, bi = xi[..., :half], xi[..., half:]
     s = (1 - 2 * bottom).to(xr.dtype)

@@ -18,18 +18,25 @@ reference's ``resilience/`` package).
 * ``inject``   — fault injection (``PIFFT_FAULT=<site>:<kind>:<prob>`` or
                  the :func:`inject` context manager), so every policy
                  above is testable on the CPU.
+* ``watchdog`` — collective supervision: :func:`collective_watchdog`
+                 (a warn-only deadline with ``collective_recovered``
+                 accounting) and :func:`supervise_collective`
+                 (heartbeats, straggler notes, and a supervised abort
+                 through :class:`CancellationToken` /
+                 :class:`CollectiveAborted` that the sharded paths catch
+                 to escape onto the collective-free path, the
+                 ``collective_free`` rung of ``degrade``).
 * ``journal``  — atomic per-cell JSONL checkpointing behind the bench's
-                 ``--resume`` and the harness sweep.
-
-Collective supervision (the reference's ``watchdog``) and
-``note_collective_escape`` come with the parallel configs.
+                 ``--resume`` and the harness sweeps.
 """
 
 from __future__ import annotations
 
 from .degrade import (  # noqa: F401
+    COLLECTIVE_FREE_RUNG,
     DEGRADE_CHAIN,
     DEMOTION_STATS,
+    note_collective_escape,
     promote_precision,
     resilient_executor,
 )
@@ -62,4 +69,12 @@ from .taxonomy import (  # noqa: F401
     classify,
     sticky,
     wrap,
+)
+from .watchdog import (  # noqa: F401
+    CancellationToken,
+    SupervisionReport,
+    WatchdogReport,
+    collective_watchdog,
+    rendezvous_deadline_s,
+    supervise_collective,
 )

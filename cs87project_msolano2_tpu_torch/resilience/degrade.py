@@ -54,6 +54,14 @@ DEGRADE_CHAIN = ("fourstep", "rql", "torch-fft", "numpy-ref")
 #: the rungs that are a library call or the host: planes on the CPU only
 LIBRARY_RUNGS = ("torch-fft", "numpy-ref")
 
+#: the transport demotion rung: not a kernel of the chain above but the
+#: sharded paths' escape — when a supervised collective is aborted (or a
+#: device is reported unhealthy), the all_to_all 2-D FFT / Poisson
+#: dataflow re-plans onto per-rank local work over the whole input
+#: (``parallel/escape.py``), recorded by :func:`note_collective_escape`
+#: with the record shape and plan tagging of a kernel demotion
+COLLECTIVE_FREE_RUNG = "collective_free"
+
 #: the quality-direction rungs: a plan whose sampled error exceeds its
 #: mode's budget promotes up the mode chain (bf16 -> default -> split3 ->
 #: fp32), recorded like a demotion with ``direction: "up"`` and the rung
@@ -293,6 +301,40 @@ def promote_precision(plan, observed_err: float,
          f"restored; the tuned bytes-halving is not")
     cache.memoize(plan)
     return nxt
+
+
+def note_collective_escape(label: str, exc: BaseException,
+                           kind: FaultKind, plans=()) -> dict:
+    """Record one transport demotion: a supervised collective at `label`
+    was abandoned (or its devices reported unhealthy) and the run
+    escaped onto the collective-free path.  Returns the record
+    (``{"from": "all_to_all", "to": "collective_free", ...}``) and tags
+    it onto every plan in `plans` as a kernel demotion is, in the
+    in-process cache only: an escape belongs to this session's mesh,
+    not to the tuned kernel."""
+    from ..plans import cache
+    from ..plans.core import warn
+    from .watchdog import emit
+
+    record = {
+        "from": "all_to_all",
+        "to": COLLECTIVE_FREE_RUNG,
+        "kind": kind.value,
+        "reason": f"{type(exc).__name__}: {str(exc)[:200]}",
+        "site": label,
+    }
+    for plan in plans:
+        plan.degraded = True
+        plan.demotions.append(dict(record))
+        cache.memoize(plan)
+    DEMOTION_STATS[COLLECTIVE_FREE_RUNG] = \
+        DEMOTION_STATS.get(COLLECTIVE_FREE_RUNG, 0) + 1
+    emit("demotion", cell={"site": label}, **record)
+    warn(f"collective ESCAPED all_to_all -> {COLLECTIVE_FREE_RUNG} at "
+         f"{label} ({kind.value}: {record['reason']}) — per-rank local "
+         f"work over the whole input; results stay bit-identical, the "
+         f"all_to_all does not run")
+    return record
 
 
 def resilient_executor(plan, raw: Callable) -> Callable:

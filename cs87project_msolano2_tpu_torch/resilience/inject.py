@@ -6,10 +6,12 @@ places real faults strike: the kernel-variant entry points of
 ``ops/cuda_fft.py`` (site ``tube``: a kernel is the tube transform),
 plan dispatch (``plans/core.py``, ``plan``), tube-plan resolution
 (``models.pi_fft.resolve_tube_plan``, ``resolve``), the any-length executors
-(``ops/anylen.py``, ``anylen``), the bench's measurement loops
-(``bench``) and the harness's sweep cells (``harness``).  The sites of
-modules the port does not have yet keep their names here and fire
-nowhere until those modules land.
+(``ops/anylen.py``, ``anylen``), the sharded pi-FFT entries
+(``parallel/pi_shard.py``, ``shard``), collective supervision
+(``resilience/watchdog.py``, ``collective``), the bench's measurement
+loops (``bench``) and the harness's sweep cells (``harness``).  The
+sites of modules the port does not have yet (serving) keep their names
+here and fire nowhere until those modules land.
 
 Arming:
 
@@ -51,10 +53,11 @@ KNOWN_SITES = {
     "plan": "plans.core.Plan.execute dispatch",
     "resolve": "tube-plan resolution (models.pi_fft.resolve_tube_plan, "
                "behind tube_planned and the sharded paths)",
-    "shard": "the sharded pi-FFT entries (not ported yet: comes with "
-             "the parallel configs)",
-    "collective": "collective supervision (not ported yet: comes with "
-                  "the watchdog and the parallel configs)",
+    "shard": "the sharded pi-FFT entries (parallel/pi_shard.py: "
+             "pi_fft_sharded, pi_fft_sharded_batched)",
+    "collective": "collective supervision (resilience/watchdog.py: "
+                  "inside every supervised region before its dispatch, "
+                  "and at collective_watchdog's arm point)",
     "bench": "bench.py measurement loops",
     "harness": "harness/run_experiments.py sweep cells",
     "serve": "the serving batcher's tuned-kernel batch (not ported yet: "

@@ -103,7 +103,9 @@ class HostDesyncError(PifftError):
 # and strings (cudaErrorMemoryAllocation "out of memory",
 # cudaErrorLaunchOutOfResources "too many resources requested for
 # launch", cudaErrorCooperativeLaunchTooLarge "too many blocks in
-# cooperative launch") and PyTorch's allocator ("CUDA out of memory").
+# cooperative launch") and PyTorch's allocator ("CUDA out of memory");
+# torch.distributed's stores ("Wait timeout", "timed out") for a job
+# whose ranks did not arrive in time.
 _CAPACITY_PAT = re.compile(
     r"out of memory|cudaErrorMemoryAllocation|\bOOM\b"
     r"|too many resources requested|cudaErrorLaunchOutOfResources"
@@ -113,7 +115,7 @@ _CAPACITY_PAT = re.compile(
 _TRANSIENT_PAT = re.compile(
     r"connection (reset|refused|closed|aborted)|broken pipe|socket"
     r"|busy or unavailable|cudaErrorDevicesUnavailable|timed out"
-    r"|temporarily",
+    r"|wait timeout|temporarily",
     re.IGNORECASE)
 # the context-poisoning errors: cudaErrorIllegalAddress ("an illegal
 # memory access was encountered"), cudaErrorMisalignedAddress

@@ -289,7 +289,12 @@ def test_port_imports_no_jax():
         "new = ['utils.roofline', 'bench', 'harness.run_experiments', "
         "'analyze.records', 'resilience.inject', 'resilience.retry', "
         "'resilience.journal', 'resilience.degrade', 'backends.cpu', "
-        "'models.direct_dft', 'utils.debug', 'probes']\n"
+        "'models.direct_dft', 'utils.debug', 'probes', "
+        "'resilience.watchdog', 'parallel.collectives', 'parallel.mesh', "
+        "'parallel.multihost', 'parallel.pi_shard', 'parallel.batched', "
+        "'parallel.fft2d', 'parallel.poisson3d', 'parallel.escape', "
+        "'parallel.checks', 'apps.pde', "
+        "'harness.run_sharded_experiments']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cs87project_msolano2_tpu' or "
