@@ -114,7 +114,22 @@ the card, every output assembled here and held to ``torch.fft`` in
 complex128 or to u_true; the collective-free escape bit for bit
 against the primary, an unhealthy report that skips the dispatch, a
 stall on every rank aborted, agreed and escaped; the sharded harness,
--T 3 --verify).
+-T 3 --verify) and the spectral apps (phase 17, ``phase_apps``:
+``fftconv``/``fftcorr`` of a 2^24 - 128-sample signal with 129 taps in
+every mode, the kernel-spectrum cache saving one forward transform,
+conv_np's length 3 x 2^18 with the bytes meter under its pow2
+control's, the metered fusion gate at 2^24, overlap-save of 2^26
+samples at ``tune_block``'s raced block, overlap-add and the stream fed
+uneven chunks, the journaled kill and resume byte-identical,
+``solve_spectral_1d`` at 2^22 and ``apps.pde.poisson_solve`` at 512^3
+charging its bytes, the fused conv's and the solve's slopes beside the
+library pair ``torch.fft.irfft(torch.fft.rfft(x) * K)``, and the
+``apps {conv,corr,solve} --smoke --json`` subprocesses; each counted
+call with torch.fft and numpy.fft refused, each output within 1e-5 of
+torch.fft in float64).  Phase 14's bench record carries the conv2^K
+and conv_np rows, its os2^K rows skipped past MAX_BLOCK.  Phase 11's
+pi-layout oracle gathers on the card and its slopes take the fitted
+window (``slope_ms``), the cut that pays for phase 17.
 Each phase's seconds are printed as it ends.  The last line of
 standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
@@ -716,33 +731,48 @@ def phase_measurement(dev):
     torch.cuda.empty_cache()
     cf.reset_launch_counts()
     t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         rc = bench.main([])
     bench_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
     launched = {k: v for k, v in cf.launch_counts().items() if v}
     line = buf.getvalue().strip().splitlines()[-1]
     log(line)
     rec = json.loads(line)
     want = ["ms", "library_fft_ms", "c_ms", "vs_baseline"] + [
-        f"{p}2^{k}_ms" for k in BENCH_LOGNS for p in ("n", "rfft", "bf16_")
+        f"{p}2^{k}_ms" for k in BENCH_LOGNS
+        for p in ("n", "rfft", "bf16_", "conv")
     ] + [f"{p}2^{k}_ms" for k in bench.BACKEND_ROW_LOGNS
-         for p in ("gpu", "cpun")]
+         for p in ("gpu", "cpun")] + [f"conv_np{APPS_NP}_ms"]
     missing = [w for w in want if w not in rec]
     not_positive = [w for w in want if w in rec and not rec[w] > 0]
     degraded = [k for k, v in rec.items()
                 if k.endswith("degraded") and v]
+    # every os2^K row of the full bench is past MAX_BLOCK: skipped, with
+    # the diagnostic
+    os_rows = [k for k in rec if k.startswith("os2^")]
+    os_unsaid = [k for k in BENCH_LOGNS
+                 if f"overlap-save 2^{k} skipped" not in err.getvalue()]
     log(f"# phase 14 bench: exit {rc} in {bench_s:.1f} s, missing "
         f"{missing}, not positive {not_positive}, degraded {degraded}, "
+        f"os rows {os_rows} (skips not announced: {os_unsaid}), "
         f"launches (captured included) {launched}")
+    for tag in [f"conv2^{k}" for k in BENCH_LOGNS] + [f"conv_np{APPS_NP}"]:
+        log(f"# phase 14 bench row {tag}: slope {rec.get(tag + '_ms')} ms, "
+            f"events {rec.get(tag + '_event_ms')} ms, "
+            f"{rec.get(tag + '_gflops')} GFLOP/s, share of the fused floor "
+            f"{rec.get(tag + '_roofline_util')}, metered "
+            f"{rec.get(tag + '_hbm_bytes')} B, plan "
+            f"{json.dumps(rec.get(tag + '_plan'))}")
     log(f"# phase 14 C baseline: c_ms {rec.get('c_ms')} (pthreads, N=2^20, "
         f"best of 3 on the host: {host_cpu()}, {len(os.sched_getaffinity(0))}"
         f" cores this process may use), flagship {rec.get('ms')} ms, "
         f"vs_baseline {rec.get('vs_baseline')}; cpun2^8 "
         f"{rec.get('cpun2^8_ms')} ms, cpun2^10 {rec.get('cpun2^10_ms')} ms "
         f"({rec.get('cpun2^10_plan')})")
-    if rc != 0 or missing or not_positive or degraded \
-            or not launched.get("gpu_rows"):
+    if rc != 0 or missing or not_positive or degraded or os_rows \
+            or os_unsaid or not launched.get("gpu_rows"):
         raise AssertionError("phase 14 bench failed")
 
     n = 1 << 26
@@ -1750,6 +1780,336 @@ def phase_parallel(dev, rng):
     return rows
 
 
+#: phase 17, the spectral apps: the conv/corr signal's samples (its
+#: linear convolution with APPS_TAPS taps is exactly 2^24 long) and taps
+APPS_N = 1 << 24
+APPS_TAPS = 129
+#: conv_np's linear length: 3 x 2^18 (cheapest_length keeps it: mixed
+#: radix at 3 x 2^17), next_pow2 2^20
+APPS_NP = 3 << 18
+#: the overlap-save/add signal, and the journaled case's signal and block
+APPS_OS_N = 1 << 26
+APPS_JOURNAL_N, APPS_JOURNAL_BLOCK = 1 << 20, 1 << 14
+#: the 1-D solve's length and pde's 512^3 grid
+APPS_SOLVE_N = 1 << 22
+APPS_GRID = (512, 512, 512)
+#: each output against its oracle, max |got - ref| / max |ref|
+APPS_TOL = 1e-5
+#: the chunk sizes overlap_save_stream is fed, in turn (uneven)
+APPS_CHUNKS = (1_000_003, 777_777, 3_333_331, 65_537)
+
+
+def apps_oracle_conv(x, k, mode, op):
+    """numpy.convolve / numpy.correlate(x, k, mode) for len(x) >=
+    len(k) by torch.fft in float64 on the card (correlate is convolve
+    with the kernel reversed)."""
+    import torch
+
+    la, lv = x.shape[0], k.shape[0]
+    kk = k.flip(0) if op == "corr" else k
+    n = la + lv - 1
+    nfft = 1 << (n - 1).bit_length()
+    full = torch.fft.irfft(torch.fft.rfft(x.double(), nfft)
+                           * torch.fft.rfft(kk.double(), nfft), nfft)[:n]
+    if mode == "same":
+        return full[(lv - 1) // 2:(lv - 1) // 2 + la]
+    if mode == "valid":
+        return full[lv - 1:la]
+    return full
+
+
+def apps_err(got, ref):
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def phase_apps(dev, rng):
+    """Phase 17: the spectral apps on the card at full size (``apps``).
+    conv and corr of a 2^24 - 128-sample signal with a 129-tap kernel in
+    every mode; the kernel-spectrum cache (a second ``circular_conv``
+    with the same kernel launches one forward transform fewer); conv_np's
+    length 3 x 2^18 (mixed radix) with the meter's charge under its pow2
+    control's; the metered fusion gate at 2^24; overlap-save of 2^26
+    samples at ``tune_block``'s raced block (every candidate logged),
+    overlap-add and the stream fed uneven chunks; the journaled kill and
+    resume; ``solve_spectral_1d`` at 2^22 and ``apps.pde.poisson_solve``
+    at 512^3 with its meter charge; the slope of the fused conv and of
+    the solve beside the library pair; the ``apps`` CLI's smokes in
+    subprocesses.  Every counted call has torch.fft and numpy.fft refused
+    and its launches summed by kernel; the oracles are torch.fft in
+    float64 on the card, outside the counted calls.  Returns (rows,
+    launches by kernel); raises on any failure."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.apps import cli as apps_cli
+    from cs87project_msolano2_tpu_torch.apps import pde, spectral, stream
+    from cs87project_msolano2_tpu_torch.utils import roofline
+    from cs87project_msolano2_tpu_torch.utils.timing import time_ms
+
+    spectral.fused_cache_clear()
+    spectral.kernel_spectrum_cache_clear()
+    kind = torch.cuda.get_device_name(dev)
+    rows, launched, problems = {}, {}, []
+
+    def run(label, fn, *args):
+        out, got = counted(fn, *args)
+        for name, c in got.items():
+            launched[name] = launched.get(name, 0) + c
+        rows.setdefault(label, {})["launches"] = got
+        return out
+
+    def check(label, err, bound=APPS_TOL):
+        rows.setdefault(label, {})["err"] = err
+        log(f"# phase 17 {label}: max |got - ref| / max |ref| {err:.3e} "
+            f"(bound {bound:g}), launches {rows[label].get('launches')}")
+        if not err <= bound:
+            problems.append(f"{label}: {err:.3e} > {bound:g}")
+
+    def signal(n, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + seed)
+        return torch.randn(n, generator=g, device=dev)
+
+    def metered(fn, *args):
+        before = roofline.meter_value("pifft_hbm_bytes_total")
+        out = fn(*args)
+        return out, int(roofline.meter_value("pifft_hbm_bytes_total")
+                        - before)
+
+    # conv and corr at a power-of-two length, every mode
+    x = signal(APPS_N - (APPS_TAPS - 1), 1)
+    k = signal(APPS_TAPS, 2)
+    for op, fn in (("conv", spectral.fftconv), ("corr", spectral.fftcorr)):
+        for mode in ("full", "same", "valid"):
+            label = f"{op} 2^24 {mode}"
+            y = run(label, fn, x, k, mode)
+            check(label, apps_err(y, apps_oracle_conv(x, k, mode, op)))
+            del y
+    # the kernel-spectrum cache: a fresh kernel, twice, beside one
+    # forward transform alone
+    k2, k3 = signal(APPS_TAPS, 3), signal(APPS_TAPS, 4)
+    xn = torch.nn.functional.pad(x, (0, APPS_TAPS - 1))
+    hits = spectral.KSPEC_CACHE_STATS["hit"]
+    run("circular_conv miss", spectral.circular_conv, xn, k2)
+    run("circular_conv hit", spectral.circular_conv, xn, k2)
+    run("one forward transform", spectral.kernel_spectrum, k3, APPS_N)
+    miss_l, hit_l = (rows[f"circular_conv {w}"]["launches"]
+                     for w in ("miss", "hit"))
+    fwd_l = rows["one forward transform"]["launches"]
+    saved = {name: miss_l.get(name, 0) - hit_l.get(name, 0)
+             for name in set(miss_l) | set(hit_l)}
+    saved = {name: c for name, c in saved.items() if c}
+    log(f"# phase 17 kernel-spectrum cache: launches of a miss {miss_l}, "
+        f"of a hit {hit_l}, the difference {saved}, one forward transform "
+        f"{fwd_l}; cache hits {spectral.KSPEC_CACHE_STATS['hit'] - hits}")
+    if saved != fwd_l or spectral.KSPEC_CACHE_STATS["hit"] != hits + 1:
+        problems.append("the kernel-spectrum cache did not save one forward "
+                        "transform")
+    rows["kernel-spectrum cache"] = {"saved": saved, "forward": fwd_l}
+
+    # conv_np: the any-length fused conv and its pow2 control, from the
+    # meter
+    xnp = signal(APPS_NP - (APPS_TAPS - 1), 5)
+    n_np = spectral.cheapest_length(APPS_NP)
+    p2 = spectral.next_pow2(APPS_NP)
+    y, np_bytes = metered(run, "conv_np", spectral.fftconv, xnp, k)
+    check("conv_np", apps_err(y, apps_oracle_conv(xnp, k, "full", "conv")))
+    _, p2_bytes = metered(run, "conv_np pow2 control",
+                          spectral.circular_conv, xnp, k, "conv", None, p2)
+    plan_np = plans.plan_for((n_np,), domain="r2c", device=dev)
+    rows["conv_np"].update({"n": n_np, "plan": plan_np.describe(),
+                            "hbm_bytes": np_bytes, "pow2_n": p2,
+                            "pow2_hbm_bytes": p2_bytes})
+    log(f"# phase 17 conv_np: n {n_np} ({plan_np.variant}), metered "
+        f"{np_bytes} B against the pow2 control's {p2_bytes} B at {p2}")
+    if not (n_np == APPS_NP and plan_np.variant == "mixedradix"
+            and np_bytes == roofline.spectral_hbm_bytes("conv", n_np)
+            and 0 < np_bytes < p2_bytes):
+        problems.append("conv_np's bytes gate")
+    del y, xnp
+
+    # the metered fusion gate at 2^24
+    (y_f, fused_bytes) = metered(spectral.fftconv, x, k)
+    (y_u, unfused_bytes) = metered(spectral.fftconv_unfused, x, k)
+    floor = roofline.spectral_min_hbm_bytes("conv", APPS_N)
+    agree = apps_err(y_u, y_f.double())
+    rows["fusion gate"] = {"fused": fused_bytes, "unfused": unfused_bytes,
+                           "floor": floor, "agree": agree}
+    log(f"# phase 17 fusion gate 2^24: fused {fused_bytes} B, unfused "
+        f"{unfused_bytes} B, floor {floor} B x {apps_cli.FUSED_TOL}; the "
+        f"outputs agree to {agree:.3e}")
+    if not (0 < fused_bytes <= floor * apps_cli.FUSED_TOL < unfused_bytes
+            and agree <= APPS_TOL):
+        problems.append("the fusion gate")
+    del y_f, y_u
+
+    # the fused conv at 2^24 and the 1-D solve at 2^22, beside the
+    # library pair on the same data
+    kr, ki = spectral.kernel_spectrum(k, APPS_N)
+    fused = spectral._fused_circular("conv", APPS_N, None, dev)
+    kspec = torch.complex(kr, ki)
+    f = signal(APPS_SOLVE_N, 6)
+    mult = torch.from_numpy(spectral.poisson_multiplier_1d(APPS_SOLVE_N)
+                            ).to(dev)
+
+    def lib_conv(v):
+        return torch.fft.irfft(torch.fft.rfft(v) * kspec, APPS_N)
+
+    def lib_solve(v):
+        return torch.fft.irfft(torch.fft.rfft(v) * mult, APPS_SOLVE_N)
+
+    timing = {}
+    for label, fn, args, lib, n, op in (
+            ("fused conv 2^24", fused, (xn, kr, ki), lib_conv, APPS_N,
+             "conv"),
+            ("solve_spectral_1d 2^22", spectral.solve_spectral_1d, (f,),
+             lib_solve, APPS_SOLVE_N, "solve")):
+        row = {"ms": slope_ms(fn, *args),
+               "event_ms": time_ms(fn, *args, reps=REPS)[0],
+               "library_ms": slope_ms(lib, args[0]),
+               "library_event_ms": time_ms(lib, args[0], reps=REPS)[0]}
+        row["util_of_floor"] = roofline.spectral_roofline_utilization(
+            op, n, row["ms"], kind)
+        row["floor_ms"] = roofline.spectral_min_hbm_bytes(op, n) \
+            / roofline.peak_bytes_per_s(kind) * 1e3
+        timing[label] = row
+        log(f"# phase 17 time {label}: slope {row['ms']:.4f} ms (events "
+            f"{row['event_ms']:.4f}), the library pair torch.fft.irfft("
+            f"torch.fft.rfft(x) * K) slope {row['library_ms']:.4f} (events "
+            f"{row['library_event_ms']:.4f}); fused floor "
+            f"{row['floor_ms']:.4f} ms, share {row['util_of_floor']:.3f}")
+    rows["timing"] = timing
+    del kspec
+
+    # the apps CLI's smokes on the card, in processes of their own while
+    # the checks below run
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli_procs = {op: subprocess.Popen(
+        [sys.executable, "-m", "cs87project_msolano2_tpu_torch", "apps", op,
+         "--smoke", "--json"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=here)
+        for op in ("conv", "corr", "solve")}
+    try:
+        # overlap-save at the raced block, overlap-add, the stream
+        xo = signal(APPS_OS_N, 7)
+        ref_o = apps_oracle_conv(xo, k, "full", "conv")
+        buf = io.StringIO()
+        stream.BLOCK_RACE_STATS.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(buf):
+            block = stream.tune_block(APPS_TAPS, APPS_OS_N, verbose=True)
+        race_s = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"# phase 17 {line.lstrip('# ')}")
+        fates = {f"{b} {fate}": c for (b, fate), c
+                 in stream.BLOCK_RACE_STATS.items()}
+        log(f"# phase 17 block race ({race_s:.1f} s): block {block}, fates "
+            f"{fates}")
+        if len(stream.BLOCK_RACE_STATS) != len(
+                stream.block_candidates(APPS_TAPS, APPS_OS_N)):
+            problems.append("the block race left a candidate without a fate")
+        rows["block race"] = {"block": block, "fates": fates, "s": race_s}
+        for label, fn in (("overlap_save", stream.overlap_save),
+                          ("overlap_add", stream.overlap_add)):
+            t0 = time.perf_counter()
+            y = run(label, fn, xo, k, block)
+            rows[label] = {**rows[label], "block": block,
+                           "chunks": stream.chunk_count(APPS_OS_N, APPS_TAPS,
+                                                        block),
+                           "s": time.perf_counter() - t0}
+            check(label, apps_err(y, ref_o))
+            del y
+
+        def streamed():
+            chunks, start, i = [], 0, 0
+            while start < APPS_OS_N:
+                step = APPS_CHUNKS[i % len(APPS_CHUNKS)]
+                chunks.append(xo[start:start + step])
+                start, i = start + step, i + 1
+            pieces = list(stream.overlap_save_stream(chunks, k,
+                                                     block=block))
+            return torch.cat(pieces), len(chunks), len(pieces)
+
+        (y, fed, drained) = run("overlap_save_stream", streamed)
+        rows["overlap_save_stream"].update({"fed": fed, "drained": drained})
+        check("overlap_save_stream", apps_err(y, ref_o))
+        del y, xo, ref_o
+
+        # the journaled kill and resume
+        xj = signal(APPS_JOURNAL_N, 8)
+        jdir = tempfile.mkdtemp(prefix="pifft-os-journal-")
+        try:
+            jp = os.path.join(jdir, "os.jsonl")
+            total = stream.chunk_count(APPS_JOURNAL_N, APPS_TAPS,
+                                       APPS_JOURNAL_BLOCK)
+            y1, c1 = run("journaled", stream.overlap_save_journaled, xj, k,
+                         jp, APPS_JOURNAL_BLOCK)
+            check("journaled", apps_err(
+                y1, apps_oracle_conv(xj, k, "full", "conv")))
+            with open(jp, encoding="utf-8") as fh:
+                lines = fh.readlines()
+            kept = [ln for ln in lines
+                    if f'"cell": "os:{total - 1}"' not in ln
+                    and f'"cell": "os:{total - 2}"' not in ln]
+            with open(jp, "w", encoding="utf-8") as fh:
+                fh.writelines(kept)
+                fh.write('{"cell": "os:torn')
+            y2, c2 = run("journaled resume", stream.overlap_save_journaled,
+                         xj, k, jp, APPS_JOURNAL_BLOCK)
+            y3, c3 = stream.overlap_save_journaled(xj, k, jp,
+                                                   APPS_JOURNAL_BLOCK)
+            same = bool(torch.equal(y1, y2) and torch.equal(y1, y3))
+        finally:
+            shutil.rmtree(jdir, ignore_errors=True)
+        rows["journaled"].update({"chunks": total, "computed": c1,
+                                  "resumed": c2, "finished": c3,
+                                  "byte_identical": same})
+        log(f"# phase 17 journaled overlap-save 2^20 at block 2^14: {c1} of "
+            f"{total} chunks; after dropping the last two records and a "
+            f"torn line, the resume computed {c2}; a finished journal "
+            f"{c3}; byte-identical {same}")
+        if not (c1 == total and c2 == 2 and c3 == 0 and same):
+            problems.append("the journaled resume")
+        del y1, y2, y3, xj
+
+        # the 1-D solve and pde's charge
+        u = run("solve_spectral_1d 2^22", spectral.solve_spectral_1d, f)
+        check("solve_spectral_1d 2^22", apps_err(u, lib_solve(f.double())))
+        fg = signal(APPS_GRID[0] ** 3, 9).reshape(APPS_GRID)
+        fg -= fg.mean()
+        ug, solve_bytes = metered(run, "poisson_solve 512^3",
+                                  pde.poisson_solve, fg)
+        want = roofline.spectral_hbm_bytes("solve", fg.numel())
+        finite = bool(torch.isfinite(ug).all())
+        rows["poisson_solve 512^3"].update({"hbm_bytes": solve_bytes,
+                                            "want": want,
+                                            "finite": finite})
+        log(f"# phase 17 poisson_solve 512^3: metered {solve_bytes} B, "
+            f"spectral_hbm_bytes('solve', 2^27) {want} B, finite {finite}, "
+            f"launches {rows['poisson_solve 512^3']['launches']}")
+        if not (solve_bytes == want and finite):
+            problems.append("pde's charge")
+        del u, fg, ug, f
+    finally:
+        cli = {}
+        for op, proc in cli_procs.items():
+            out, err = proc.communicate(timeout=600)
+            rep = json.loads(out) if proc.returncode == 0 and out else {}
+            cli[op] = {"exit": proc.returncode, "checks": rep.get("checks"),
+                       "device": rep.get("device")}
+            log(f"# phase 17 apps {op} --smoke --json: exit "
+                f"{proc.returncode}, device {rep.get('device')}, checks "
+                f"{rep.get('checks')}, problems {rep.get('problems')}")
+            if proc.returncode != 0 or not rep.get("ok"):
+                log(err[-3000:])
+                problems.append(f"apps {op} --smoke")
+    rows["cli"] = cli
+    log(f"# phase 17 launches (counted calls): {launched}")
+    if problems:
+        raise AssertionError(f"phase 17 failed: {problems}")
+    return rows, launched
+
+
 def main() -> int:
     import torch
 
@@ -1784,6 +2144,7 @@ def run(store) -> int:
         ifft,
     )
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.ops.bits import to_natural
     from cs87project_msolano2_tpu_torch.hw import lowering
     from cs87project_msolano2_tpu_torch.ops.twiddle import (
         dense_long_range_tables,
@@ -3192,7 +3553,9 @@ def run(store) -> int:
         n = shape[-1]
         x11r, x11i = random_complex(rng, shape, dev)
         ref = torch.fft.fft(torch.complex(x11r, x11i).to(torch.complex128))
-        rev = torch.from_numpy(verify.bit_reverse_indices(n)).to(dev)
+        # the pi-layout oracle: the bit-reversal gather on the card (the
+        # host's table of 2^27 entries took tens of seconds)
+        ref_pi = torch.complex(*to_natural(ref.real, ref.imag))
         want_launches = {f"{k}_bf16": v
                          for k, v in VARIANT_LAUNCHES[want].items()}
         row = {}
@@ -3211,7 +3574,7 @@ def run(store) -> int:
             torch.cuda.synchronize()
             delta = {k: c - before[k] for k, c in counts_all().items()
                      if c != before[k]}
-            e = rel_l2(y11, ref if layout == "natural" else ref[..., rev])
+            e = rel_l2(y11, ref if layout == "natural" else ref_pi)
             finite = bool(torch.isfinite(y11).all())
             row[layout] = {"plan": pl11.variant, "rel_l2": e,
                            "dtype": str(y11.real.dtype),
@@ -3229,7 +3592,7 @@ def run(store) -> int:
                 raise AssertionError(f"bf16 {label} {layout} failed")
             del y11
         bf16_path[label] = row
-        del x11r, x11i, ref
+        del x11r, x11i, ref, ref_pi
     torch.cuda.synchronize()
     bf16_launches = counts_all()
     log(f"# bf16 path launches (phase 11): {bf16_launches}")
@@ -3240,22 +3603,12 @@ def run(store) -> int:
         launches[name] = bf16_launches[name]
     # the natural-order call's device time, bf16 beside the same variant
     # and parameters in float32 on the same planes: each kernel's by the
-    # profiler, the call's by the race's loop slope (device time per
-    # call, no host work between calls).  Both capture or repeat calls,
-    # so they come after the counted run
-    from cs87project_msolano2_tpu_torch.hw.inventory import l2_bytes
-    from cs87project_msolano2_tpu_torch.utils.timing import (
-        loop_slope_ms,
-        rotation_copies,
-        slope_window,
-    )
-
+    # profiler, the call's by the loop slope (device time per call, no
+    # host work between calls, over rotation copies of the planes and
+    # the window fitted to the call, ``slope_ms``).  Both capture or
+    # repeat calls, so they come after the counted run
     for label, shape, variant, params in BF16_PATHS:
         x11r, x11i = random_complex(rng, shape, dev)
-        # the race's rotation: enough copies that each call reads its
-        # planes cold
-        copies = [(x11r.clone(), x11i.clone()) for _ in range(
-            rotation_copies(8 * x11r.numel(), l2_bytes(dev)))]
         pl16 = bf16_plan(shape, variant, params)
         pl32 = bf16_plan(shape, pl16.variant, pl16.params, mode="split3")
         row = bf16_path[label]
@@ -3263,8 +3616,7 @@ def run(store) -> int:
             row[f"device_ms_{mode}"], row[f"kernels_{mode}"] = device_ms(
                 pl.execute, x11r, x11i, reps=BF16_PROFILE_REPS,
                 by_kernel=True)
-            row[f"slope_ms_{mode}"] = loop_slope_ms(
-                pl.execute, copies, *slope_window(x11r.numel()))
+            row[f"slope_ms_{mode}"] = slope_ms(pl.execute, x11r, x11i)
         log(f"# phase 11 bf16 {label} natural, plan {pl16.variant} "
             f"{pl16.params}: call device ms (loop slope) bf16 "
             f"{row['slope_ms_bf16']:.4f}, fp32 {row['slope_ms_fp32']:.4f}; "
@@ -3276,7 +3628,7 @@ def run(store) -> int:
                         for k, v in row["kernels_bf16"].items())
             + "; fp32 " + ", ".join(f"{k} {v[0]:.4f} x {v[1]:g}"
                                     for k, v in row["kernels_fp32"].items()))
-        del x11r, x11i, copies
+        del x11r, x11i
     # the precision race at 2^20 for a bf16 key: every entry once per
     # mode (bf16, then split3), each timed (no entry rejected: every
     # ladder variant has its bf16 instantiation); mf is never raced, and
@@ -3338,6 +3690,10 @@ def run(store) -> int:
     clock.start("phase 16")
     torch.cuda.empty_cache()
     parallel16 = phase_parallel(dev, rng)
+    # phase 17: the spectral apps
+    clock.start("phase 17")
+    torch.cuda.empty_cache()
+    apps17, apps_launches = phase_apps(dev, rng)
     clock.start(None)
     log(f"# seconds by phase: {clock.seconds}; all phases "
         f"{sum(clock.seconds.values()):.1f} s")
@@ -3361,6 +3717,9 @@ def run(store) -> int:
         if not parallel_launches.get(name):
             raise AssertionError(f"the parallel configs never launched "
                                  f"{name}: {parallel_launches}")
+        if not apps_launches.get(name):
+            raise AssertionError(f"the spectral apps never launched {name}: "
+                                 f"{apps_launches}")
 
     src = "cs87project_msolano2_tpu_torch/csrc/"
     ref_src = "cs87project_msolano2_tpu/ops/pallas_fft.py:"
@@ -3409,7 +3768,8 @@ def run(store) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "planned_tube_launches": planned_launches.get(name, 0),
-            "parallel_launches": parallel_launches.get(name, 0)})
+            "parallel_launches": parallel_launches.get(name, 0),
+            "apps_launches": apps_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -3420,7 +3780,7 @@ def run(store) -> int:
                     "bf16": bf16_path, "domains": domains,
                     "resilience": resilience, "bench": measurement,
                     "harness_tsv": harness_tsv, "backends": backends15,
-                    "parallel": parallel16,
+                    "parallel": parallel16, "apps": apps17,
                     "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),

@@ -31,9 +31,11 @@ Variable-coefficient Helmholtz has no diagonal symbol; it is solved by
 the fixed-point split alpha = mean + fluctuation, each iteration one
 constant-coefficient spectral solve.
 
-The reference's obs spans and metrics, and its roofline charge
-(``charge_spectral_traffic``), are not ported: the solve and
-non-convergence counts land in :data:`OPS_STATS`.
+Each whole-grid solve charges its traffic on the roofline's bytes meter
+(``utils.roofline.charge_spectral_traffic("solve", prod(shape))``, the
+stand-in for the reference's obs counters).  The reference's obs spans
+and metrics are not ported: the op and non-convergence counts land in
+:data:`OPS_STATS`.
 """
 
 from __future__ import annotations
@@ -46,14 +48,15 @@ import torch
 
 from .. import plans
 from ..utils.device import as_plane
+from ..utils.roofline import charge_spectral_traffic
 
 #: explicit contiguous copies made by ``fft_axis`` (an axis moved to the
 #: end of strided planes): PyTorch copy launches beside each plan call
 AXIS_COPIES = 0
 
-#: counts the reference keeps as obs metrics (obs: not ported):
-#: "solve" (pifft_apps_ops_total{op="solve"}) and "nonconverged"
-#: (pifft_apps_solve_nonconverged_total)
+#: counts the reference keeps as obs metrics (obs: not ported): each op
+#: ("conv", "corr", "solve": pifft_apps_ops_total{op}, the spectral
+#: ops' too) and "nonconverged" (pifft_apps_solve_nonconverged_total)
 OPS_STATS: dict = {}
 
 
@@ -171,6 +174,7 @@ def solve_spectral(f, multiplier: Callable, device=None):
     for ax in range(len(shape)):
         gr, gi = fft_axis(gr, gi, ax, True)
     _count("solve")
+    charge_spectral_traffic("solve", int(np.prod(shape)))
     return gr.contiguous()
 
 

@@ -32,6 +32,19 @@ bench's record format (``bench.py`` at the repository root):
   BACKEND_ROW_LOGNS, tagged with their backend; a cpun row's share of
   the bound is against the host's DRAM ceiling
   (``hw.inventory.peak_bytes_per_s("cpu-native")``).
+* For each K in LARGE_LOGNS two spectral-op rows (``apps``):
+  ``conv2^K_*``, the fused circular convolution at n = 2^K against a
+  cached 129-tap kernel spectrum (ms by the loop slope, ``event_ms``
+  beside it, GFLOP/s on the two real transforms it runs, 2 x 2.5 n log2
+  n, the share of the bound on the op's fused floor, and
+  ``hbm_bytes``, the bytes-meter delta of one execution), and
+  ``os2^K_*``, overlap-save of a 4 x 2^K-sample signal at block 2^K,
+  skipped with a diagnostic past ``apps.stream.MAX_BLOCK``; then one
+  ``conv_np<n>_*`` row at the length ``cheapest_length`` picks for a
+  3 x 2^18-sample linear convolution (mixed radix), with the meter's
+  charge of the same op at next_pow2 beside it (``_pow2_hbm_bytes``).
+  The reference times a conv row by the wall median of 5; the port by
+  the loop slope, its time per transform.
 * c_ms / vs_baseline — the native C core's time at the flagship N
   (``measure_c_baseline_ms``: pthreads, p the largest power of two not
   above the core's ``pifft_num_cores``, best of 3 by total_ms, on the
@@ -65,9 +78,9 @@ holds on the CPU, where the chain ends on the library rungs.  On the
 card the chain ends at rql, so every kernel refusing leaves nothing to
 serve; the card's chaos run caps the fault at one firing
 (``PIFFT_FAULT=tube:capacity:1.0:1``) and the flagship lands on rql.  The
-reference's conv / overlap-save rows, the serving suites and the event
-and trace outputs come with the apps and serving; its smoke-only forced
-sixstep cell is left out (the card's 2^25-2^27 rows run sixstep).
+reference's serving suites and the event and trace outputs come with
+serving; its smoke-only forced sixstep cell is left out (the card's
+2^25-2^27 rows run sixstep).
 """
 
 from __future__ import annotations
@@ -95,6 +108,10 @@ LIBRARY = "torch.fft.fft"
 
 #: seeds of each row kind's input planes
 SEED_FFT, SEED_LIBRARY, SEED_RFFT, SEED_BF16, SEED_BACKEND = 0, 2, 5, 7, 13
+#: seeds of the spectral-op rows (the reference's)
+SEED_CONV, SEED_OS, SEED_CONV_NP = 9, 10, 11
+#: taps of the op rows' kernels
+OP_TAPS = 129
 
 
 def _retry(fn, *args, smoke: bool = False, label: str = ""):
@@ -347,6 +364,170 @@ def measure_backend_row(logn: int, backend: str, device,
     return out
 
 
+def _metered_hbm_delta(fn) -> tuple:
+    """(result, bytes) of calling `fn`: the ``pifft_hbm_bytes_total``
+    delta it charged on the bytes meter."""
+    from .utils.roofline import meter_value
+
+    before = meter_value("pifft_hbm_bytes_total")
+    out = fn()
+    return out, int(meter_value("pifft_hbm_bytes_total") - before)
+
+
+def _op_ms(fn, *args, smoke: bool = False) -> tuple:
+    """(ms, event_ms) of one fused-op call: the loop slope fitted to the
+    call (``utils.timing.fitted_slope_ms``), the port's time per
+    transform, beside the CUDA-event median; one-shot for --smoke."""
+    from .utils.timing import fitted_slope_ms, time_ms
+
+    if smoke:
+        ms = _smoke_ms(fn, *args)
+        return ms, ms
+    return fitted_slope_ms(fn, *args), time_ms(fn, *args, reps=10)[0]
+
+
+def _conv_row(tag: str, nn: int, x, k, device, smoke: bool,
+              label: str) -> dict:
+    """The fields of one fused circular-conv row at length nn: the
+    pipeline against the cached spectrum of `k`, timed, metered, its
+    share of the bound on the op's fused floor, and (smoke) its parity
+    with the numpy oracle."""
+    import torch
+
+    from . import plans
+    from .apps.spectral import _fused_circular, kernel_spectrum, numpy_oracle
+    from .hw.inventory import peak_bytes_per_s
+    from .resilience import maybe_fault
+    from .utils.roofline import (
+        charge_spectral_traffic,
+        spectral_roofline_utilization,
+    )
+
+    try:
+        kr, ki = kernel_spectrum(k, nn, device=device)
+        fused = _fused_circular("conv", nn, None, device)
+        xp = torch.from_numpy(x).to(device)
+
+        def run_cell():
+            maybe_fault("bench")  # resilience injection site
+            return _op_ms(fused, xp, kr, ki, smoke=smoke)
+
+        ms, event_ms = _retry(run_cell, smoke=smoke, label=label)
+    except Exception as e:
+        return _warn_row(label, e)
+    plan = plans.plan_for((nn,), layout="natural", domain="r2c",
+                          device=device)
+    # the timed pipeline runs two transforms (the kernel spectrum is
+    # cached): one rfft of the signal and one irfft
+    out = {f"{tag}_ms": round(ms, 4), f"{tag}_event_ms": round(event_ms, 4),
+           f"{tag}_gflops": round(
+               2 * 2.5 * nn * np.log2(nn) / (ms * 1e-3) / 1e9, 1),
+           f"{tag}_op": "conv", f"{tag}_plan": plan.describe()}
+    if plan.degraded:
+        out[f"{tag}_degraded"] = True
+    _, hbm = _metered_hbm_delta(lambda: charge_spectral_traffic("conv", nn))
+    out[f"{tag}_hbm_bytes"] = hbm
+    util = spectral_roofline_utilization(
+        "conv", nn, ms, plan.key.device_kind,
+        peak=peak_bytes_per_s(plan.key.backend, plan.key.device_kind))
+    if util is not None:
+        out[f"{tag}_roofline_util"] = round(util, 3)
+    if smoke:
+        y = fused(xp, kr, ki).cpu().numpy()
+        ref = numpy_oracle("conv", x, np.pad(k, (0, nn - k.shape[0])), nn)
+        out[f"{tag}_parity_relerr"] = float(
+            np.max(np.abs(y - ref)) / np.max(np.abs(ref)))
+    _free(device)
+    return out
+
+
+def measure_conv_row(logn: int, device, smoke: bool = False) -> dict:
+    """The fused spectral-convolution row at n = 2^logn, beside the
+    transform rows at the same n: the circular conv primitive, rfft(x)
+    times a cached kernel spectrum, irfft, all on the device."""
+    nn = 1 << logn
+    rng = np.random.default_rng(SEED_CONV)
+    x = rng.standard_normal(nn).astype(np.float32)
+    k = rng.standard_normal(OP_TAPS).astype(np.float32)
+    return _conv_row(f"conv2^{logn}", nn, x, k, device, smoke,
+                     f"conv 2^{logn}")
+
+
+def measure_conv_np_row(device, smoke: bool = False) -> dict:
+    """The any-length fftconv row: the fused circular conv at the length
+    ``cheapest_length`` picks for a 3·2^18-sample linear convolution
+    (3·2^8 in smoke; mixed radix), with the meter's charge of the same
+    op at next_pow2 beside it, so the pad-to-pow2 tax the row shows gone
+    is read from the meter."""
+    from .apps.spectral import cheapest_length, next_pow2
+    from .utils.roofline import charge_spectral_traffic
+
+    # the linear length la + lv - 1 lands on 3·2^k exactly
+    lv = OP_TAPS
+    la = (3 * (1 << 8) if smoke else 3 * (1 << 18)) - (lv - 1)
+    nn = cheapest_length(la + lv - 1)
+    tag = f"conv_np{nn}"
+    rng = np.random.default_rng(SEED_CONV_NP)
+    x = rng.standard_normal(nn).astype(np.float32)
+    k = rng.standard_normal(lv).astype(np.float32)
+    out = _conv_row(tag, nn, x, k, device, smoke, f"conv_np {nn}")
+    if out:
+        _, out[f"{tag}_pow2_hbm_bytes"] = _metered_hbm_delta(
+            lambda: charge_spectral_traffic("conv", next_pow2(la + lv - 1)))
+    return out
+
+
+def measure_os_row(logn: int, device, smoke: bool = False) -> dict:
+    """The overlap-save row at block 2^logn: a signal of 4 blocks through
+    ONE cached plan pair, with the chunk count and overlap waste (the
+    two sides of the block-size trade), the host-clock time of the whole
+    stream and the metered traffic.  Past ``apps.stream.MAX_BLOCK`` the
+    row is skipped with a diagnostic, never measured at a capped block
+    its tag would misname."""
+    import time
+
+    from .apps.stream import MAX_BLOCK, chunk_count, overlap_save, \
+        overlap_waste
+    from .plans import warn
+    from .resilience import maybe_fault
+
+    if (1 << logn) > MAX_BLOCK:
+        warn(f"overlap-save 2^{logn} skipped: block past the "
+             f"raced-candidate ceiling MAX_BLOCK="
+             f"2^{MAX_BLOCK.bit_length() - 1} (apps/stream.py block-size "
+             f"tuning)")
+        return {}
+    block = 1 << logn
+    n_signal = 4 * block
+    tag = f"os2^{logn}"
+    rng = np.random.default_rng(SEED_OS)
+    x = rng.standard_normal(n_signal).astype(np.float32)
+    k = rng.standard_normal(OP_TAPS).astype(np.float32)
+    try:
+        def run_cell():
+            maybe_fault("bench")  # resilience injection site
+            t0 = time.perf_counter()
+            y = overlap_save(x, k, block=block, device=device)
+            return (time.perf_counter() - t0) * 1e3, y
+
+        (ms, y), hbm = _metered_hbm_delta(
+            lambda: _retry(run_cell, smoke=smoke,
+                           label=f"overlap-save block={block}"))
+    except Exception as e:
+        return _warn_row(f"overlap-save 2^{logn}", e)
+    out = {f"{tag}_ms": round(ms, 4), f"{tag}_block": block,
+           f"{tag}_signal_n": n_signal,
+           f"{tag}_chunks": chunk_count(n_signal, OP_TAPS, block),
+           f"{tag}_overlap_waste": round(overlap_waste(block, OP_TAPS), 4),
+           f"{tag}_op": "conv", f"{tag}_hbm_bytes": hbm}
+    if smoke:
+        ref = np.convolve(x.astype(np.float64), k.astype(np.float64),
+                          "full")
+        out[f"{tag}_parity_relerr"] = float(
+            np.max(np.abs(y - ref)) / np.max(np.abs(ref)))
+    return out
+
+
 def measure_c_baseline_ms() -> float:
     """The C baseline (the reference's ``measure_c_baseline_ms``): the
     native core's pthreads variant at N, p the largest power of two not
@@ -449,10 +630,13 @@ def main(argv=None) -> int:
         for prefix, measure in (
                 ("n", measure_large_n_row), ("rfft", measure_rfft_row),
                 ("bf16_", lambda logn, *a, **k: measure_precision_row(
-                    logn, "bf16", *a, **k))):
+                    logn, "bf16", *a, **k)),
+                ("conv", measure_conv_row), ("os", measure_os_row)):
             rows.update(cell(f"{prefix}2^{logn}",
                              lambda logn=logn, measure=measure: measure(
                                  logn, device, smoke=args.smoke)))
+    rows.update(cell("conv_np", lambda: measure_conv_np_row(
+        device, smoke=args.smoke)))
     for backend in BACKEND_ROW_BACKENDS:
         for logn in BACKEND_ROW_LOGNS:
             rows.update(cell(

@@ -9,6 +9,8 @@
     python -m cs87project_msolano2_tpu_torch faults {list|inject <spec>}
     python -m cs87project_msolano2_tpu_torch multichip smoke [-n N]
         [--deadline S] [--stall S] [--world W] [--device D]
+    python -m cs87project_msolano2_tpu_torch apps {conv,corr,solve}
+        [--smoke] [--json] [-n N] [--device D]
 
 The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
 tube_ms) for any backend of the registry (``-b``: the native C core's
@@ -23,7 +25,8 @@ lists the fault-injection sites or runs one transform under an injected
 fault and says how the retry and degradation policies carried it
 (``resilience``); ``multichip smoke`` drives the collective supervision
 -> consensus -> collective-free escape loop on a local job of W ranks
-(``parallel``).  The tensor backends run on the card unless
+(``parallel``); ``apps`` runs the spectral operation suite's demo or
+its smoke (``apps.cli``).  The tensor backends run on the card unless
 ``--device cpu`` is given; a p above a backend's capacity is refused.
 """
 
@@ -421,6 +424,10 @@ def main(argv=None) -> int:
         return faults_main(argv[1:])
     if argv and argv[0] == "multichip":
         return multichip_main(argv[1:])
+    if argv and argv[0] == "apps":
+        from .apps.cli import apps_main
+
+        return apps_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch",
         description="communication-free pi-FFT on PyTorch/CUDA",

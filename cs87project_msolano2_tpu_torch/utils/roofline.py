@@ -19,10 +19,18 @@ a path with ``p`` plan-declared carry passes can reach at most
 Peaks are keyed on the CUDA device name (``torch.cuda.get_device_name``)
 and come from NVIDIA's data sheets; an unknown card gives None, never a
 figure of another device.
+
+The spectral half (the reference's roofline.py:169-263) models what a
+spectral OPERATION must move when its half-spectrum never leaves the
+card between the paired transforms (``spectral_min_hbm_bytes``), what
+an unfused one moves on top (``spectral_hbm_bytes``), and meters each
+op execution (``charge_spectral_traffic``) on :data:`HBM_METER`, the
+stand-in for the reference's obs counters under their series names.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 #: peak device-memory bandwidth, bytes/s, by a substring of the CUDA
@@ -180,3 +188,105 @@ def bound_ms(nbytes: int, flops: int, device_name: str,
     t_bytes, t_ops = nbytes / bw, flops / fl + bf16_flops / tc
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# ---------------------------------------------------- spectral ops
+#
+# Fused-op minimum-traffic models: what a spectral OPERATION —
+# convolution, correlation, a spectral solve — must move through device
+# memory when its half-spectrum intermediate never leaves the pipeline.
+# The floor is the op's own I/O plus the kernel spectrum it reads
+# (conv/corr); the internal transforms' extra traffic is the
+# implementation's choice, as twiddle tables are in fft_min_hbm_bytes.
+# An UNFUSED implementation — one that takes the half-spectrum to the
+# host between the rfft and the irfft — moves the spectrum out and back
+# in on top of the floor: ``spectral_hbm_bytes(..., host_round_trips=1)``.
+
+#: the spectral operations; "fft" is the bare transform every other op
+#: composes
+SPECTRAL_OPS = ("fft", "conv", "corr", "solve")
+
+#: the bytes meter, series name -> {sorted label items: value}: the
+#: stand-in for the reference's obs counters ``pifft_hbm_bytes_total``,
+#: ``pifft_hbm_min_bytes_total`` and ``pifft_apps_hbm_bytes_total{op}``
+#: (obs: not ported), always on
+HBM_METER: dict = {}
+_METER_LOCK = threading.Lock()
+
+
+def meter_inc(name: str, value: float, **labels) -> None:
+    """Add `value` to the series `name` with `labels`."""
+    series = tuple(sorted(labels.items()))
+    with _METER_LOCK:
+        by_labels = HBM_METER.setdefault(name, {})
+        by_labels[series] = by_labels.get(series, 0.0) + float(value)
+
+
+def meter_value(name: str, **labels) -> float:
+    """The value of one series (0 when absent), as the reference's
+    ``metrics.counter_value``: the labels select exactly one series."""
+    with _METER_LOCK:
+        return HBM_METER.get(name, {}).get(tuple(sorted(labels.items())),
+                                           0.0)
+
+
+def meter_reset() -> None:
+    """Drop every series (tests)."""
+    with _METER_LOCK:
+        HBM_METER.clear()
+
+
+def spectral_min_hbm_bytes(op: str, n: int, storage_bytes: int = 4) -> int:
+    """The fused floor of one n-point spectral op on real input:
+    conv/corr read the signal (n), read the cached kernel half-spectrum
+    (2·(n/2+1) plane values) and write the real output (n); solve reads
+    the field and writes the solution (its multiplier is a table,
+    excluded like twiddles).  "fft" is the r2c transform's own floor."""
+    if op == "fft":
+        return fft_min_hbm_bytes(n, "r2c", storage_bytes)
+    if op in ("conv", "corr"):
+        return storage_bytes * (2 * n + 2 * (n // 2 + 1))
+    if op == "solve":
+        return storage_bytes * 2 * n
+    raise ValueError(f"op={op!r} not in {SPECTRAL_OPS}")
+
+
+def spectral_hbm_bytes(op: str, n: int, host_round_trips: int = 0,
+                       storage_bytes: int = 4) -> int:
+    """The traffic an n-point spectral op moves: the fused floor plus
+    one full write and read of the half-spectrum planes (2 × 2·(n/2+1)
+    values) per host round trip between the paired transforms."""
+    trip = 2 * 2 * storage_bytes * (n // 2 + 1)
+    return spectral_min_hbm_bytes(op, n, storage_bytes) \
+        + host_round_trips * trip
+
+
+def charge_spectral_traffic(op: str, n: int, host_round_trips: int = 0,
+                            storage_bytes: int = 4, count: int = 1) -> int:
+    """Meter `count` spectral-op executions on :data:`HBM_METER`: the
+    op's traffic on ``pifft_hbm_bytes_total`` and, labelled by op, on
+    ``pifft_apps_hbm_bytes_total``, its floor on
+    ``pifft_hbm_min_bytes_total``.  Returns the charged bytes."""
+    charged = count * spectral_hbm_bytes(op, n, host_round_trips,
+                                         storage_bytes)
+    meter_inc("pifft_hbm_min_bytes_total",
+              count * spectral_min_hbm_bytes(op, n, storage_bytes))
+    meter_inc("pifft_hbm_bytes_total", charged)
+    meter_inc("pifft_apps_hbm_bytes_total", charged, op=op)
+    return charged
+
+
+def spectral_roofline_utilization(op: str, n: int, ms: float,
+                                  device_name: str,
+                                  storage_bytes: int = 4,
+                                  peak: Optional[float] = None
+                                  ) -> Optional[float]:
+    """The share of the card's data-sheet bandwidth (or of `peak`) that
+    one fused spectral op taking `ms` a call reaches on its fused floor
+    (the bench conv rows' figure).  Meters nothing: the op's execution
+    already charged its traffic.  None for a card the table does not
+    know or a time that is not positive."""
+    peak = peak or peak_bytes_per_s(device_name)
+    if peak is None or ms is None or ms <= 0.0:
+        return None
+    return spectral_min_hbm_bytes(op, n, storage_bytes) / (ms * 1e-3) / peak

@@ -7,7 +7,9 @@ cases, the environment fingerprint, ``plans.measured_ms`` with an
 injected timer, and the reference's own loader reading the port's
 record (n, domain, precision and backend of each row); the cpu-native
 rows under ``--smoke`` and ``c_ms``/``vs_baseline`` against the native
-core at a small N."""
+core at a small N; the spectral-op rows (``conv2^K``, ``os2^K``,
+``conv_np<n>``) with the reference's field names, parsed with their op
+by the reference's loader."""
 
 import json
 import os
@@ -365,3 +367,49 @@ def test_bench_record_carries_vs_baseline(capsys, monkeypatch):
     assert rec["vs_baseline"] == round(rec["c_ms"] / 0.25, 1)
     assert rec["cpun2^8_ms"] == 0.25 and rec["gpu2^10_ms"] == 0.25
     assert "smoke" not in rec
+
+
+def test_bench_smoke_op_rows(tmp_path, capsys, monkeypatch):
+    """The spectral-op rows of the default smoke size, with the
+    reference's field names; the reference's loader parses them with
+    their op (its TestBenchAndLoader); conv_np's metered bytes sit below
+    its pad-to-pow2 control's."""
+    from cs87project_msolano2_tpu_torch.apps.stream import chunk_count
+
+    monkeypatch.setattr(bench, "SMOKE_LARGE_LOGNS", (13,))
+    rc, rec = _bench_record(capsys, ["--smoke"])
+    assert rc == 0 and records.validate_record(rec) == []
+    assert "degraded" not in rec
+    for tag, n in (("conv2^13", 1 << 13), ("conv_np768", 768)):
+        assert rec[f"{tag}_op"] == "conv" and rec[f"{tag}_ms"] > 0
+        assert rec[f"{tag}_gflops"] >= 0 and rec[f"{tag}_event_ms"] > 0
+        assert rec[f"{tag}_parity_relerr"] < 1e-5
+        assert rec[f"{tag}_hbm_bytes"] == 4 * (2 * n + 2 * (n // 2 + 1))
+        assert f"{tag}_degraded" not in rec
+    assert rec["conv_np768_plan"]["variant"] == "mixedradix"
+    assert rec["conv_np768_hbm_bytes"] < rec["conv_np768_pow2_hbm_bytes"]
+    assert rec["os2^13_op"] == "conv"
+    assert rec["os2^13_block"] == 1 << 13
+    assert rec["os2^13_signal_n"] == 1 << 15
+    assert rec["os2^13_chunks"] == chunk_count(1 << 15, 129, 1 << 13)
+    assert 0 < rec["os2^13_overlap_waste"] < 1
+    assert rec["os2^13_parity_relerr"] < 1e-5
+    path = tmp_path / "BENCH_r15.json"
+    path.write_text(json.dumps(rec))
+    samples = {s.metric: s for s in ref_loader.bench_samples(
+        ref_loader.load_bench_round(str(path)))}
+    assert (samples["conv2^13_ms"].op, samples["conv2^13_ms"].n) \
+        == ("conv", 1 << 13)
+    assert (samples["os2^13_chunks"].op, samples["os2^13_chunks"].n) \
+        == ("conv", 1 << 13)
+    assert (samples["conv_np768_ms"].op, samples["conv_np768_ms"].n) \
+        == ("conv", 768)
+    assert samples["n2^13_ms"].op == "fft"
+
+
+def test_bench_os_rows_past_max_block_are_skipped(capsys):
+    """The os2^K rows past ``apps.stream.MAX_BLOCK`` (every one of the
+    full bench's) are skipped with the reference's diagnostic."""
+    assert bench.measure_os_row(19, CPU) == {}
+    assert "overlap-save 2^19 skipped: block past the raced-candidate " \
+        "ceiling MAX_BLOCK=2^18" in capsys.readouterr().err

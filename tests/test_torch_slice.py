@@ -294,8 +294,13 @@ def test_port_imports_no_jax():
         "'parallel.multihost', 'parallel.pi_shard', 'parallel.batched', "
         "'parallel.fft2d', 'parallel.poisson3d', 'parallel.escape', "
         "'parallel.checks', 'apps.pde', "
-        "'harness.run_sharded_experiments']\n"
+        "'harness.run_sharded_experiments', 'apps.spectral', "
+        "'apps.stream', 'apps.cli']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
+        "from cs87project_msolano2_tpu_torch.utils.roofline import (\n"
+        "    SPECTRAL_OPS, charge_spectral_traffic, meter_value,\n"
+        "    spectral_hbm_bytes, spectral_min_hbm_bytes,\n"
+        "    spectral_roofline_utilization)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'cs87project_msolano2_tpu' or "
         "m.startswith('cs87project_msolano2_tpu.')]\n"
