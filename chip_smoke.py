@@ -126,7 +126,17 @@ charging its bytes, the fused conv's and the solve's slopes beside the
 library pair ``torch.fft.irfft(torch.fft.rfft(x) * K)``, and the
 ``apps {conv,corr,solve} --smoke --json`` subprocesses; each counted
 call with torch.fft and numpy.fft refused, each output within 1e-5 of
-torch.fft in float64).  Phase 14's bench record carries the conv2^K
+torch.fft in float64) and the telemetry layer (phase 18, ``phase_obs``:
+the 2^20 fft unarmed, its slope within 5% of phase 7's on the same plan,
+then armed with a JSONL sink and the bare telemetry server up, output
+bit-identical and the armed cost of a call read from alternated turns;
+the funnel/tube, sixstep, autotune and spectral_op spans, the race's
+fates, the plan cache's hit and miss, the kernel-spectrum cache and the
+bytes counter, a retry and a demotion counted, a ``torch.profiler``
+trace holding the funnel/tube ranges and the csrc kernels; the stream
+read back by ``obs validate/summary/export``, and ``bench --smoke
+--events --trace-out`` and the harness with ``--events``, all in
+subprocesses).  Phase 14's bench record carries the conv2^K
 and conv_np rows, its os2^K rows skipped past MAX_BLOCK.  Phase 11's
 pi-layout oracle gathers on the card and its slopes take the fitted
 window (``slope_ms``), the cut that pays for phase 17.
@@ -151,6 +161,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -496,19 +507,47 @@ def domain_case(dev, rng, timed, label, domain, shape, want, want_launches):
     return row
 
 
-def no_demotions(where):
-    """Raise unless no plan of this process has demoted: the demotion
-    counter is empty and no memoized plan reports ``degraded``."""
-    from cs87project_msolano2_tpu_torch.plans import cache
-    from cs87project_msolano2_tpu_torch.resilience import DEMOTION_STATS
+#: plans memoized with a demotion since ``watch_demotions()``: token ->
+#: trail
+DEMOTED = {}
 
-    degraded = [p.key.token() for p in list(cache._MEM.values())
-                if p.degraded]
-    log(f"# {where}: demotions {dict(DEMOTION_STATS)}, degraded plans "
-        f"{degraded}")
-    if DEMOTION_STATS or degraded:
-        raise AssertionError(f"{where}: a plan demoted: "
-                             f"{dict(DEMOTION_STATS)} {degraded}")
+
+def watch_demotions():
+    """From here on, record in DEMOTED every plan the plan cache
+    memoizes with a demotion.  Every demotion memoizes its plan with
+    ``degraded`` set and the trail in ``demotions``, whether or not obs
+    is armed, so the record outlives the cache's clears (phase 12 clears
+    it on entry and on exit) and its LRU eviction.  Returns the cache's
+    own ``memoize``, which ``no_demotions`` puts back."""
+    from cs87project_msolano2_tpu_torch.plans import cache
+
+    memoize = cache.memoize
+
+    def watched(plan):
+        if plan.degraded or plan.demotions:
+            DEMOTED[plan.key.token()] = list(plan.demotions)
+        return memoize(plan)
+
+    cache.memoize = watched
+    return memoize
+
+
+def no_demotions(where, memoize=None):
+    """Raise unless no plan of this process has demoted: none memoized
+    with a demotion since ``watch_demotions()`` (whose returned
+    `memoize` is put back here, ending the watch) and none in the
+    in-process cache reporting ``degraded`` or a trail."""
+    from cs87project_msolano2_tpu_torch.plans import cache
+
+    if memoize is not None:
+        cache.memoize = memoize
+    degraded = dict(DEMOTED)
+    degraded.update({p.key.token(): p.demotions
+                     for p in list(cache._MEM.values())
+                     if p.degraded or p.demotions})
+    log(f"# {where}: degraded plans {degraded}")
+    if degraded:
+        raise AssertionError(f"{where}: a plan demoted: {degraded}")
 
 
 def numpy_rel_l2(yr, yi, x):
@@ -1403,6 +1442,7 @@ def p16_rank(poisson_path):
     from cs87project_msolano2_tpu_torch.models.pi_fft import (
         resolve_tube_plan,
     )
+    from cs87project_msolano2_tpu_torch import obs
     from cs87project_msolano2_tpu_torch.resilience import watchdog
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1459,16 +1499,15 @@ def p16_rank(poisson_path):
                            and torch.equal(yu.imag, y[1])))
     del yu, y
     # the stall on every rank
-    events0 = len(watchdog.COLLECTIVE_EVENTS)
     t0 = time.perf_counter()
-    d, _ = counted(lambda: stall_drill("fft2", x, mesh, **P16_DRILL))
+    with obs.armed(), watchdog.recorded_kinds() as all_events:
+        d, _ = counted(lambda: stall_drill("fft2", x, mesh, **P16_DRILL))
     rec["drill"] = {"s": time.perf_counter() - t0,
                     "report_ok": d["report_ok"], "report": d["report"],
                     "collectives": d["collectives"], "events": d["events"],
                     "bit_identical": bool(torch.equal(d["healthy"],
                                                       d["escaped"])),
-                    "all_events": [r["kind"] for r in
-                                   watchdog.COLLECTIVE_EVENTS[events0:]]}
+                    "all_events": all_events}
     del d, x
     f = torch.from_numpy(np.load(poisson_path)).to(dev)
     s1 = P16_POISSON[0] // p
@@ -1840,7 +1879,7 @@ def phase_apps(dev, rng):
     launches by kernel); raises on any failure."""
     import torch
 
-    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch import obs, plans
     from cs87project_msolano2_tpu_torch.apps import cli as apps_cli
     from cs87project_msolano2_tpu_torch.apps import pde, spectral, stream
     from cs87project_msolano2_tpu_torch.utils import roofline
@@ -1871,10 +1910,11 @@ def phase_apps(dev, rng):
         return torch.randn(n, generator=g, device=dev)
 
     def metered(fn, *args):
-        before = roofline.meter_value("pifft_hbm_bytes_total")
-        out = fn(*args)
-        return out, int(roofline.meter_value("pifft_hbm_bytes_total")
-                        - before)
+        with obs.armed():
+            before = obs.metrics.counter_value("pifft_hbm_bytes_total")
+            out = fn(*args)
+            return out, int(obs.metrics.counter_value(
+                "pifft_hbm_bytes_total") - before)
 
     # conv and corr at a power-of-two length, every mode
     x = signal(APPS_N - (APPS_TAPS - 1), 1)
@@ -1889,10 +1929,14 @@ def phase_apps(dev, rng):
     # forward transform alone
     k2, k3 = signal(APPS_TAPS, 3), signal(APPS_TAPS, 4)
     xn = torch.nn.functional.pad(x, (0, APPS_TAPS - 1))
-    hits = spectral.KSPEC_CACHE_STATS["hit"]
-    run("circular_conv miss", spectral.circular_conv, xn, k2)
-    run("circular_conv hit", spectral.circular_conv, xn, k2)
-    run("one forward transform", spectral.kernel_spectrum, k3, APPS_N)
+    with obs.armed():
+        hits = obs.metrics.counter_value("pifft_apps_kspec_cache_total",
+                                         result="hit")
+        run("circular_conv miss", spectral.circular_conv, xn, k2)
+        run("circular_conv hit", spectral.circular_conv, xn, k2)
+        run("one forward transform", spectral.kernel_spectrum, k3, APPS_N)
+        hits = obs.metrics.counter_value("pifft_apps_kspec_cache_total",
+                                         result="hit") - hits
     miss_l, hit_l = (rows[f"circular_conv {w}"]["launches"]
                      for w in ("miss", "hit"))
     fwd_l = rows["one forward transform"]["launches"]
@@ -1901,8 +1945,8 @@ def phase_apps(dev, rng):
     saved = {name: c for name, c in saved.items() if c}
     log(f"# phase 17 kernel-spectrum cache: launches of a miss {miss_l}, "
         f"of a hit {hit_l}, the difference {saved}, one forward transform "
-        f"{fwd_l}; cache hits {spectral.KSPEC_CACHE_STATS['hit'] - hits}")
-    if saved != fwd_l or spectral.KSPEC_CACHE_STATS["hit"] != hits + 1:
+        f"{fwd_l}; cache hits {hits:g}")
+    if saved != fwd_l or hits != 1:
         problems.append("the kernel-spectrum cache did not save one forward "
                         "transform")
     rows["kernel-spectrum cache"] = {"saved": saved, "forward": fwd_l}
@@ -1994,19 +2038,27 @@ def phase_apps(dev, rng):
         xo = signal(APPS_OS_N, 7)
         ref_o = apps_oracle_conv(xo, k, "full", "conv")
         buf = io.StringIO()
-        stream.BLOCK_RACE_STATS.clear()
+        # the race is timed, so obs stays disarmed: each candidate's fate
+        # is read from its verbose line ("block race: block=B <ms>
+        # ms/chunk ..." or "... rejected ...")
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(buf):
             block = stream.tune_block(APPS_TAPS, APPS_OS_N, verbose=True)
         race_s = time.perf_counter() - t0
+        fates = {}
         for line in buf.getvalue().splitlines():
             log(f"# phase 17 {line.lstrip('# ')}")
-        fates = {f"{b} {fate}": c for (b, fate), c
-                 in stream.BLOCK_RACE_STATS.items()}
+            got = re.search(r"block race: block=(\d+) (rejected|[\d.]+ "
+                            r"ms/chunk)", line)
+            if got:
+                fate = "rejected" if got[2] == "rejected" else "timed"
+                label = f"{got[1]} {fate}"
+                fates[label] = fates.get(label, 0) + 1
         log(f"# phase 17 block race ({race_s:.1f} s): block {block}, fates "
             f"{fates}")
-        if len(stream.BLOCK_RACE_STATS) != len(
-                stream.block_candidates(APPS_TAPS, APPS_OS_N)):
+        raced = sorted(int(label.split()[0]) for label in fates)
+        if raced != sorted(stream.block_candidates(APPS_TAPS, APPS_OS_N)) \
+                or set(fates.values()) != {1}:
             problems.append("the block race left a candidate without a fate")
         rows["block race"] = {"block": block, "fates": fates, "s": race_s}
         for label, fn in (("overlap_save", stream.overlap_save),
@@ -2110,6 +2162,580 @@ def phase_apps(dev, rng):
     return rows, launched
 
 
+#: phase 18: n of the armed fft and the race, the pi-FFT's n and p, the
+#: sixstep's n, the traced pi-FFT's n, and the event median's calls
+OBS_N = 1 << 20
+OBS_PI = (1 << 24, 8)
+OBS_SIX_N = 1 << 27
+OBS_TRACE = (1 << 20, 8)
+OBS_REPS = 30
+#: rounds of (unarmed, armed, armed, unarmed) behind the armed cost, and
+#: the plan lookups a host-clock reading averages
+OBS_COST_ROUNDS = 3
+OBS_LOOKUPS = 2000
+#: the unarmed slope against phase 7's row of the same call and plan
+OBS_SLOPE_TOL = 0.05
+#: the csrc kernels the traced pi-FFT's tube launches (rql over the
+#: funnel's rows)
+OBS_TRACE_KERNELS = ("long_range_sep_kernel", "tile_fft_rows",
+                     "tile_fft_cluster")
+
+
+def phase_obs(dev, rng, ref_row=None):
+    """Phase 18: the telemetry layer (``obs``) on the card at full width.
+    Unarmed, ``fft`` in natural order at 2^20 on the store's plan: its
+    output, its loop slope (within OBS_SLOPE_TOL of phase 7's row of the
+    same call and plan, `ref_row` = (slope ms, plan description), in a
+    whole run) and its CUDA-event median of OBS_REPS calls.  Armed, with
+    a JSONL sink and the bare telemetry server up: the same fft (output
+    bit-identical, event median beside the unarmed one: the armed cost
+    of a call), the pi-FFT on the cuda backend at n = 2^24, p = 8 (one
+    funnel and one tube span), the static sixstep at 2^27 (one sixstep
+    span with ``sixstep_blocking``'s geometry), the race of the 2^20 pi
+    key (``tune(force=True, persist=False)``: one autotune span, one
+    plan_tuned event, every candidate's fate; then a memory hit and a
+    miss of exactly one each), the fused conv at 2^24 twice with one
+    kernel (kernel-spectrum miss then hit, two spectral_op spans, the
+    apps byte counter at twice the op's bytes, the roofline gauge), one
+    transient fault at ``plan`` (retried, counted) and one capacity
+    fault at ``tube`` (fourstep -> rql at 2^24, as phase 13), and a
+    ``torch.profiler`` trace of the pi-FFT at 2^20 whose funnel/tube
+    ranges hold launches of the csrc kernels.  Disarmed, the stream is
+    read by ``obs validate``/``summary``/``export`` in subprocesses and
+    the Chrome trace nests funnel/tube under their cell; ``bench
+    --smoke --events --trace-out`` and the harness sweep with
+    ``--events`` run as two more subprocesses meanwhile.  No time is
+    read from the profiler.  Returns (rows, launches by kernel of the
+    counted armed calls); raises on any failure."""
+    import torch
+
+    from cs87project_msolano2_tpu_torch import obs, plans
+    from cs87project_msolano2_tpu_torch.apps import spectral
+    from cs87project_msolano2_tpu_torch.models.fft import fft
+    from cs87project_msolano2_tpu_torch.obs import export, metrics
+    from cs87project_msolano2_tpu_torch.obs.http import (
+        TelemetryServer,
+        fetch_json,
+        fetch_text,
+    )
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.plans import autotune, ladder
+    from cs87project_msolano2_tpu_torch.plans.core import Plan
+    from cs87project_msolano2_tpu_torch.resilience import (
+        FAST_POLICY,
+        call_with_retry,
+        inject,
+    )
+    from cs87project_msolano2_tpu_torch.utils import roofline
+    from cs87project_msolano2_tpu_torch.utils.timing import time_ms
+
+    t_phase = time.perf_counter()
+    rows, launched, problems = {}, {}, []
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="pifft-obs-")
+    kind = torch.cuda.get_device_name(dev)
+
+    def check(label, ok, detail):
+        rows.setdefault("checks", {})[label] = bool(ok)
+        log(f"# phase 18 {label}: {'ok' if ok else 'FAILED'} ({detail})")
+        if not ok:
+            problems.append(label)
+
+    def run(label, fn, *args):
+        out, got = counted(fn, *args)
+        for name, c in got.items():
+            launched[name] = launched.get(name, 0) + c
+        rows.setdefault(label, {})["launches"] = got
+        return out
+
+    def events_ms(fn, *args):
+        return time_ms(fn, *args, reps=OBS_REPS, warmup=3)[0]
+
+    def lookup_us():
+        # the host clock of the plan lookup every fft call makes: the one
+        # thing on the call's path that obs touches (the cache counter)
+        t0 = time.perf_counter()
+        for _ in range(OBS_LOOKUPS):
+            plans.plan_for((OBS_N,), device=dev)
+        return (time.perf_counter() - t0) / OBS_LOOKUPS * 1e6
+
+    # 1. unarmed: fft natural at 2^20 on the store's plan
+    if obs.enabled():
+        raise AssertionError("phase 18: obs armed before the phase")
+    x = torch.complex(*random_complex(rng, (OBS_N,), dev))
+    plan = plans.plan_for((OBS_N,), device=dev)
+    y0 = fft(x).clone()
+    unarmed = {"plan": plan.describe(), "slope_ms": slope_ms(fft, x),
+               "event_ms": events_ms(fft, x)}
+    rows["unarmed"] = unarmed
+    log(f"# phase 18 unarmed fft natural n={OBS_N} ({plan.variant} "
+        f"{plan.params}): slope {unarmed['slope_ms']:.4f} ms, CUDA-event "
+        f"median of {OBS_REPS} {unarmed['event_ms']:.4f} ms")
+    if ref_row is not None:
+        ref_ms, ref_plan = ref_row
+        if ref_plan == plan.describe():
+            same = unarmed["slope_ms"]
+        else:
+            # phase 7 served another plan (the store had no winner then):
+            # hold that plan's call, unarmed now, to its phase 7 slope
+            key = plans.make_key(OBS_N, layout="natural", device=dev)
+            p7 = Plan(key, ref_plan["variant"], dict(ref_plan["params"]))
+            same = slope_ms(lambda z: fft(z, plan=p7), x)
+        rows["vs_phase7"] = {"phase7_slope_ms": ref_ms, "slope_ms": same,
+                             "plan": ref_plan}
+        check("unarmed slope vs phase 7",
+              abs(same - ref_ms) <= OBS_SLOPE_TOL * ref_ms,
+              f"{same:.4f} ms now, {ref_ms:.4f} ms in phase 7 on "
+              f"{ref_plan['variant']} {ref_plan['params']}, tolerance "
+              f"{OBS_SLOPE_TOL:.0%}")
+
+    # the armed cost of a call: unarmed and armed (the in-process
+    # buffer) in turns, off on on off, OBS_COST_ROUNDS times; a call's
+    # event median is host-paced and moves by tens of us between reads,
+    # so one pair would measure the drift
+    turns = {False: {"event_ms": [], "lookup_us": []},
+             True: {"event_ms": [], "lookup_us": []}}
+    for _ in range(OBS_COST_ROUNDS):
+        for on in (False, True, True, False):
+            if on:
+                obs.enable()
+            turns[on]["event_ms"].append(events_ms(fft, x))
+            turns[on]["lookup_us"].append(lookup_us())
+            if on:
+                obs.disable()
+    med = {on: {k: float(np.median(v)) for k, v in t.items()}
+           for on, t in turns.items()}
+
+    def spread(k):
+        v = turns[True][k] + turns[False][k]
+        return max(v) - min(v)
+
+    cost = med[True]["lookup_us"] - med[False]["lookup_us"]
+    rows["armed"] = {
+        "turns": {("armed" if on else "unarmed"): t
+                  for on, t in turns.items()},
+        "event_ms": med[True]["event_ms"],
+        "unarmed_event_ms": med[False]["event_ms"],
+        # the armed cost: what obs adds to the one thing on the call's
+        # path it touches, the plan lookup, on the host clock; resolved
+        # only where it exceeds the spread of the turns
+        "cost_us": cost,
+        "lookup_spread_us": spread("lookup_us"),
+        "cost_resolved": abs(cost) > spread("lookup_us"),
+        # not a cost: the call's event medians are host-paced and spread
+        # by far more than the lookup's cost
+        "event_median_diff_us":
+            (med[True]["event_ms"] - med[False]["event_ms"]) * 1e3,
+        "event_median_spread_us": spread("event_ms") * 1e3}
+    armed_row = rows["armed"]
+    log(f"# phase 18 armed cost of a fft call at n={OBS_N}, "
+        f"{OBS_COST_ROUNDS} x (off, on, on, off): the plan lookup on the "
+        f"host clock armed "
+        f"{sorted(round(v, 2) for v in turns[True]['lookup_us'])}, unarmed "
+        f"{sorted(round(v, 2) for v in turns[False]['lookup_us'])} us: "
+        f"{cost:.2f} us a call, "
+        f"{'resolved' if armed_row['cost_resolved'] else 'unresolved'} "
+        f"(the turns spread {armed_row['lookup_spread_us']:.2f} us); "
+        f"CUDA-event medians of {OBS_REPS} calls armed "
+        f"{sorted(turns[True]['event_ms'])}, unarmed "
+        f"{sorted(turns[False]['event_ms'])} ms differ by "
+        f"{armed_row['event_median_diff_us']:.2f} us, unresolved: they "
+        f"spread {armed_row['event_median_spread_us']:.2f} us")
+
+    # 2. armed: the sink, the live plane, and each call once
+    epath = os.path.join(tmp, "events.jsonl")
+    rid = obs.enable(events_path=epath)
+    server = TelemetryServer(None, host="127.0.0.1", port=0).start()
+    procs = {}
+    try:
+        y1 = fft(x)
+        check("armed fft bit-identical", torch.equal(y0, y1),
+              f"max |armed - unarmed| "
+              f"{float((y1 - y0).abs().max()):.3e}")
+        del y0, y1
+        # 4. the bench and the harness with --events, meanwhile (after
+        # the timed reads above: the card is shared)
+        bench_e = os.path.join(tmp, "bench.jsonl")
+        bench_t = os.path.join(tmp, "bench-trace.json")
+        sweep_e = os.path.join(tmp, "sweep.jsonl")
+        procs["bench"] = subprocess.Popen(
+            [sys.executable, "-m", "cs87project_msolano2_tpu_torch.bench",
+             "--smoke", "--events", bench_e, "--trace-out", bench_t],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=here)
+        procs["sweep"] = subprocess.Popen(
+            [sys.executable, "-m",
+             "cs87project_msolano2_tpu_torch.harness.run_experiments",
+             "--backends", "cuda", "--n-grid", str(OBS_N), "--p-grid",
+             "1,8", "-T", "1", "--verify", "--events", sweep_e, "--out",
+             os.path.join(tmp, "sweep")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=here)
+
+        def spans_named(name, since):
+            return [s for s in obs.events.span_snapshot()[since:]
+                    if s["name"] == name]
+
+        # the pi-FFT on the cuda backend at 2^24, p = 8
+        n, p = OBS_PI
+        xr, xi = random_complex(rng, (n,), dev)
+        mark = len(obs.events.span_snapshot())
+        with obs.span("cell", cell={"name": "pi_fft", "n": n}):
+            run("pi_fft cuda", cf.pi_fft_pi_layout_cuda, xr, xi, p)
+        got = {name: [s.get("cell") for s in spans_named(name, mark)]
+               for name in ("funnel", "tube")}
+        check("pi_fft spans", got == {"funnel": [{"n": n, "p": p}],
+                                      "tube": [{"n": n, "p": p}]},
+              f"{got}, launches {rows['pi_fft cuda']['launches']}")
+        del xr, xi
+
+        # the static sixstep at 2^27, pi layout
+        xr, xi = random_complex(rng, (OBS_SIX_N,), dev)
+        mark = len(obs.events.span_snapshot())
+        with obs.span("cell", cell={"name": "sixstep", "n": OBS_SIX_N}):
+            run("sixstep 2^27", cf.fft_pi_layout_cuda_sixstep, xr, xi)
+        six = spans_named("sixstep", mark)
+        tile, r1, r2, cb1, cb2 = cf.sixstep_blocking(OBS_SIX_N, None, None,
+                                                     None, None)
+        want = {"cell": {"n": OBS_SIX_N, "r1": r1, "r2": r2},
+                "args": {"tile": tile, "cb1": cb1, "cb2": cb2}}
+        check("sixstep span", len(six) == 1 and all(
+            six[0].get(k) == v for k, v in want.items()),
+            f"{[{k: s.get(k) for k in want} for s in six]} vs "
+            f"sixstep_blocking {want}")
+        del xr, xi
+
+        # the race of the 2^20 pi key, then the cache's hit and miss
+        key = plans.make_key(OBS_N, layout="pi", device=dev)
+        cands = ladder.candidates(key)
+        mark = len(obs.events.span_snapshot())
+        seq0 = obs.events._STATE.seq
+        with obs.span("cell", cell={"name": "race", "n": OBS_N}):
+            tuned = autotune.tune(key, force=True, persist=False,
+                                  verbose=False, device=dev)
+        fates = {k: int(v) for k, v in metrics.snapshot()["counters"].items()
+                 if k.startswith("pifft_autotune_candidates_total{")}
+        tuned_ev = [e for e in obs.snapshot() if e["seq"] >= seq0
+                    and e["kind"] == "plan_tuned"]
+        rows["race"] = {"winner": tuned.describe(), "fates": fates}
+        check("race span, event and fates",
+              len(spans_named("autotune", mark)) == 1
+              and len(tuned_ev) == 1
+              and sum(fates.values()) == len(cands),
+              f"{len(spans_named('autotune', mark))} autotune span(s), "
+              f"{len(tuned_ev)} plan_tuned event(s), fates {fates} over "
+              f"{len(cands)} candidates, winner {tuned.variant} "
+              f"{tuned.params}")
+
+        def cache_counts():
+            return (metrics.counter_value("pifft_plan_cache_hits_total",
+                                          level="memory"),
+                    metrics.counter_value("pifft_plan_cache_misses_total"))
+
+        hits0, misses0 = cache_counts()
+        plans.plan_for((OBS_N,), layout="pi", device=dev)
+        hits1, misses1 = cache_counts()
+        plans.plan_for((3, 1 << 11), layout="pi", device=dev)
+        hits2, misses2 = cache_counts()
+        check("plan cache hit and miss",
+              (hits1 - hits0, misses1 - misses0, hits2 - hits1,
+               misses2 - misses1) == (1, 0, 0, 1),
+              f"memory hits +{hits1 - hits0:g} then +{hits2 - hits1:g}, "
+              f"misses +{misses1 - misses0:g} then +{misses2 - misses1:g}")
+        text = fetch_text(server.url("/metrics"))
+        health = fetch_json(server.url("/healthz"))
+        check("telemetry server",
+              "pifft_plan_cache_hits_total" in text
+              and "pifft_plan_cache_misses_total" in text
+              and health.get("ok") and health.get("run") == rid,
+              f"/metrics {len(text.splitlines())} lines, /healthz {health}")
+
+        # the fused conv at 2^24, twice with one kernel
+        spectral.kernel_spectrum_cache_clear()
+        xc = torch.randn(APPS_N - (APPS_TAPS - 1), device=dev)
+        kc = torch.randn(APPS_TAPS, device=dev)
+        mark = len(obs.events.span_snapshot())
+        kspec = {r: metrics.counter_value("pifft_apps_kspec_cache_total",
+                                          result=r) for r in ("miss", "hit")}
+        conv0 = metrics.counter_value("pifft_apps_hbm_bytes_total",
+                                      op="conv")
+        with obs.span("cell", cell={"name": "conv", "n": APPS_N}):
+            run("conv 2^24 miss", spectral.fftconv, xc, kc)
+            kspec_miss = {r: metrics.counter_value(
+                "pifft_apps_kspec_cache_total", result=r) - kspec[r]
+                for r in ("miss", "hit")}
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run("conv 2^24 hit", spectral.fftconv, xc, kc)
+            end.record()
+            end.synchronize()
+        conv_ms = start.elapsed_time(end)
+        kspec_hit = {r: metrics.counter_value(
+            "pifft_apps_kspec_cache_total", result=r) - kspec[r]
+            - kspec_miss[r] for r in ("miss", "hit")}
+        conv_bytes = metrics.counter_value("pifft_apps_hbm_bytes_total",
+                                           op="conv") - conv0
+        util = roofline.spectral_roofline_utilization("conv", APPS_N,
+                                                      conv_ms, kind)
+        gauges = {k: v for k, v in metrics.snapshot()["gauges"].items()
+                  if k.startswith("pifft_roofline_util{")
+                  and 'op="conv"' in k}
+        rows["conv"] = {"kspec_first": kspec_miss, "kspec_second": kspec_hit,
+                        "bytes": conv_bytes, "ms": conv_ms, "util": util,
+                        "gauges": gauges}
+        check("conv spans, cache and bytes",
+              kspec_miss == {"miss": 1, "hit": 0}
+              and kspec_hit == {"miss": 0, "hit": 1}
+              and len(spans_named("spectral_op", mark)) == 2
+              and conv_bytes == 2 * roofline.spectral_hbm_bytes(
+                  "conv", APPS_N)
+              and util is not None and util in gauges.values(),
+              f"kernel spectra {kspec_miss} then {kspec_hit}, "
+              f"{len(spans_named('spectral_op', mark))} spectral_op spans, "
+              f"{conv_bytes:g} B vs 2 x {roofline.spectral_hbm_bytes('conv', APPS_N)}"
+              f" B, roofline util {util} (CUDA events {conv_ms:.3f} ms), "
+              f"gauge {gauges}")
+        del xc, kc
+
+        # one transient fault at plan, one capacity fault at tube
+        xr, xi = random_complex(rng, (OBS_N,), dev)
+        pl = plans.plan_for((OBS_N,), device=dev)
+        with inject("plan", "transient", count=1) as spec:
+            call_with_retry(pl.execute, xr, xi, policy=FAST_POLICY,
+                            label="phase 18 transient")
+        retries = metrics.counter_value("pifft_retries_total",
+                                        kind="transient")
+        retry_ev = [e for e in obs.snapshot() if e["kind"] == "retry"]
+        check("transient retry", spec.fired == 1 and retries == 1
+              and len(retry_ev) == 1,
+              f"fired {spec.fired}, pifft_retries_total{{kind=transient}} "
+              f"{retries:g}, retry events {len(retry_ev)}")
+        del xr, xi
+        n4 = 1 << 24
+        k4 = plans.make_key(n4, layout="natural", device=dev)
+        p4 = Plan(k4, *ladder.static_default(k4), source="static",
+                  device=str(dev))
+        xr, xi = random_complex(rng, (n4,), dev)
+        with inject("tube", "capacity", count=1) as spec:
+            p4.execute(xr, xi)
+            torch.cuda.synchronize()
+        demoted = {k: int(v) for k, v in
+                   metrics.snapshot()["counters"].items()
+                   if k.startswith("pifft_demotions_total{")}
+        demo_ev = [e["payload"] for e in obs.snapshot()
+                   if e["kind"] == "demotion"]
+        check("capacity demotion",
+              spec.fired == 1 and p4.variant == "fourstep"
+              and demoted == {'pifft_demotions_total{to="rql"}': 1}
+              and [(d["from"], d["to"]) for d in demo_ev]
+              == [("fourstep", "rql")],
+              f"fired {spec.fired}, {p4.variant} -> "
+              f"{[d['to'] for d in p4.demotions]}, counters {demoted}, "
+              f"events {[(d['from'], d['to']) for d in demo_ev]}")
+        del xr, xi, p4
+
+        # the torch.profiler trace of the pi-FFT at 2^20, p = 8
+        n, p = OBS_TRACE
+        xr, xi = random_complex(rng, (n,), dev)
+        tdir = os.path.join(tmp, "profile")
+        with obs.span("cell", cell={"name": "profile", "n": n}):
+            cf.pi_fft_pi_layout_cuda(xr, xi, p)  # warm: tables, launch
+            torch.cuda.synchronize()
+            with obs.profiler.trace(tdir):
+                # a session's first records can go missing in a long
+                # process: one-byte fills open it
+                for _ in range(3):
+                    torch.zeros(1, device=dev).fill_(1)
+                torch.cuda.synchronize()
+                cf.pi_fft_pi_layout_cuda(xr, xi, p)
+                torch.cuda.synchronize()
+        rows["profile"] = obs_trace_check(tdir, check)
+        del xr, xi
+        # the stream's last word, then the Chrome trace of its spans
+        obs.emit("metrics", snapshot=metrics.snapshot())
+        obs.flush()
+        chrome = os.path.join(tmp, "trace.json")
+        export.write_chrome_trace(chrome)
+    finally:
+        server.stop()
+        obs.disable()
+        plans.cache.clear(memory=True)
+    check("telemetry server stopped", server._thread is None,
+          f"port {server.port} released")
+
+    # 3. disarmed: the stream read back in subprocesses
+    cli = [sys.executable, "-m", "cs87project_msolano2_tpu_torch", "obs"]
+    readers = {
+        "validate": subprocess.Popen(cli + ["validate", "--events", epath],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=here),
+        "summary": subprocess.Popen(cli + ["summary", "--events", epath,
+                                           "--json"],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    cwd=here),
+        "prom": subprocess.Popen(cli + ["export", "--format", "prom",
+                                        "--events", epath],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 cwd=here)}
+    outs = {name: (proc.communicate(timeout=300), proc.returncode)
+            for name, proc in readers.items()}
+    (vout, verr), vrc = outs["validate"]
+    check("obs validate", vrc == 0, f"exit {vrc}: {vout.strip()} "
+          f"{verr.strip()[-500:]}")
+    (sout, serr), src = outs["summary"]
+    summary = json.loads(sout) if src == 0 else {}
+    want_spans = {"cell", "funnel", "tube", "sixstep", "autotune",
+                  "spectral_op"}
+    counters = summary.get("metrics", {}).get("counters", {})
+    want_series = ('pifft_plan_cache_hits_total{level="memory"}',
+                   "pifft_plan_cache_misses_total",
+                   'pifft_apps_kspec_cache_total{result="hit"}',
+                   'pifft_apps_kspec_cache_total{result="miss"}',
+                   'pifft_apps_ops_total{op="conv"}',
+                   'pifft_apps_hbm_bytes_total{op="conv"}',
+                   "pifft_hbm_bytes_total", "pifft_hbm_min_bytes_total",
+                   'pifft_retries_total{kind="transient"}',
+                   'pifft_demotions_total{to="rql"}')
+    rows["summary"] = {"kinds": summary.get("kinds"),
+                       "spans": sorted(summary.get("spans", {})),
+                       "runs": summary.get("runs")}
+    check("obs summary",
+          src == 0 and want_spans <= set(summary.get("spans", {}))
+          and all(s in counters for s in want_series)
+          and any(k.startswith("pifft_autotune_candidates_total{")
+                  for k in counters)
+          and summary.get("runs") == [rid],
+          f"exit {src}, spans {sorted(summary.get('spans', {}))}, kinds "
+          f"{summary.get('kinds')}, missing counters "
+          f"{[s for s in want_series if s not in counters]}")
+    (pout, perr), prc = outs["prom"]
+    bad = []
+    for line in pout.splitlines():
+        if line.startswith("#"):
+            continue
+        try:
+            series, value = line.rsplit(" ", 1)
+            float(value)
+        except ValueError:
+            bad.append(line)
+    check("obs export --format prom", prc == 0 and pout and not bad,
+          f"exit {prc}, {len(pout.splitlines())} lines, unparsed {bad[:3]}")
+    with open(chrome) as fh:
+        evs = json.load(fh)["traceEvents"]
+    xs = [e for e in evs if e["ph"] == "X"]
+    cells = [e for e in xs if e["name"] == "cell"]
+    phases = [e for e in xs if e["name"] in ("funnel", "tube")]
+    nested = [ph for ph in phases if ph["args"].get("parent") == "cell"
+              and any(c["tid"] == ph["tid"] and c["ts"] <= ph["ts"]
+                      and ph["ts"] + ph["dur"] <= c["ts"] + c["dur"] + 1e-3
+                      for c in cells)]
+    check("chrome trace nests funnel/tube under their cell",
+          phases and len(nested) == len(phases),
+          f"{len(nested)} of {len(phases)} funnel/tube spans inside a cell")
+
+    # 4. the two subprocesses started in step 2
+    outs = {}
+    for name, proc in procs.items():
+        outs[name], err = proc.communicate(timeout=600)
+        rows.setdefault(name, {})["exit"] = proc.returncode
+        if proc.returncode != 0:
+            log(err[-3000:])
+    bench_ok = procs["bench"].returncode == 0
+    rec = json.loads(outs["bench"].strip().splitlines()[-1]) \
+        if bench_ok else {}
+    brecs, bdropped = obs.events.load_events(bench_e) \
+        if os.path.exists(bench_e) else ([], 0)
+    bspans = export.spans_from_events(brecs)
+
+    def probed(cell):
+        # the cell's funnel and tube probe: inside it on its thread
+        return {s["name"] for s in bspans
+                if s["name"] in ("funnel", "tube")
+                and s["tid"] == cell["tid"] and s.get("parent") == "cell"
+                and cell["ts_s"] <= s["ts_s"]
+                and s["ts_s"] + s["dur_s"] <= cell["ts_s"] + cell["dur_s"]
+                + 1e-6}
+
+    bcells = [s for s in bspans if s["name"] == "cell"
+              and s["cell"]["name"] != "library"]
+    unprobed = [c["cell"]["name"] for c in bcells
+                if probed(c) != {"funnel", "tube"}]
+    rows["bench"].update({"events": len(brecs), "cells": len(bcells),
+                          "run": rec.get("run"), "unprobed": unprobed})
+    check("bench --smoke --events --trace-out",
+          bench_ok and brecs and not bdropped
+          and export.validate_stream(brecs) == []
+          and all(e["run"] == rec.get("run") for e in brecs)
+          and brecs[-1]["kind"] == "metrics"
+          and os.path.exists(bench_t) and bcells and not unprobed,
+          f"exit {procs['bench'].returncode}, {len(brecs)} events, run "
+          f"{rec.get('run')}, last {brecs[-1]['kind'] if brecs else None}, "
+          f"{len(bcells)} transform cell spans, without the funnel/tube "
+          f"probe {unprobed}")
+    srecs, _ = obs.events.load_events(sweep_e) \
+        if os.path.exists(sweep_e) else ([], 0)
+    cells_ev = [e for e in srecs if e["kind"] == "sweep_cell"]
+    prog = [e["payload"] for e in srecs if e["kind"] == "sweep_progress"]
+    check("harness --events",
+          procs["sweep"].returncode == 0 and len(cells_ev) == 2
+          and prog and prog[-1]["eta_s"] == 0
+          and export.validate_stream(srecs) == [],
+          f"exit {procs['sweep'].returncode}, {len(cells_ev)} sweep_cell "
+          f"events, last sweep_progress {prog[-1] if prog else None}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 18 launches (counted armed calls): {launched}; armed "
+        f"cost of a call {rows['armed']['cost_us']:.2f} us on the plan "
+        f"lookup's host clock ("
+        f"{'' if rows['armed']['cost_resolved'] else 'un'}resolved, the "
+        f"turns spread {rows['armed']['lookup_spread_us']:.2f} us; "
+        f"CUDA-event medians "
+        f"{rows['armed']['event_ms']:.4f} armed, "
+        f"{rows['armed']['unarmed_event_ms']:.4f} ms unarmed, spreading "
+        f"{rows['armed']['event_median_spread_us']:.2f} us); the phase "
+        f"{rows['seconds']:.1f} s")
+    for name in ("tile_fft", "long_range_sep", "sixstep"):
+        if not launched.get(name):
+            problems.append(f"phase 18 never launched {name}")
+    if problems:
+        raise AssertionError(f"phase 18 failed: {problems}")
+    return rows, launched
+
+
+def obs_trace_check(tdir, check) -> dict:
+    """Phase 18's reading of its ``torch.profiler`` trace (no time read):
+    the funnel/tube ``record_function`` ranges, the csrc kernels' device
+    events, and a kernel launch inside the tube range on the host
+    timeline."""
+    files = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(tdir, files[0])) as fh:
+        evs = json.load(fh)["traceEvents"]
+    ranges = [e for e in evs if e.get("cat") == "user_annotation"
+              and e.get("name") in ("funnel", "tube")]
+    kernels = sorted({k for e in evs if e.get("cat") == "kernel"
+                      for k in OBS_TRACE_KERNELS if k in e.get("name", "")})
+    launches = [e for e in evs
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "aunch" in e.get("name", "")]
+    tubes = [e for e in ranges if e["name"] == "tube"]
+    inside = [e for e in launches for t in tubes
+              if t["ts"] <= e["ts"] <= t["ts"] + t.get("dur", 0)]
+    names = sorted({e["name"] for e in ranges})
+    check("profiler trace",
+          len(files) == 1 and names == ["funnel", "tube"]
+          and "long_range_sep_kernel" in kernels
+          and ({"tile_fft_rows", "tile_fft_cluster"} & set(kernels))
+          and inside,
+          f"{files}: ranges {names}, csrc kernels {kernels}, "
+          f"{len(launches)} launches, {len(inside)} inside the tube range")
+    return {"ranges": names, "kernels": kernels,
+            "launches_in_tube": len(inside)}
+
+
 def main() -> int:
     import torch
 
@@ -2163,6 +2789,8 @@ def run(store) -> int:
     rng = np.random.default_rng(SEED)
     kind = torch.cuda.get_device_name(0)
     clock = PhaseClock()
+    # no plan of phases 1-12 may demote: watched until phase 13
+    memoize = watch_demotions()
 
     def bound_ms(nbytes, flops, bf16_flops=0):
         return roofline.bound_ms(nbytes, flops, kind, bf16_flops)
@@ -2998,6 +3626,9 @@ def run(store) -> int:
              n2, 1, 2, (torch.fft.fft, x2), rql_plain, "rql")
     path_row("fft natural N=2^20 (plan rql + gather)", fft, (x2,),
              n2, 1, 2, (torch.fft.fft, x2), variant="rql")
+    # phase 18 holds its unarmed fft to this row on this plan
+    p7_row = (paths["fft natural N=2^20 (plan rql + gather)"]["ms"],
+              plans.plan_for((n2,), device=dev).describe())
     # the tuned path's candidates at N=2^20, pi layout, each through the
     # ladder's executor as the race times it (fused-alias writes over
     # its planes: each rep gets them back, untimed, as in the race)
@@ -3675,9 +4306,9 @@ def run(store) -> int:
     # phase 12: the real and any-length domains
     domains = phase_domains(dev, rng, timed)
 
-    # no plan of phases 4-12 demoted, then phase 13: the resilience
+    # no plan of phases 1-12 demoted, then phase 13: the resilience
     # layer; phase 14: the bench and the harness sweep
-    no_demotions("before phase 13")
+    no_demotions("before phase 13", memoize)
     clock.start("phase 13")
     resilience = phase_resilience(dev, rng)
     clock.start("phase 14")
@@ -3694,6 +4325,10 @@ def run(store) -> int:
     clock.start("phase 17")
     torch.cuda.empty_cache()
     apps17, apps_launches = phase_apps(dev, rng)
+    # phase 18: telemetry
+    clock.start("phase 18")
+    torch.cuda.empty_cache()
+    obs18, obs_launches = phase_obs(dev, rng, p7_row)
     clock.start(None)
     log(f"# seconds by phase: {clock.seconds}; all phases "
         f"{sum(clock.seconds.values()):.1f} s")
@@ -3769,7 +4404,8 @@ def run(store) -> int:
             "library_ms": t["library_ms"],
             "planned_tube_launches": planned_launches.get(name, 0),
             "parallel_launches": parallel_launches.get(name, 0),
-            "apps_launches": apps_launches.get(name, 0)})
+            "apps_launches": apps_launches.get(name, 0),
+            "obs_launches": obs_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -3781,6 +4417,7 @@ def run(store) -> int:
                     "resilience": resilience, "bench": measurement,
                     "harness_tsv": harness_tsv, "backends": backends15,
                     "parallel": parallel16, "apps": apps17,
+                    "obs": obs18,
                     "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),

@@ -21,8 +21,9 @@ transforms, and this package builds them on the plan layer:
 
 Every op has a minimum-traffic model
 (``utils.roofline.spectral_min_hbm_bytes``) charged on the roofline's
-bytes meter (``utils.roofline.HBM_METER``), so the fused-op floor is
-held from the meter by ``apps --smoke``, not asserted in prose.
+bytes meter (``pifft_hbm_bytes_total``, counting while observability
+is armed), so the fused-op floor is held from the meter by ``apps
+--smoke``, not asserted in prose.
 """
 
 from __future__ import annotations

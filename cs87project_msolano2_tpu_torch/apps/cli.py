@@ -7,7 +7,8 @@ reference's ``apps/cli.py``).
 * **conv**: (1) ``fftconv`` and overlap-save/add parity against numpy at
   2^10..2^14 (block sweep included); (2) the METERED fusion gate — the
   ``pifft_hbm_bytes_total`` delta of a fused conv, read from the bytes
-  meter (``utils.roofline.HBM_METER``), must sit within FUSED_TOL of
+  meter (observability is armed for the gate where it is off, and
+  disarmed after: "owned"), must sit within FUSED_TOL of
   the op's fused floor while the deliberately UNFUSED control (a host
   round trip between the transforms) exceeds it, so the gate
   discriminates.  The reference's third conv check, a conv request
@@ -106,40 +107,45 @@ def _fusion_gate_problems(device) -> list:
     """The metered fusion gate: the ``pifft_hbm_bytes_total`` delta of a
     fused conv and of the unfused control, read FROM THE METER, the
     fused one held at the floor."""
-    from ..utils.roofline import meter_value, spectral_min_hbm_bytes
+    from .. import obs
+    from ..obs import metrics
+    from ..utils.roofline import spectral_min_hbm_bytes
     from .spectral import fftconv, fftconv_unfused
 
     problems = []
-    rng = np.random.default_rng(1)
-    x = rng.standard_normal((1 << 12) - 32).astype(np.float32)
-    k = rng.standard_normal(33).astype(np.float32)
-    # len(x) + len(k) - 1 is exactly 2^12: the fused path and the
-    # next-pow2 unfused control land on the same n
-    n_pad = 1 << 12
+    with obs.armed():
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal((1 << 12) - 32).astype(np.float32)
+        k = rng.standard_normal(33).astype(np.float32)
+        # len(x) + len(k) - 1 is exactly 2^12: the fused path and the
+        # next-pow2 unfused control land on the same n
+        n_pad = 1 << 12
 
-    def delta(fn):
-        before = meter_value("pifft_hbm_bytes_total")
-        y = fn(x, k, device=device)
-        return y, int(meter_value("pifft_hbm_bytes_total") - before)
+        def delta(fn):
+            before = metrics.counter_value("pifft_hbm_bytes_total")
+            y = fn(x, k, device=device)
+            return y, int(metrics.counter_value("pifft_hbm_bytes_total")
+                          - before)
 
-    y_fused, fused_bytes = delta(fftconv)
-    y_unfused, unfused_bytes = delta(fftconv_unfused)
-    floor = spectral_min_hbm_bytes("conv", n_pad)
-    gate = int(floor * FUSED_TOL)
-    if not fused_bytes:
-        problems.append("fused conv charged ZERO metered bytes: the op "
-                        "meter is not wired")
-    elif fused_bytes > gate:
-        problems.append(f"fused conv metered {fused_bytes} B > fused floor "
-                        f"{floor} B x {FUSED_TOL}: the pipeline moves more "
-                        f"than the fused model (a host round trip?)")
-    if unfused_bytes <= gate:
-        problems.append(f"UNFUSED control metered {unfused_bytes} B <= the "
-                        f"gate bound {gate} B: the gate does not "
-                        f"discriminate")
-    if not np.allclose(y_fused, y_unfused, atol=1e-3):
-        problems.append("fused and unfused conv disagree: the control is "
-                        "not computing the same thing")
+        y_fused, fused_bytes = delta(fftconv)
+        y_unfused, unfused_bytes = delta(fftconv_unfused)
+        floor = spectral_min_hbm_bytes("conv", n_pad)
+        gate = int(floor * FUSED_TOL)
+        if not fused_bytes:
+            problems.append("fused conv charged ZERO metered bytes: the "
+                            "op meter is not wired")
+        elif fused_bytes > gate:
+            problems.append(f"fused conv metered {fused_bytes} B > fused "
+                            f"floor {floor} B x {FUSED_TOL}: the pipeline "
+                            f"moves more than the fused model (a host "
+                            f"round trip?)")
+        if unfused_bytes <= gate:
+            problems.append(f"UNFUSED control metered {unfused_bytes} B "
+                            f"<= the gate bound {gate} B: the gate does "
+                            f"not discriminate")
+        if not np.allclose(y_fused, y_unfused, atol=1e-3):
+            problems.append("fused and unfused conv disagree: the control "
+                            "is not computing the same thing")
     return problems
 
 

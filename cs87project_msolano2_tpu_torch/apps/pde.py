@@ -31,11 +31,12 @@ Variable-coefficient Helmholtz has no diagonal symbol; it is solved by
 the fixed-point split alpha = mean + fluctuation, each iteration one
 constant-coefficient spectral solve.
 
-Each whole-grid solve charges its traffic on the roofline's bytes meter
-(``utils.roofline.charge_spectral_traffic("solve", prod(shape))``, the
-stand-in for the reference's obs counters).  The reference's obs spans
-and metrics are not ported: the op and non-convergence counts land in
-:data:`OPS_STATS`.
+Each whole-grid solve runs under a ``spectral_solve`` span, counts on
+``pifft_apps_ops_total{op="solve"}`` and charges its traffic on the
+roofline's bytes meter (``utils.roofline.charge_spectral_traffic("solve",
+prod(shape))``); a variable-coefficient solve that does not converge
+counts on ``pifft_apps_solve_nonconverged_total`` (all no-ops while
+observability is disarmed).
 """
 
 from __future__ import annotations
@@ -47,22 +48,14 @@ import numpy as np
 import torch
 
 from .. import plans
+from ..obs import metrics
+from ..obs.spans import span
 from ..utils.device import as_plane
 from ..utils.roofline import charge_spectral_traffic
 
 #: explicit contiguous copies made by ``fft_axis`` (an axis moved to the
 #: end of strided planes): PyTorch copy launches beside each plan call
 AXIS_COPIES = 0
-
-#: counts the reference keeps as obs metrics (obs: not ported): each op
-#: ("conv", "corr", "solve": pifft_apps_ops_total{op}, the spectral
-#: ops' too) and "nonconverged" (pifft_apps_solve_nonconverged_total)
-OPS_STATS: dict = {}
-
-
-def _count(name: str) -> None:
-    OPS_STATS[name] = OPS_STATS.get(name, 0) + 1
-
 
 def wavenumbers(m: int) -> np.ndarray:
     """Integer wavenumbers for an m-point periodic axis (fftfreq * m)."""
@@ -167,14 +160,16 @@ def solve_spectral(f, multiplier: Callable, device=None):
     f = as_plane(f, device)
     shape = tuple(int(s) for s in f.shape)
     gr, gi = f, torch.zeros_like(f)
-    for ax in range(len(shape)):
-        gr, gi = fft_axis(gr, gi, ax, False)
-    m = multiplier(_ksq_on(shape, f.device))
-    gr, gi = gr * m, gi * m
-    for ax in range(len(shape)):
-        gr, gi = fft_axis(gr, gi, ax, True)
-    _count("solve")
-    charge_spectral_traffic("solve", int(np.prod(shape)))
+    with span("spectral_solve", cell={"op": "solve",
+                                      "n": int(np.prod(shape))}):
+        for ax in range(len(shape)):
+            gr, gi = fft_axis(gr, gi, ax, False)
+        m = multiplier(_ksq_on(shape, f.device))
+        gr, gi = gr * m, gi * m
+        for ax in range(len(shape)):
+            gr, gi = fft_axis(gr, gi, ax, True)
+        metrics.inc("pifft_apps_ops_total", op="solve")
+        charge_spectral_traffic("solve", int(np.prod(shape)))
     return gr.contiguous()
 
 
@@ -218,7 +213,7 @@ def helmholtz_solve_variable(f, alpha_field, iters: int = 40,
         if err <= tol:
             break
     if err > tol:
-        _count("nonconverged")
+        metrics.inc("pifft_apps_solve_nonconverged_total")
         plans.warn(f"variable-coefficient helmholtz did not converge "
                    f"in {iters} iteration(s) (rel step {err:.2e} > "
                    f"{tol:.0e}); returning the best iterate — treat "

@@ -29,10 +29,11 @@ op-tagged batch, with ``torch-fft`` and ``numpy-ref`` rungs that speak
 each op natively for planes on the CPU.
 
 Numpy in gives numpy out; a tensor in gives a tensor out on its own
-device.  Numpy input goes to `device`, the card by default.  Op counts
-land in ``apps.pde.OPS_STATS``, kernel-spectrum cache lookups in
-:data:`KSPEC_CACHE_STATS` (obs: not ported), op traffic on the
-roofline's bytes meter (``utils.roofline.HBM_METER``).
+device.  Numpy input goes to `device`, the card by default.  While
+observability is armed each op runs under a ``spectral_op`` span and
+counts on ``pifft_apps_ops_total{op}``, kernel-spectrum cache lookups on
+``pifft_apps_kspec_cache_total{result}``, and op traffic on the
+roofline's bytes meter (``utils.roofline.charge_spectral_traffic``).
 """
 
 from __future__ import annotations
@@ -45,11 +46,12 @@ import numpy as np
 import torch
 
 from .. import plans
+from ..obs import metrics
+from ..obs.spans import span
 from ..resilience.degrade import LIBRARY_RUNGS
 from ..utils.device import as_plane, resolve_device
 from ..utils.roofline import SPECTRAL_OPS as OPS
 from ..utils.roofline import charge_spectral_traffic
-from .pde import _count
 
 
 def check_op(op: str) -> str:
@@ -147,10 +149,6 @@ _KSPEC_CACHE: dict = {}
 #: bound on cached kernel spectra; past it the least recently used goes
 KSPEC_CACHE_MAX = 64
 
-#: lookups of the kernel-spectrum cache by result (the reference's
-#: ``pifft_apps_kspec_cache_total{result}``; obs: not ported)
-KSPEC_CACHE_STATS = {"hit": 0, "miss": 0}
-
 
 def _kernel_hash(k: np.ndarray) -> str:
     return hashlib.sha1(np.ascontiguousarray(k, np.float32)
@@ -174,9 +172,10 @@ def kernel_spectrum(k, n: int, precision: Optional[str] = None,
         hit = _KSPEC_CACHE.pop(ck, None)
         if hit is not None:
             _KSPEC_CACHE[ck] = hit  # re-append: LRU recency
-        KSPEC_CACHE_STATS["hit" if hit is not None else "miss"] += 1
     if hit is not None:
+        metrics.inc("pifft_apps_kspec_cache_total", result="hit")
         return hit
+    metrics.inc("pifft_apps_kspec_cache_total", result="miss")
     kp = torch.zeros(n, dtype=torch.float32, device=dev)
     kp[: kh.shape[0]] = torch.from_numpy(kh).to(dev)
     rfft_plan = plans.plan_for((n,), layout="natural", precision=precision,
@@ -384,9 +383,11 @@ def circular_conv(x, k, op: str = "conv", precision: Optional[str] = None,
     kr, ki = kernel_spectrum(k, n, precision, xt.device)
     if xt.shape[0] < n:
         xt = torch.nn.functional.pad(xt, (0, n - xt.shape[0]))
-    y = _fused_circular(op, n, precision, xt.device)(xt, kr, ki)
-    _count(op)
-    charge_spectral_traffic(op, n)
+    fused = _fused_circular(op, n, precision, xt.device)
+    with span("spectral_op", cell={"op": op, "n": n}):
+        y = fused(xt, kr, ki)
+        metrics.inc("pifft_apps_ops_total", op=op)
+        charge_spectral_traffic(op, n)
     return _like(y, x)
 
 
@@ -461,9 +462,10 @@ def solve_spectral_1d(f, precision: Optional[str] = None, device=None):
         fn, _plan = _build_fused("solve", batch, n, precision, ft.device)
         with _FUSED_LOCK:
             _FUSED_CACHE[ck] = fn
-    yr, _ = fn(ft, ft)
-    _count("solve")
-    charge_spectral_traffic("solve", n)
+    with span("spectral_op", cell={"op": "solve", "n": n}):
+        yr, _ = fn(ft, ft)
+        metrics.inc("pifft_apps_ops_total", op="solve")
+        charge_spectral_traffic("solve", n)
     return _like(yr, f)
 
 
@@ -494,7 +496,7 @@ def fftconv_unfused(x, k, mode: str = "full",
     yr = irfft_planes_fast(torch.from_numpy(pr).to(xt.device),
                            torch.from_numpy(pi).to(xt.device), n=n,
                            precision=precision)
-    _count("conv")
+    metrics.inc("pifft_apps_ops_total", op="conv")
     charge_spectral_traffic("conv", n, host_round_trips=1)
     full = yr[: la + lv - 1]
     return _like(_mode_slice(full, la, lv, mode, "conv").contiguous(), x)

@@ -16,9 +16,11 @@ The block size is a tuned axis: a big block amortizes the transform
 a small block wastes ``(m-1)/block`` of every transform on overlap.
 :func:`choose_block` minimizes the analytic total; :func:`tune_block`
 RACES the candidate blocks on the card (every candidate's fate counted
-in :data:`BLOCK_RACE_STATS`; obs: not ported) and serves the analytic
-choice where the device cannot be timed, as ``plans.tune_or_static``
-does.
+on ``pifft_apps_block_race_total{block,fate}`` while observability is
+armed) and serves the analytic choice where the device cannot be timed,
+as ``plans.tune_or_static`` does.  Each chunk runs under an
+``overlap_save_chunk`` or ``overlap_add_chunk`` span and counts on
+``pifft_apps_ops_total{op="conv"}``.
 
 Front doors: :func:`overlap_save` / :func:`overlap_add` (eager,
 ``numpy.convolve(x, k, "full")`` parity); :func:`overlap_save_stream` /
@@ -37,9 +39,10 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..obs import metrics
+from ..obs.spans import span
 from ..utils.device import as_plane
 from ..utils.roofline import charge_spectral_traffic
-from .pde import _count
 from .spectral import (
     _device,
     _fused_circular,
@@ -53,11 +56,6 @@ from .spectral import (
 #: the largest raced or chosen block (2^18 keeps every candidate inside
 #: the carry-free plan regime)
 MAX_BLOCK = 1 << 18
-
-#: the block race's candidates by (block, fate), fate "timed" or
-#: "rejected" (the reference's ``pifft_apps_block_race_total``; obs: not
-#: ported)
-BLOCK_RACE_STATS: dict = {}
 
 
 def overlap_waste(block: int, m: int) -> float:
@@ -114,11 +112,6 @@ def choose_block(m: int, n: Optional[int] = None) -> int:
     return min(cands, key=lambda b: block_cost(b, m, n))
 
 
-def _race(block: int, fate: str) -> None:
-    BLOCK_RACE_STATS[(block, fate)] = BLOCK_RACE_STATS.get((block, fate),
-                                                           0) + 1
-
-
 def tune_block(m: int, n: Optional[int] = None, reps: int = 3,
                verbose: bool = False, device=None) -> int:
     """The RACED block choice: on a card (``plans.device_is_tunable``),
@@ -128,8 +121,9 @@ def tune_block(m: int, n: Optional[int] = None, reps: int = 3,
     chunk count, or per useful sample without `n`); elsewhere serve the
     analytic choice.  A candidate that fails with a CAPACITY or
     PERMANENT fault is rejected and the race goes on; a TRANSIENT fault
-    or a sticky CUDA error re-raises.  Every fate is counted in
-    :data:`BLOCK_RACE_STATS` and, with `verbose`, written to stderr."""
+    or a sticky CUDA error re-raises.  Every fate is counted on
+    ``pifft_apps_block_race_total{block,fate}`` and, with `verbose`,
+    written to stderr."""
     from .. import plans
     from ..resilience import FaultKind, classify, sticky
     from ..utils.timing import time_ms
@@ -153,7 +147,8 @@ def tune_block(m: int, n: Optional[int] = None, reps: int = 3,
             kind = classify(e)
             if kind is FaultKind.TRANSIENT or sticky(e):
                 raise  # the moment failed, not the block
-            _race(block, "rejected")
+            metrics.inc("pifft_apps_block_race_total",
+                        block=str(block), fate="rejected")
             plans.warn(f"block race: block={block} rejected "
                        f"({kind.value} {type(e).__name__}: "
                        f"{str(e)[:120]})")
@@ -161,7 +156,8 @@ def tune_block(m: int, n: Optional[int] = None, reps: int = 3,
         cost = ms * chunk_count(n, m, block) if n is not None \
             else ms / (block - (m - 1))
         won = cost < best_cost
-        _race(block, "timed")
+        metrics.inc("pifft_apps_block_race_total", block=str(block),
+                    fate="timed")
         if verbose:
             plans.warn(f"block race: block={block} {ms:.4f} ms/chunk "
                        f"cost={cost:.6f}{' <- best' if won else ''}")
@@ -226,9 +222,12 @@ class OverlapSave:
     def _convolve_block(self, seg):
         """One fused circular conv of a block-long window; returns the
         step valid output samples."""
-        y = self._fused(seg, self._kr, self._ki)
-        _count("conv")
-        charge_spectral_traffic("conv", self.block)
+        with span("overlap_save_chunk",
+                  cell={"op": "conv", "n": self.block},
+                  chunk=self.chunks):
+            y = self._fused(seg, self._kr, self._ki)
+            metrics.inc("pifft_apps_ops_total", op="conv")
+            charge_spectral_traffic("conv", self.block)
         self.chunks += 1
         return y[self.m - 1:]
 
@@ -326,9 +325,11 @@ def overlap_add(x, k, block: Optional[int] = None,
     for start in range(0, max(n, 1), step):
         piece = xt[start:start + step]
         seg = torch.nn.functional.pad(piece, (0, block - piece.shape[0]))
-        yc = fused(seg, kr, ki)
-        _count("conv")
-        charge_spectral_traffic("conv", block)
+        with span("overlap_add_chunk", cell={"op": "conv", "n": block},
+                  chunk=start // step):
+            yc = fused(seg, kr, ki)
+            metrics.inc("pifft_apps_ops_total", op="conv")
+            charge_spectral_traffic("conv", block)
         hi = min(start + block, y.shape[0])
         y[start:hi] += yc[:hi - start]
     return _like(y, x)

@@ -1,7 +1,7 @@
 """Headline benchmark of the port: 1-D complex FFT, N = 2^20, one card.
 
     python -m cs87project_msolano2_tpu_torch.bench [--smoke] [--device cpu]
-        [--journal PATH] [--resume]
+        [--journal PATH] [--resume] [--events PATH] [--trace-out PATH]
 
 Measures the flagship path (pi-layout output, the bit-reversal gather
 excluded as the reference excludes it) against ``torch.fft.fft`` on the
@@ -26,7 +26,8 @@ bench's record format (``bench.py`` at the repository root):
   their ceiling 1/(1+p), the share of the card's data-sheet bandwidth
   at the domain's and storage's minimum traffic (``roofline_util``),
   its share of the ceiling, and the bytes the plan declares
-  (``utils.roofline.fft_hbm_bytes``; no counter meters them yet).
+  (``utils.roofline.fft_hbm_bytes``), which ``pifft_hbm_bytes_total``
+  meters while observability is armed.
 * ``gpu2^K_*`` and ``cpun2^K_*`` — the same pi-layout shape under the
   ``gpu`` and ``cpu-native`` plan backends (``hw.lowering``) at
   BACKEND_ROW_LOGNS, tagged with their backend; a cpun row's share of
@@ -37,7 +38,8 @@ bench's record format (``bench.py`` at the repository root):
   cached 129-tap kernel spectrum (ms by the loop slope, ``event_ms``
   beside it, GFLOP/s on the two real transforms it runs, 2 x 2.5 n log2
   n, the share of the bound on the op's fused floor, and
-  ``hbm_bytes``, the bytes-meter delta of one execution), and
+  ``hbm_bytes``, the bytes-meter delta of one execution, present while
+  observability is armed), and
   ``os2^K_*``, overlap-save of a 4 x 2^K-sample signal at block 2^K,
   skipped with a diagnostic past ``apps.stream.MAX_BLOCK``; then one
   ``conv_np<n>_*`` row at the length ``cheapest_length`` picks for a
@@ -78,9 +80,19 @@ holds on the CPU, where the chain ends on the library rungs.  On the
 card the chain ends at rql, so every kernel refusing leaves nothing to
 serve; the card's chaos run caps the fault at one firing
 (``PIFFT_FAULT=tube:capacity:1.0:1``) and the flagship lands on rql.  The
-reference's serving suites and the event and trace outputs come with
-serving; its smoke-only forced sixstep cell is left out (the card's
-2^25-2^27 rows run sixstep).
+reference's serving suites come with serving; its smoke-only forced
+sixstep cell is left out (the card's 2^25-2^27 rows run sixstep).
+
+Observability: ``--events PATH`` arms the structured event stream (JSONL
+sink).  Every cell runs under a named span with a funnel/tube phase
+probe nested inside it, plan-cache / retry / demotion activity is
+counted, the bytes meter charges every row, the ``env`` and final
+``metrics`` events close the stream, and the JSON record carries the
+``run`` id every event shares (and ``obs_dropped_events`` where the
+buffer overflowed).  ``--trace-out PATH`` also writes the run's spans as
+Chrome trace JSON; ``python -m cs87project_msolano2_tpu_torch obs
+{summary, export, validate}`` reads the events file.  Without the flags
+(and without ``PIFFT_OBS*`` in the environment) the layer is a no-op.
 """
 
 from __future__ import annotations
@@ -234,7 +246,8 @@ def _row_fields(tag: str, nn: int, ms: float, plan, domain: str = "c2c",
                                             storage)
     util = roofline_utilization(
         nn, ms, plan.key.device_kind, domain, storage,
-        peak=peak_bytes_per_s(plan.key.backend, plan.key.device_kind))
+        peak=peak_bytes_per_s(plan.key.backend, plan.key.device_kind),
+        carry_passes=passes or 0)
     if util is not None:
         out[f"{tag}_roofline_util"] = round(util, 3)
         if ceil:
@@ -366,12 +379,36 @@ def measure_backend_row(logn: int, backend: str, device,
 
 def _metered_hbm_delta(fn) -> tuple:
     """(result, bytes) of calling `fn`: the ``pifft_hbm_bytes_total``
-    delta it charged on the bytes meter."""
-    from .utils.roofline import meter_value
+    delta it charged on the bytes meter (0 while observability is
+    disarmed: the meter is a no-op there)."""
+    from .obs import metrics
 
-    before = meter_value("pifft_hbm_bytes_total")
+    before = metrics.counter_value("pifft_hbm_bytes_total")
     out = fn()
-    return out, int(meter_value("pifft_hbm_bytes_total") - before)
+    return out, int(metrics.counter_value("pifft_hbm_bytes_total")
+                    - before)
+
+
+def _phase_probe(n: int, device) -> None:
+    """One small funnel/tube decomposition on `device` run under the
+    current cell span, so the trace carries named, nested funnel/tube
+    phase spans (and ``record_function`` ranges) for this cell.
+    Observability structure only — never timed, never part of a
+    measurement — and sized down (the phase spans record the probe's
+    shape; the cell span carries the real n).  A no-op unless
+    observability is armed."""
+    from . import obs
+
+    if not obs.enabled():
+        return
+    from .models.pi_fft import pi_fft_pi_layout
+
+    # the probe is pi-layout (powers of two only): round an any-length
+    # cell's n down to a power of two
+    pn = min(n, 1 << 12)
+    pn = 1 << (pn.bit_length() - 1)
+    xr, xi = _planes(pn, 0, device)
+    pi_fft_pi_layout(xr, xi, min(8, pn))
 
 
 def _op_ms(fn, *args, smoke: bool = False) -> tuple:
@@ -426,7 +463,8 @@ def _conv_row(tag: str, nn: int, x, k, device, smoke: bool,
     if plan.degraded:
         out[f"{tag}_degraded"] = True
     _, hbm = _metered_hbm_delta(lambda: charge_spectral_traffic("conv", nn))
-    out[f"{tag}_hbm_bytes"] = hbm
+    if hbm:
+        out[f"{tag}_hbm_bytes"] = hbm
     util = spectral_roofline_utilization(
         "conv", nn, ms, plan.key.device_kind,
         peak=peak_bytes_per_s(plan.key.backend, plan.key.device_kind))
@@ -472,8 +510,10 @@ def measure_conv_np_row(device, smoke: bool = False) -> dict:
     k = rng.standard_normal(lv).astype(np.float32)
     out = _conv_row(tag, nn, x, k, device, smoke, f"conv_np {nn}")
     if out:
-        _, out[f"{tag}_pow2_hbm_bytes"] = _metered_hbm_delta(
+        _, hbm_pow2 = _metered_hbm_delta(
             lambda: charge_spectral_traffic("conv", next_pow2(la + lv - 1)))
+        if hbm_pow2:
+            out[f"{tag}_pow2_hbm_bytes"] = hbm_pow2
     return out
 
 
@@ -519,7 +559,9 @@ def measure_os_row(logn: int, device, smoke: bool = False) -> dict:
            f"{tag}_signal_n": n_signal,
            f"{tag}_chunks": chunk_count(n_signal, OP_TAPS, block),
            f"{tag}_overlap_waste": round(overlap_waste(block, OP_TAPS), 4),
-           f"{tag}_op": "conv", f"{tag}_hbm_bytes": hbm}
+           f"{tag}_op": "conv"}
+    if hbm:
+        out[f"{tag}_hbm_bytes"] = hbm
     if smoke:
         ref = np.convolve(x.astype(np.float64), k.astype(np.float64),
                           "full")
@@ -543,7 +585,7 @@ def measure_c_baseline_ms() -> float:
 
 
 def main(argv=None) -> int:
-    from . import plans
+    from . import obs, plans
     from .analyze.records import emit_record, env_fingerprint
     from .utils.device import resolve_device
     from .utils.roofline import (
@@ -566,12 +608,24 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the plain "
                          "versions)")
+    ap.add_argument("--events", default=None, metavar="PATH",
+                    help="write the structured observability event "
+                         "stream (JSONL) to PATH and tag the record "
+                         "with the run id")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's spans as Chrome trace JSON "
+                         "(open in Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+    if args.events:
+        obs.enable(events_path=args.events)
+    elif args.trace_out and not obs.enabled():
+        obs.enable()
 
     n = SMOKE_N if args.smoke else N
     logns = SMOKE_LARGE_LOGNS if args.smoke else LARGE_LOGNS
@@ -595,19 +649,28 @@ def main(argv=None) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 2
 
-    def cell(name, compute):
+    def cell(name, compute, probe_n=None):
         """compute() -> a JSON-safe payload, checkpointed per cell.  An
         empty payload (a row that failed outright) is never journaled,
-        so --resume measures it again."""
+        so --resume measures it again.  Each computed cell runs under a
+        named span (with a nested funnel/tube phase probe for transform
+        cells) and lands in the event stream: no-ops while observability
+        is disarmed."""
         if journal is not None and journal.has(name):
             rec = dict(journal.get(name))
             rec.pop("cell", None)
             plans.warn(f"bench --resume: cell {name} loaded from journal "
                        f"(not re-measured)")
+            obs.emit("bench_cell_loaded", cell={"name": name})
             return rec
-        out = compute()
+        with obs.span("cell", cell={"name": name, "n": probe_n or n}):
+            if probe_n is not None:
+                _phase_probe(probe_n, device)
+            out = compute()
         if journal is not None and out:
             journal.record(name, out)
+        obs.emit("bench_cell", cell={"name": name},
+                 ok=bool(out), **(out if out else {}))
         return out
 
     def flagship_cell():
@@ -623,7 +686,7 @@ def main(argv=None) -> int:
         ms = measure_library_ms(n, device, smoke=args.smoke)
         return {} if ms is None else {"library_ms": ms}
 
-    flagship = cell("flagship", flagship_cell)
+    flagship = cell("flagship", flagship_cell, probe_n=n)
     library = cell("library", library_cell)
     rows = {}
     for logn in logns:
@@ -634,15 +697,18 @@ def main(argv=None) -> int:
                 ("conv", measure_conv_row), ("os", measure_os_row)):
             rows.update(cell(f"{prefix}2^{logn}",
                              lambda logn=logn, measure=measure: measure(
-                                 logn, device, smoke=args.smoke)))
+                                 logn, device, smoke=args.smoke),
+                             probe_n=1 << logn))
     rows.update(cell("conv_np", lambda: measure_conv_np_row(
-        device, smoke=args.smoke)))
+        device, smoke=args.smoke),
+        probe_n=3 * (1 << (8 if args.smoke else 18))))
     for backend in BACKEND_ROW_BACKENDS:
         for logn in BACKEND_ROW_LOGNS:
             rows.update(cell(
                 f"{BACKEND_ROW_PREFIX[backend]}2^{logn}",
                 lambda logn=logn, backend=backend: measure_backend_row(
-                    logn, backend, device, smoke=args.smoke)))
+                    logn, backend, device, smoke=args.smoke),
+                probe_n=1 << logn))
     # the C baseline runs at the full flagship N: against a smoke run's
     # toy-n flagship the ratio would mean nothing, so smoke omits it
     c_ms = None if args.smoke else cell(
@@ -671,7 +737,8 @@ def main(argv=None) -> int:
     ceil = roofline_ceiling(passes)
     if ceil is not None:
         record["roofline_ceiling"] = round(ceil, 3)
-    util = roofline_utilization(n, ms, flagship["device_kind"])
+    util = roofline_utilization(n, ms, flagship["device_kind"],
+                                carry_passes=passes or 0)
     if util is not None:
         record["roofline_util"] = round(util, 3)
         if ceil:
@@ -683,6 +750,23 @@ def main(argv=None) -> int:
         record["c_ms"] = round(c_ms, 4)
         record["vs_baseline"] = round(c_ms / ms, 1)
     record.update(rows)
+    if obs.enabled():
+        # the run id ties this record to every event, span and metric
+        # the run emitted; the env event fingerprints the stream as
+        # record["env"] does the record, and the metrics snapshot is
+        # the stream's last word (after the trace's own warn line)
+        from .obs import export, metrics
+
+        record["run"] = obs.run_id()
+        if args.trace_out:
+            export.write_chrome_trace(args.trace_out)
+            plans.warn(f"chrome trace written to {args.trace_out} "
+                       f"(open in Perfetto)")
+        if obs.events.dropped():
+            record["obs_dropped_events"] = obs.events.dropped()
+        obs.emit("env", **record["env"])
+        obs.emit("metrics", snapshot=metrics.snapshot())
+        obs.flush()
     emit_record(record)
     return 0
 

@@ -1,6 +1,7 @@
 """Command line: the reference-parity pi-FFT run and the plan store.
 
     python -m cs87project_msolano2_tpu_torch -n 1048576 -p 4 -b cuda --verify
+        [--trace DIR]
     python -m cs87project_msolano2_tpu_torch -t -b cuda
     python -m cs87project_msolano2_tpu_torch -n 65536 -p 4 -b pthreads
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
@@ -11,6 +12,9 @@
         [--deadline S] [--stall S] [--world W] [--device D]
     python -m cs87project_msolano2_tpu_torch apps {conv,corr,solve}
         [--smoke] [--json] [-n N] [--device D]
+    python -m cs87project_msolano2_tpu_torch obs {summary|export|validate|top}
+        [--events FILE] [--format {chrome,prom}] [--out FILE] [--json]
+        [--url URL] [--once]
 
 The run prints the reference's 5-column TSV (n, p, total_ms, funnel_ms,
 tube_ms) for any backend of the registry (``-b``: the native C core's
@@ -26,8 +30,11 @@ fault and says how the retry and degradation policies carried it
 (``resilience``); ``multichip smoke`` drives the collective supervision
 -> consensus -> collective-free escape loop on a local job of W ranks
 (``parallel``); ``apps`` runs the spectral operation suite's demo or
-its smoke (``apps.cli``).  The tensor backends run on the card unless
-``--device cpu`` is given; a p above a backend's capacity is refused.
+its smoke (``apps.cli``); ``obs`` summarizes, exports or validates an
+event stream, or renders a live telemetry plane (``obs``).  ``--trace
+DIR`` writes a ``torch.profiler`` trace of the run.  The tensor backends
+run on the card unless ``--device cpu`` is given; a p above a backend's
+capacity is refused.
 """
 
 from __future__ import annotations
@@ -325,7 +332,7 @@ def multichip_main(argv) -> int:
     collective-free escape completes the run, and the result must be
     bit-identical to the healthy one and within 1e-5 of numpy.  Checks
     the report and the collective layer's records
-    (``resilience.watchdog.COLLECTIVE_EVENTS``)."""
+    (``resilience.watchdog.recorded_kinds``)."""
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch multichip",
         description="exercise the collective supervision -> consensus -> "
@@ -402,6 +409,138 @@ def multichip_main(argv) -> int:
     return 0
 
 
+def obs_main(argv) -> int:
+    """``obs {summary|export|validate|top}`` — post-process a structured
+    event stream, or watch a live telemetry plane."""
+    ap = argparse.ArgumentParser(
+        prog="cs87project_msolano2_tpu_torch obs",
+        description="summarize / export / validate an observability "
+                    "event stream (a JSONL file written by bench "
+                    "--events or PIFFT_OBS_EVENTS), or render the live "
+                    "/slo + /healthz snapshot of a running telemetry "
+                    "plane (obs.http.TelemetryServer) as a refreshing "
+                    "terminal table (top)",
+    )
+    ap.add_argument("action", choices=("summary", "export", "validate",
+                                       "top"))
+    ap.add_argument("--url", default="http://127.0.0.1:8572",
+                    metavar="URL",
+                    help="top: base URL of the telemetry plane")
+    ap.add_argument("--interval", type=float, default=2.0, metavar="S",
+                    help="top: refresh period (seconds)")
+    ap.add_argument("--once", action="store_true",
+                    help="top: print one frame and exit (scripts)")
+    ap.add_argument("--events", default="pifft-events.jsonl",
+                    metavar="FILE",
+                    help="the event-stream JSONL file (default: "
+                         "pifft-events.jsonl)")
+    ap.add_argument("--format", choices=("chrome", "prom"),
+                    default="chrome",
+                    help="export format: Chrome trace JSON (Perfetto) "
+                         "or Prometheus textfile")
+    ap.add_argument("--out", default=None, metavar="FILE",
+                    help="export: write here instead of stdout")
+    ap.add_argument("--json", action="store_true",
+                    help="summary: machine-readable output")
+    args = ap.parse_args(argv)
+
+    import json as _json
+    import os
+
+    from .obs import events as obs_events
+    from .obs import export as obs_export
+
+    if args.action == "top":
+        return _obs_top(args)
+
+    if not os.path.exists(args.events):
+        print(f"error: no event stream at {args.events} (run with "
+              f"bench --events or PIFFT_OBS_EVENTS=<path>)",
+              file=sys.stderr)
+        return 2
+    records, dropped = obs_events.load_events(args.events)
+
+    if args.action == "validate":
+        problems = obs_export.validate_stream(records)
+        for ident, problem in problems:
+            print(f"{args.events}: event {ident}: {problem}",
+                  file=sys.stderr)
+        tail = (f", {dropped} corrupt line(s) skipped" if dropped else "")
+        if problems:
+            print(f"obs validate: {len(problems)} schema problem(s) in "
+                  f"{len(records)} event(s){tail}", file=sys.stderr)
+            return 1
+        print(f"obs validate: {len(records)} event(s) OK{tail}")
+        return 0
+
+    if args.action == "summary":
+        summary = obs_export.summarize(records, dropped)
+        print(_json.dumps(summary, indent=1, sort_keys=True)
+              if args.json else obs_export.format_summary(summary))
+        return 0
+
+    # export
+    if args.format == "chrome":
+        doc = obs_export.chrome_trace(
+            obs_export.spans_from_events(records))
+        text = _json.dumps(doc, indent=1, sort_keys=True) + "\n"
+    else:
+        snap = obs_export.last_metrics_snapshot(records)
+        if snap is None:
+            print("error: the stream has no metrics snapshot (the run "
+                  "died before its final flush)", file=sys.stderr)
+            return 1
+        text = obs_export.prometheus_text(snap)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        print(f"wrote {args.format} export to {args.out}")
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def _obs_top(args) -> int:
+    """``obs top`` — the live terminal view: poll a running telemetry
+    plane's /slo + /healthz and render the refreshing table."""
+    import time
+    import urllib.error
+
+    from .obs.http import fetch_json, format_top
+
+    base = args.url.rstrip("/")
+    interval = max(args.interval, 0.2)
+    while True:
+        try:
+            slo = fetch_json(f"{base}/slo")
+            health = fetch_json(f"{base}/healthz")
+        except urllib.error.HTTPError as e:
+            if e.code != 503:
+                print(f"error: {base}: HTTP {e.code}", file=sys.stderr)
+                return 1
+            # 503 still carries the health body: NOT SERVING is a
+            # frame, not a failure of the viewer
+            import json as _json
+
+            health = _json.loads(e.read().decode("utf-8"))
+            slo = {"rows": {}}
+        except (OSError, ValueError) as e:
+            print(f"error: no telemetry plane at {base} ({e})",
+                  file=sys.stderr)
+            return 1
+        frame = format_top(slo, health)
+        if args.once:
+            print(frame)
+            return 0
+        # clear + home, then the frame (the classic top discipline)
+        sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+        sys.stdout.flush()
+        try:
+            time.sleep(interval)
+        except KeyboardInterrupt:
+            return 0
+
+
 def hw_main(argv) -> int:
     """``hw probe`` — the device inventory (``hw.inventory.main``)."""
     if not argv or argv[0] != "probe":
@@ -424,6 +563,8 @@ def main(argv=None) -> int:
         return faults_main(argv[1:])
     if argv and argv[0] == "multichip":
         return multichip_main(argv[1:])
+    if argv and argv[0] == "obs":
+        return obs_main(argv[1:])
     if argv and argv[0] == "apps":
         from .apps.cli import apps_main
 
@@ -448,6 +589,8 @@ def main(argv=None) -> int:
                     help="the tensor backends' device: cuda (default) or "
                          "cpu (plain versions); the native core runs on "
                          "the host")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run to DIR")
     args = ap.parse_args(argv)
 
     if args.t:
@@ -464,7 +607,10 @@ def main(argv=None) -> int:
         return 2
     x = make_input(args.n, args.seed)
     try:
-        res = b.run(x, args.p, reps=args.reps)
+        from .obs.profiler import trace
+
+        with trace(args.trace):
+            res = b.run(x, args.p, reps=args.reps)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

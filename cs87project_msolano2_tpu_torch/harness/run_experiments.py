@@ -5,7 +5,7 @@ experiment).
 
     python -m cs87project_msolano2_tpu_torch.harness.run_experiments \\
         --backends cuda --n-grid 65536,1048576,16777216 --p-grid 1..256 \\
-        -T 3 --verify [--device cpu] [--out DIR]
+        -T 3 --verify [--device cpu] [--out DIR] [--events PATH]
 
 TSV contract: ``n  p  total_ms  funnel_ms  tube_ms`` (5 columns, the
 native core's), one file per backend, ``DEGRADED`` as a sixth column
@@ -27,7 +27,10 @@ einsum model), on the card unless ``--device cpu``.  Each backend's
 capacity is probed and the p-grid clipped to it (the reference's
 probe-and-clip: ``pthreads`` takes at most the core's
 ``pifft_capacity``); a cell the backend refuses (an einsum cell past
-its capacity) is skipped with a note.
+its capacity) is skipped with a note.  ``--events PATH`` writes the
+observability event stream: each cell under a ``sweep_cell`` span and
+its ``sweep_cell`` event, ``sweep_progress`` with the estimate of the
+time left, the ``env`` event first and the ``metrics`` snapshot last.
 """
 
 from __future__ import annotations
@@ -35,13 +38,14 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 from collections import Counter
 
 import numpy as np
 
+from .. import obs
 from ..backends.registry import get_backend
 from ..cli import make_input
+from ..obs.spans import clock
 from ..resilience import Journal, call_with_retry, classify, maybe_fault
 from ..resilience.journal import torn_tail
 from ..utils.verify import pi_layout_to_natural, rel_err
@@ -155,13 +159,18 @@ def sweep(backend_name: str, ns: list[int], ps: list[int], reps: int,
         for n, p in cells:
             x = make_input(n, seed)
             for rep in range(done[(n, p)], reps):
-                t0 = time.perf_counter()
+                cell_id = {"n": n, "p": p, "rep": rep}
+                t0 = clock()
                 try:
-                    res = run_cell(backend, x, p)
+                    with obs.span("sweep_cell", cell=cell_id,
+                                  backend=backend_name):
+                        res = run_cell(backend, x, p)
                 except ValueError as e:
                     # an infeasible (n, p) is a property of the cell
                     print(f"# {backend_name} n={n} p={p} skipped: {e}",
                           file=sys.stderr)
+                    obs.emit("sweep_cell_skipped", cell=cell_id,
+                             backend=backend_name, reason=str(e)[:200])
                     todo -= reps - rep
                     break
                 mark = "\tDEGRADED" if res.degraded else ""
@@ -172,12 +181,19 @@ def sweep(backend_name: str, ns: list[int], ps: list[int], reps: int,
                 # claims it, so the journal never claims a lost row
                 os.fsync(fh.fileno())
                 journal.record(f"{n}:{p}:{rep}", {"total_ms": res.total_ms})
-                cell_s.append(time.perf_counter() - t0)
+                cell_s.append(clock() - t0)
+                obs.emit("sweep_cell", cell=cell_id, backend=backend_name,
+                         total_ms=res.total_ms, funnel_ms=res.funnel_ms,
+                         tube_ms=res.tube_ms, degraded=bool(res.degraded),
+                         dur_s=round(cell_s[-1], 6))
                 completed += 1
                 if completed % 10 == 0 or completed == todo:
                     eta = sum(cell_s) / len(cell_s) * (todo - completed)
                     print(f"# {backend_name} {completed}/{todo} "
                           f"(n={n} p={p}) eta {eta:5.0f}s", file=sys.stderr)
+                    obs.emit("sweep_progress", backend=backend_name,
+                             completed=completed, todo=todo,
+                             eta_s=round(eta, 1))
     return path
 
 
@@ -236,7 +252,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the card) or cpu (the plain "
                          "versions)")
+    ap.add_argument("--events", default=None, metavar="PATH",
+                    help="write the structured observability event "
+                         "stream (per-cell events, progress and the time "
+                         "left, the final metrics snapshot) to a JSONL "
+                         "file")
     args = ap.parse_args(argv)
+
+    if args.events:
+        from ..analyze.records import env_fingerprint
+
+        obs.enable(events_path=args.events)
+        # fingerprint the stream, so a reader knows which environment
+        # its cells are comparable within
+        obs.emit("env", **env_fingerprint(device=args.device))
 
     ns = parse_grid(args.n_grid)
     ps = parse_grid(args.p_grid)
@@ -248,6 +277,11 @@ def main(argv=None) -> int:
     if args.verify:
         for b in backends:
             verify_pass(b, ns, ps, args.seed, args.device)
+    if obs.enabled():
+        from ..obs import metrics
+
+        obs.emit("metrics", snapshot=metrics.snapshot())
+        obs.flush()
     return 0
 
 

@@ -35,6 +35,9 @@ Output: ``<out>/fourier-parallel-pi-sharded-results.tsv`` (``--out``
 defaults to ``results/``).  Resume: per-cell completion is journaled to
 an fsynced JSONL beside the append-only TSV, as in
 ``harness/run_experiments.py``; ``--no-resume`` starts a fresh dataset.
+``--events PATH`` writes the observability event stream: each cell
+under a ``sweep_cell`` span with its ``sweep_cell`` event, the
+``metrics`` snapshot last.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.pi_fft import pi_fft_pi_layout, resolve_tube_plan
 from ..ops.twiddle import device_tables
 from ..parallel.pi_shard import PLAN_SEGMENT_MIN, rank_body
@@ -251,9 +255,14 @@ def main(argv=None) -> int:
                          "versions)")
     ap.add_argument("--world", type=int, default=8,
                     help="ranks of the cross-check job (default 8)")
+    ap.add_argument("--events", default=None, metavar="PATH",
+                    help="write the structured observability event "
+                         "stream to a JSONL file")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.events:
+        obs.enable(events_path=args.events)
     os.makedirs(args.out, exist_ok=True)
     path = result_path(args.out, args.full)
     journal = journal_for(path)
@@ -284,11 +293,14 @@ def main(argv=None) -> int:
             funnel_f, tube_only, _ = device_fns(n, p, device)
             fr, fi = (t.contiguous() for t in funnel_f(xr, xi))
             for rep in range(start_rep, args.reps):
-                # total := funnel + tube, the reference's nested-timer
-                # contract; p = 1 is an empty chain
-                funnel_ms, deg_f = (0.0, False) if p == 1 \
-                    else phase_ms(funnel_f, xr, xi)
-                tube_ms, deg_t = phase_ms(tube_only, fr, fi)
+                cell_id = {"n": n, "p": p, "rep": rep}
+                with obs.span("sweep_cell", cell=cell_id,
+                              backend="sharded"):
+                    # total := funnel + tube, the reference's
+                    # nested-timer contract; p = 1 is an empty chain
+                    funnel_ms, deg_f = (0.0, False) if p == 1 \
+                        else phase_ms(funnel_f, xr, xi)
+                    tube_ms, deg_t = phase_ms(tube_only, fr, fi)
                 mark = "\tDEGRADED" if deg_f or deg_t else ""
                 fh.write(f"{n}\t{p}\t{funnel_ms + tube_ms:.6f}"
                          f"\t{funnel_ms:.6f}\t{tube_ms:.6f}{mark}\n")
@@ -298,10 +310,18 @@ def main(argv=None) -> int:
                 os.fsync(fh.fileno())
                 journal.record(f"{n}:{p}:{rep}",
                                {"total_ms": funnel_ms + tube_ms})
+                obs.emit("sweep_cell", cell=cell_id, backend="sharded",
+                         total_ms=funnel_ms + tube_ms,
+                         funnel_ms=funnel_ms, tube_ms=tube_ms)
             del xr, xi, fr, fi
             print(f"# sharded n={n} p={p} done", file=sys.stderr)
     if args.verify:
         verify_pass(cells, args.seed, device)
+    if obs.enabled():
+        from ..obs import metrics
+
+        obs.emit("metrics", snapshot=metrics.snapshot())
+        obs.flush()
     print(path)
     return 0
 

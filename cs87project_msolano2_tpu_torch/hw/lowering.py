@@ -255,8 +255,10 @@ def _native_executor(n: int, p: int, natural: bool):
     planes through the core's pthreads variant at `p` (one warm-up run,
     then one timed, as ``NativeBackend.run``), pi layout or, for a
     natural key, the bit-reversal gather after it; the planes go to the
-    host and the result comes back as float32 planes on their device."""
+    host and the result comes back as float32 planes on their device.
+    Each row's native timer is observed on ``pifft_hw_native_ms``."""
     from ..backends.cpu import NativeBackend
+    from ..obs import metrics
 
     if p & (p - 1) or not 1 <= p <= n:
         raise ValueError(f"cpu-native p={p} must be a power of two in "
@@ -271,7 +273,10 @@ def _native_executor(n: int, p: int, natural: bool):
         flat = np.ascontiguousarray(x.reshape(-1, n), dtype=np.complex64)
         out = np.empty_like(flat)
         for i in range(flat.shape[0]):
-            out[i] = native.run(flat[i], p, reps=1).out
+            res = native.run(flat[i], p, reps=1)
+            out[i] = res.out
+            metrics.observe("pifft_hw_native_ms", res.total_ms,
+                            backend="cpu-native")
         yr, yi = as_planes(out.real.reshape(shape), out.imag.reshape(shape),
                            xr.device)
         return to_natural(yr, yi) if natural else (yr, yi)

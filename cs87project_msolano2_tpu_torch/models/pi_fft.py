@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.spans import span as _span
 from ..ops.bits import ilog2
 from ..ops.butterfly import stage_full, stage_half
 from ..ops.twiddle import device_tables
@@ -65,18 +66,26 @@ def _stage_half_blocked(cr, ci, wr, wi, bottom):
 
 
 def funnel(xr, xi, p, tables=None):
-    """Replicated funnel phase.  xr/xi: (..., n) -> (..., p, n // p)."""
+    """Replicated funnel phase.  xr/xi: (..., n) -> (..., p, n // p).
+
+    The phase runs under an observability span (``annotate=True`` also
+    names it in a ``torch.profiler`` trace and as an NVTX range); when
+    the obs subsystem is disabled the span is a shared no-op.  The span
+    covers the host's launch time, not device time (CUDA launches are
+    asynchronous), and inside a captured CUDA graph it runs once per
+    capture."""
     n = xr.shape[-1]
-    k = ilog2(p)
-    tables = _tables_for(n, tables, xr.device)
-    cr = xr.unsqueeze(-2).expand(*xr.shape[:-1], p, n)
-    ci = xi.unsqueeze(-2).expand(*xi.shape[:-1], p, n)
-    pis = torch.arange(p, dtype=torch.int32, device=xr.device)[:, None]
-    for i in range(k):
-        wr, wi = tables[i]
-        bottom = (pis >> (k - 1 - i)) & 1
-        cr, ci = _stage_half_blocked(cr, ci, wr, wi, bottom)
-    return cr, ci
+    with _span("funnel", cell={"n": n, "p": p}, annotate=True):
+        k = ilog2(p)
+        tables = _tables_for(n, tables, xr.device)
+        cr = xr.unsqueeze(-2).expand(*xr.shape[:-1], p, n)
+        ci = xi.unsqueeze(-2).expand(*xi.shape[:-1], p, n)
+        pis = torch.arange(p, dtype=torch.int32, device=xr.device)[:, None]
+        for i in range(k):
+            wr, wi = tables[i]
+            bottom = (pis >> (k - 1 - i)) & 1
+            cr, ci = _stage_half_blocked(cr, ci, wr, wi, bottom)
+        return cr, ci
 
 
 def funnel_single(xr, xi, pi, p, tables=None):
@@ -98,13 +107,14 @@ def tube(sr, si, n, p, tables=None):
     """Segment-local tube phase: full DIF over the trailing axis of
     (..., s) planes, s = n // p.  Twiddle levels continue where the
     funnel stopped (level log2(p) of the n-point plan)."""
-    k = ilog2(p)
-    s = sr.shape[-1]
-    tables = _tables_for(n, tables, sr.device)
-    for i in range(ilog2(s)):
-        wr, wi = tables[k + i]
-        sr, si = stage_full(sr, si, wr, wi)
-    return sr, si
+    with _span("tube", cell={"n": n, "p": p}, annotate=True):
+        k = ilog2(p)
+        s = sr.shape[-1]
+        tables = _tables_for(n, tables, sr.device)
+        for i in range(ilog2(s)):
+            wr, wi = tables[k + i]
+            sr, si = stage_full(sr, si, wr, wi)
+        return sr, si
 
 
 def pi_fft_pi_layout(xr, xi, p, tables=None):
@@ -172,7 +182,9 @@ def tube_planned(sr, si, n, p, plan=None, precision=None):
     plan = resolve_tube_plan(sr.shape, plan, precision, device=sr.device)
     if plan is None:
         return tube(sr, si, n, p)
-    return plan.execute(sr, si)
+    with _span("tube", cell={"n": n, "p": p, "variant": plan.variant},
+               annotate=True):
+        return plan.execute(sr, si)
 
 
 def fft_stages_scan(xr, xi):
@@ -211,7 +223,8 @@ def fft_stages_scan(xr, xi):
 def tube_scan(sr, si, n, p):
     """Tube phase on the constant-geometry stages: the segment-local
     s-point DIF of ``tube``, by ``fft_stages_scan``."""
-    return fft_stages_scan(sr, si)
+    with _span("tube", cell={"n": n, "p": p}, annotate=True):
+        return fft_stages_scan(sr, si)
 
 
 def pi_fft_pi_layout_scan(xr, xi, p, tables=None):

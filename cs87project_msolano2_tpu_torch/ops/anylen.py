@@ -27,8 +27,10 @@ The tables (chirp, Rader's permutations and kernel spectrum, the
 mixed-radix DFT matrix and twiddles) are built on the host in float64,
 the kernel spectra by a host numpy FFT, and cast to float32 once; never
 on the transform's path.  They are cached per (variant, n, pad,
-precision, device) with a hit/miss count (``CHIRP_CACHE_STATS``), so
-tables built for one device are never handed to a call on another.
+precision, device), lookups counted on
+``pifft_anylen_chirp_cache_total{result}`` while observability is
+armed, so tables built for one device are never handed to a call on
+another.
 The executors work on split float32 planes over the trailing axis,
 batched over the leading ones, and run where their planes lie.
 """
@@ -156,20 +158,18 @@ _CHIRP_CACHE: dict = {}
 #: the most cached table sets; past it the least recently used goes
 CHIRP_CACHE_MAX = 64
 
-#: lookups of the table cache by result, read by the tests (the
-#: reference counts them in its metrics as
-#: ``pifft_anylen_chirp_cache_total{result=...}``)
-CHIRP_CACHE_STATS = {"hit": 0, "miss": 0}
-
 
 def _cached_tables(key: tuple, build: Callable) -> tuple:
+    from ..obs import metrics
+
     with _CHIRP_LOCK:
         hit = _CHIRP_CACHE.pop(key, None)
         if hit is not None:
             _CHIRP_CACHE[key] = hit  # re-append: LRU recency
-        CHIRP_CACHE_STATS["hit" if hit is not None else "miss"] += 1
     if hit is not None:
+        metrics.inc("pifft_anylen_chirp_cache_total", result="hit")
         return hit
+    metrics.inc("pifft_anylen_chirp_cache_total", result="miss")
     val = build()
     with _CHIRP_LOCK:
         _CHIRP_CACHE[key] = val

@@ -64,6 +64,7 @@ import functools
 import torch
 
 from ..hw.inventory import sm_count
+from ..obs.spans import span as _obs_span
 from ..resilience.inject import maybe_fault
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
@@ -1537,11 +1538,14 @@ def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
     dev = xr.device
     lr = device_factors if separable else dense_long_range_tables
     xr, xi = _to_storage(xr, xi, storage)
-    yr, yi = sixstep(xr.reshape(R1, R2, tile), xi.reshape(R1, R2, tile),
-                     *lr(R1, R2 * tile, dev, storage),
-                     *lr(R2, tile, dev, storage),
-                     *flat_tables(tile, dev, storage), cb1=cb1, cb2=cb2,
-                     separable=separable)
+    with _obs_span("sixstep", cell={"n": n, "r1": R1, "r2": R2},
+                   tile=tile, cb1=cb1, cb2=cb2, annotate=True):
+        yr, yi = sixstep(xr.reshape(R1, R2, tile),
+                         xi.reshape(R1, R2, tile),
+                         *lr(R1, R2 * tile, dev, storage),
+                         *lr(R2, tile, dev, storage),
+                         *flat_tables(tile, dev, storage), cb1=cb1,
+                         cb2=cb2, separable=separable)
     return as_compute(yr).reshape(n), as_compute(yi).reshape(n)
 
 
@@ -1593,12 +1597,15 @@ def tube_cuda(sr, si, n: int, p: int):
     trailing axis of (..., s) planes, s = n/p.  Levels log2(p).. of the
     n-point plan are a standalone s-point plan (W_{n>>(k+l)} =
     W_{s>>l}), so each segment is one rql transform.  Segments shorter
-    than 128 take the stage tube, as the reference's tube_pallas does."""
+    than 128 take the stage tube, as the reference's tube_pallas does.
+    The kernel tube runs under the "tube" span that ``models.pi_fft``'s
+    tubes open (the stage tube opens its own)."""
     from ..models.pi_fft import tube
 
     if sr.shape[-1] < LANE:
         return tube(sr, si, n, p)
-    return fft_pi_layout_cuda_rql(sr, si)
+    with _obs_span("tube", cell={"n": n, "p": p}, annotate=True):
+        return fft_pi_layout_cuda_rql(sr, si)
 
 
 def pi_fft_pi_layout_cuda(xr, xi, p: int):

@@ -41,6 +41,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..obs import events
 from ..resilience import (
     CollectiveAborted,
     CollectiveTimeout,
@@ -50,7 +51,6 @@ from ..resilience import (
     supervise_collective,
 )
 from ..resilience.degrade import note_collective_escape
-from ..resilience.watchdog import emit
 from ..utils.device import as_plane, as_planes
 
 # ------------------------------------------------------ device health
@@ -65,7 +65,8 @@ def report_unhealthy(device, reason: str) -> None:
     from ..plans.core import warn
 
     _UNHEALTHY[str(device)] = str(reason)
-    emit("device_unhealthy", device=str(device), reason=str(reason)[:200])
+    events.emit("device_unhealthy", device=str(device),
+                reason=str(reason)[:200])
     warn(f"device {device} reported unhealthy ({reason}); resilient "
          f"sharded paths will escape to collective_free")
 
@@ -259,8 +260,8 @@ def run_with_escape(primary: Callable, escape: Callable, label: str,
     report.escaped = True
     report.degraded = True
     value = escape()
-    emit("collective_escape_completed", label=label, epoch=report.epoch,
-         waits=report.waits)
+    events.emit("collective_escape_completed", label=label,
+                epoch=report.epoch, waits=report.waits)
     return value, report
 
 
@@ -277,9 +278,10 @@ def stall_drill(entry: str, x, mesh, axis: str = "p",
     of the job must run the drill: the stall is injected on every
     one).  Returns this rank's ``{"healthy", "escaped"}`` outputs, both
     reports and the collective layer's event kinds during the stalled
-    run — what the multichip smoke, the tests and ``chip_smoke.py``
-    check."""
-    from ..resilience import watchdog
+    run (observability armed around it where it is off) — what the
+    multichip smoke, the tests and ``chip_smoke.py`` check."""
+    from .. import obs
+    from ..resilience.watchdog import recorded_kinds
     from . import collectives
     from .fft2d import fft2_sharded_resilient
     from .poisson3d import poisson_solve_sharded_resilient
@@ -287,16 +289,15 @@ def stall_drill(entry: str, x, mesh, axis: str = "p",
     run = {"fft2": fft2_sharded_resilient,
            "poisson": poisson_solve_sharded_resilient}[entry]
     healthy, rep_ok = run(x, mesh, axis)
-    events0 = len(watchdog.COLLECTIVE_EVENTS)
     calls0 = collectives.COLLECTIVE_CALLS
-    with inject("collective", "stall", stall_s=stall_s):
+    with obs.armed(), recorded_kinds() as kinds, \
+            inject("collective", "stall", stall_s=stall_s):
         escaped, rep = run(x, mesh, axis, deadline_s=deadline_s,
                            abort_waits=abort_waits)
     return {"healthy": healthy, "escaped": escaped,
             "report_ok": rep_ok.to_record(), "report": rep.to_record(),
             "collectives": collectives.COLLECTIVE_CALLS - calls0,
-            "events": [r["kind"] for r in
-                       watchdog.COLLECTIVE_EVENTS[events0:]]}
+            "events": kinds}
 
 
 def drill_rank(entry: str, x, drill: dict) -> dict:

@@ -50,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from ..obs import events, spans
 from ..resilience import (  # noqa: F401  (re-exports: rendezvous discipline)
     CollectiveAborted,
     CollectiveTimeout,
@@ -58,7 +59,6 @@ from ..resilience import (  # noqa: F401  (re-exports: rendezvous discipline)
     rendezvous_deadline_s,
     supervise_collective,
 )
-from ..resilience.watchdog import emit
 from .mesh import Mesh, launch_device, make_mesh
 
 #: the job's key-value store (set by init_distributed): the consensus's
@@ -123,9 +123,16 @@ def init_distributed(coordinator: Optional[str] = None,
     timeout = datetime.timedelta(seconds=timeout_s if timeout_s is not None
                                  else rendezvous_deadline_s())
     try:
-        store = _make_store(coordinator, num_processes, process_id, timeout)
-        dist.init_process_group(backend, store=store, rank=process_id,
-                                world_size=num_processes, timeout=timeout)
+        # the job-formation rendezvous is a collective region like any
+        # other: span it so a slow coordinator shows up named in the
+        # trace and the event stream
+        with spans.span("collective:init_distributed",
+                        processes=num_processes):
+            store = _make_store(coordinator, num_processes, process_id,
+                                timeout)
+            dist.init_process_group(backend, store=store, rank=process_id,
+                                    world_size=num_processes,
+                                    timeout=timeout)
     except Exception as e:
         from ..resilience import FaultKind, classify
 
@@ -136,8 +143,9 @@ def init_distributed(coordinator: Optional[str] = None,
                 f"{str(e)[:200]})") from e
         raise
     _STORE[0] = store
-    emit("distributed_init", coordinator=coordinator,
-         processes=num_processes, process_id=process_id, backend=backend)
+    events.emit("distributed_init", coordinator=coordinator,
+                processes=num_processes, process_id=process_id,
+                backend=backend)
     return True
 
 
@@ -188,26 +196,30 @@ def agree_on_fallback(label: str, reason: str = "",
         world, me = _job() if store is not None else (1, 0)
         processes = world if processes is None else processes
         rank = me if rank is None else rank
-    if store is None or processes <= 1:
-        emit("fallback_consensus", label=label, epoch=epoch, agreed=True,
-             processes=1, reason=str(reason)[:200])
+    with spans.span("collective:fallback_consensus", epoch=epoch,
+                    deadline_s=deadline):
+        if store is None or processes <= 1:
+            events.emit("fallback_consensus", label=label, epoch=epoch,
+                        agreed=True, processes=1,
+                        reason=str(reason)[:200])
+            return epoch
+        keys = [f"pifft/fallback/{epoch}/{r}" for r in range(processes)]
+        try:
+            store.set(keys[rank], f"{label}: {reason}"[:512])
+            store.wait(keys, datetime.timedelta(seconds=deadline))
+        except Exception as e:
+            events.emit("fallback_consensus", label=label, epoch=epoch,
+                        agreed=False, processes=processes,
+                        error=f"{type(e).__name__}: {str(e)[:200]}")
+            raise HostDesyncError(
+                f"fallback consensus for epoch {epoch} at {label} did not "
+                f"form within {deadline:g}s — ranks may be split between "
+                f"the all_to_all and collective_free paths "
+                f"({type(e).__name__}: {str(e)[:200]})") from e
+        events.emit("fallback_consensus", label=label, epoch=epoch,
+                    agreed=True, processes=processes,
+                    reason=str(reason)[:200])
         return epoch
-    keys = [f"pifft/fallback/{epoch}/{r}" for r in range(processes)]
-    try:
-        store.set(keys[rank], f"{label}: {reason}"[:512])
-        store.wait(keys, datetime.timedelta(seconds=deadline))
-    except Exception as e:
-        emit("fallback_consensus", label=label, epoch=epoch, agreed=False,
-             processes=processes,
-             error=f"{type(e).__name__}: {str(e)[:200]}")
-        raise HostDesyncError(
-            f"fallback consensus for epoch {epoch} at {label} did not "
-            f"form within {deadline:g}s — ranks may be split between the "
-            f"all_to_all and collective_free paths ({type(e).__name__}: "
-            f"{str(e)[:200]})") from e
-    emit("fallback_consensus", label=label, epoch=epoch, agreed=True,
-         processes=processes, reason=str(reason)[:200])
-    return epoch
 
 
 # ------------------------------------------------------- local launcher
@@ -335,15 +347,17 @@ def call_record(fn, *args, **kwargs) -> dict:
     (``out``), its seconds on the host clock, the result's move to the
     host included (``s``), the collectives it dispatched
     (``collectives``) and the records the collective layer made
-    (``events``, the kinds of ``watchdog.COLLECTIVE_EVENTS``)."""
-    from ..resilience import watchdog
+    (``events``, the kinds ``watchdog.recorded_kinds`` reads from the
+    observability stream, armed around the call where it is off)."""
+    from .. import obs
+    from ..resilience.watchdog import recorded_kinds
     from . import collectives
 
     calls0 = collectives.COLLECTIVE_CALLS
-    events0 = len(watchdog.COLLECTIVE_EVENTS)
-    t0 = time.perf_counter()
-    out = to_host(fn(*args, **kwargs))
-    return {"out": out, "s": time.perf_counter() - t0,
+    with obs.armed(), recorded_kinds() as kinds:
+        t0 = time.perf_counter()
+        out = to_host(fn(*args, **kwargs))
+        s = time.perf_counter() - t0
+    return {"out": out, "s": s,
             "collectives": collectives.COLLECTIVE_CALLS - calls0,
-            "events": [r["kind"] for r in
-                       watchdog.COLLECTIVE_EVENTS[events0:]]}
+            "events": kinds}

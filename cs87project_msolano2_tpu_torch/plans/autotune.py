@@ -150,31 +150,44 @@ def tune(key: PlanKey, *, force: bool = False,
         raise TuningUnavailable(f"no tunable candidates for {key.token()}")
     timer = timer or functools.partial(default_timer, device=device)
 
-    # obs: not ported (the reference wraps the race in an "autotune"
-    # span and counts each candidate's fate)
+    from ..obs import metrics, spans
+
     results = []
-    for variant, params in cands:
-        label = f"{variant} {params}"
-        try:
-            fn = ladder.build_executor(key, variant, params)
-            ms = float(timer(fn, key))
-        except Exception as e:
-            if sticky(e):
-                # the context is poisoned: no later candidate can run,
-                # and recording this as a rejection would crown
-                # whichever ran first
-                raise
-            # the FaultKind leads the reason so a race record doubles as
-            # a fault-taxonomy record (capacity refusals vs permanent
-            # infeasibility)
-            reason = (f"{classify(e).value} "
-                      f"{type(e).__name__}: {str(e)[:200]}")
+    with spans.span("autotune", cell={"n": key.n, "layout": key.layout},
+                    candidates=len(cands), precision=key.precision):
+        for variant, params in cands:
+            # precision is a raced axis: a pinned per-candidate mode
+            # labels the fate counters so a race record shows which
+            # STORAGE the winner actually beat
+            mode = params.get("precision") or key.precision
+            label = f"{variant} {params}"
+            try:
+                fn = ladder.build_executor(key, variant, params)
+                ms = float(timer(fn, key))
+            except Exception as e:
+                if sticky(e):
+                    # the context is poisoned: no later candidate can
+                    # run, and recording this as a rejection would crown
+                    # whichever ran first
+                    raise
+                # the FaultKind leads the reason so a race record
+                # doubles as a fault-taxonomy record (capacity refusals
+                # vs permanent infeasibility)
+                fault = classify(e).value
+                reason = f"{fault} {type(e).__name__}: {str(e)[:200]}"
+                results.append(CandidateResult(variant, dict(params),
+                                               "rejected", None, reason))
+                metrics.inc("pifft_autotune_candidates_total",
+                            status="rejected", kind=fault,
+                            precision=mode)
+                _log(verbose,
+                     f"# plan candidate {label} rejected: {reason}")
+                continue
             results.append(CandidateResult(variant, dict(params),
-                                           "rejected", None, reason))
-            _log(verbose, f"# plan candidate {label} rejected: {reason}")
-            continue
-        results.append(CandidateResult(variant, dict(params), "timed", ms))
-        _log(verbose, f"# plan candidate {label}: {ms:.4f} ms")
+                                           "timed", ms))
+            metrics.inc("pifft_autotune_candidates_total",
+                        status="accepted", kind="timed", precision=mode)
+            _log(verbose, f"# plan candidate {label}: {ms:.4f} ms")
 
     timed = [r for r in results if r.status == "timed"]
     if not timed:
@@ -192,7 +205,12 @@ def tune(key: PlanKey, *, force: bool = False,
                 source="tuned", ms=best.ms, tuning=results,
                 device=str(device))
     cache.store(plan, persist=persist)
-    # obs: not ported (the reference emits a "plan_tuned" event)
+    from ..obs import events
+
+    events.emit("plan_tuned",
+                cell={"n": key.n, "variant": best.variant},
+                ms=best.ms, params=dict(best.params),
+                candidates=[r.to_record() for r in results])
     _log(verbose, f"# plan tuned: {key.token()} -> {best.variant} "
                   f"{best.params} ({best.ms:.4f} ms)")
     return plan

@@ -154,20 +154,28 @@ def race_failed(key: PlanKey) -> bool:
 
 def lookup(key: PlanKey) -> Optional[Plan]:
     """Memory first, then disk.  Returns None on a full miss — the
-    caller decides between static defaults and tuning."""
-    # obs: not ported (the reference counts hits and misses per level)
+    caller decides between static defaults and tuning.  Hit/miss
+    traffic is counted per level in the observability registry
+    (``pifft_plan_cache_{hits,misses}_total``), a no-op while that
+    subsystem is disabled."""
+    from ..obs import metrics
+
     with _LOCK:
         hit = _MEM.get(key)
         if hit is not None:
             _MEM.move_to_end(key)
+            metrics.inc("pifft_plan_cache_hits_total", level="memory")
             return hit
     rec = _load_store(key.device_kind).get(key.token())
     if rec is None:
+        metrics.inc("pifft_plan_cache_misses_total")
         return None
     try:
         plan = Plan.from_record(key, rec, source="cache")
     except (KeyError, TypeError, ValueError):
+        metrics.inc("pifft_plan_cache_misses_total")
         return None
+    metrics.inc("pifft_plan_cache_hits_total", level="disk")
     memoize(plan)
     return plan
 

@@ -41,8 +41,15 @@ SCHEMA_VERSION = 1
 def warn(msg: str) -> None:
     """One-line diagnostic to stderr, ``# ``-prefixed like the tuner's
     log lines: the deliberate-swallow sites (a store that cannot be
-    written, an opted-in race that failed) say so here."""
+    written, an opted-in race that failed) say so here.
+
+    Every warn is also mirrored into the observability event stream
+    (kind ``warn``) when that subsystem is enabled; the stderr line is
+    printed either way."""
     print(f"# {msg}", file=sys.stderr)
+    from ..obs import events
+
+    events.emit("warn", msg=msg)
 
 
 def current_device_kind(device) -> str:

@@ -35,7 +35,6 @@ from __future__ import annotations
 from .degrade import (  # noqa: F401
     COLLECTIVE_FREE_RUNG,
     DEGRADE_CHAIN,
-    DEMOTION_STATS,
     note_collective_escape,
     promote_precision,
     resilient_executor,

@@ -18,10 +18,11 @@ ones, re-raise there at once.  A rung that cannot serve the key at all
 (fourstep past its shared-memory bound, where sixstep exists because
 fourstep cannot run) counts as failing and the walk goes on.  Every
 demotion is recorded on the plan (``plan.degraded`` /
-``plan.demotions``), memoized in the in-process plan cache only, and
-announced through ``plans.core.warn``, so a degraded run is never taken
-for a healthy one; bench rows carry ``degraded: true`` and the rung that
-served.
+``plan.demotions``), memoized in the in-process plan cache only,
+counted on ``pifft_demotions_total{to}`` with a ``demotion`` event while
+observability is armed, and announced through ``plans.core.warn``, so a
+degraded run is never taken for a healthy one; bench rows carry
+``degraded: true`` and the rung that served.
 
 What is never demoted:
 
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+from ..obs import events, metrics
 from .taxonomy import FaultKind, KernelBuildError, classify, sticky
 
 #: the demotion ladder, weakest demand last
@@ -75,12 +77,6 @@ _RQL_PARAMS = {"tile": None, "cb": None}
 #: automatic blocking, so the rung either runs or raises its feasibility
 #: ValueError and the walk goes on
 _FOURSTEP_PARAMS = {"tile": None, "cb": None, "separable": True}
-
-#: demotions of this process by the rung that served them (obs: not
-#: ported — the reference counts pifft_demotions_total{to} and emits a
-#: "demotion" event)
-DEMOTION_STATS: dict = {}
-
 
 def _rungs_after(variant: str) -> tuple:
     """The chain below `variant`, a ladder variant or a chain rung a
@@ -249,7 +245,9 @@ def _note_demotion(plan, from_variant: str, rung: str,
         record["skipped"] = list(skipped)
     plan.degraded = True
     plan.demotions.append(record)
-    DEMOTION_STATS[rung] = DEMOTION_STATS.get(rung, 0) + 1
+    metrics.inc("pifft_demotions_total", to=rung)
+    events.emit("demotion",
+                cell={"n": plan.key.n, "variant": from_variant}, **record)
     warn(f"plan DEGRADED {from_variant} -> {rung} for "
          f"{plan.key.token()} ({kind.value}: {record['reason']})"
          + (f" [also failed: {'; '.join(skipped)}]" if skipped else "")
@@ -295,7 +293,10 @@ def promote_precision(plan, observed_err: float,
     plan.demotions.append(record)
     plan.params = dict(plan.params, precision=nxt)
     plan._fn = None  # rebuild the executor at the promoted mode
-    DEMOTION_STATS[rung] = DEMOTION_STATS.get(rung, 0) + 1
+    metrics.inc("pifft_demotions_total", to=rung)
+    events.emit("demotion",
+                cell={"n": plan.key.n, "variant": plan.variant},
+                **record)
     warn(f"plan PROMOTED {mode} -> {nxt} (precision, UP) for "
          f"{plan.key.token()} ({record['reason']}) — accuracy is "
          f"restored; the tuned bytes-halving is not")
@@ -314,7 +315,6 @@ def note_collective_escape(label: str, exc: BaseException,
     not to the tuned kernel."""
     from ..plans import cache
     from ..plans.core import warn
-    from .watchdog import emit
 
     record = {
         "from": "all_to_all",
@@ -327,9 +327,8 @@ def note_collective_escape(label: str, exc: BaseException,
         plan.degraded = True
         plan.demotions.append(dict(record))
         cache.memoize(plan)
-    DEMOTION_STATS[COLLECTIVE_FREE_RUNG] = \
-        DEMOTION_STATS.get(COLLECTIVE_FREE_RUNG, 0) + 1
-    emit("demotion", cell={"site": label}, **record)
+    metrics.inc("pifft_demotions_total", to=COLLECTIVE_FREE_RUNG)
+    events.emit("demotion", cell={"site": label}, **record)
     warn(f"collective ESCAPED all_to_all -> {COLLECTIVE_FREE_RUNG} at "
          f"{label} ({kind.value}: {record['reason']}) — per-rank local "
          f"work over the whole input; results stay bit-identical, the "

@@ -19,6 +19,7 @@ import sys
 import time
 from typing import Callable, Optional
 
+from ..obs import events, metrics
 from .taxonomy import FaultKind, classify
 
 #: attempts per kind where the policy does not override them
@@ -83,11 +84,16 @@ def call_with_retry(fn: Callable, *args,
         except Exception as e:
             kind = classify(e)
             used[kind] = used.get(kind, 0) + 1
-            # obs: not ported (the reference emits "retry_exhausted" and
-            # "retry" events and counts pifft_retries_total{kind})
             if used[kind] >= policy.attempts_for(kind):
+                events.emit("retry_exhausted", label=label,
+                            kind=kind.value, attempts=used[kind],
+                            error=f"{type(e).__name__}: {str(e)[:200]}")
                 raise
             pause = policy.backoff_s(used[kind], rng())
+            metrics.inc("pifft_retries_total", kind=kind.value)
+            events.emit("retry", label=label, kind=kind.value,
+                        attempt=used[kind], pause_s=round(pause, 3),
+                        error=f"{type(e).__name__}: {str(e)[:200]}")
             if on_retry is not None:
                 on_retry(e, used[kind], pause)
             else:

@@ -36,13 +36,12 @@ arm time.  A non-numeric, non-finite or non-positive value warns and
 serves the default — or, under ``strict=True``, raises ``ValueError``
 at arm time.
 
-The reference's obs events and metrics have no port yet: what it emits
-lands in :data:`COLLECTIVE_EVENTS` (``{"kind": ..., "payload": {...}}``
-records, the reference's event kinds and payloads) and what it counts in
-:data:`COLLECTIVE_STATS` (metric name -> count), as
-``degrade.DEMOTION_STATS`` stands in for ``pifft_demotions_total``.
-The parallel layer (``parallel/multihost.py``, ``parallel/escape.py``)
-records through :func:`emit` and :func:`count` too.
+Every region runs under a ``collective:<label>`` span; fires,
+recoveries and aborts count on ``pifft_watchdog_fires_total``,
+``pifft_collective_recoveries_total`` and
+``pifft_collective_aborts_total`` (each by ``label``), and the
+heartbeats, recoveries, abandonments and late completions are events of
+the observability stream (all no-ops while it is disarmed).
 """
 
 from __future__ import annotations
@@ -53,6 +52,7 @@ import threading
 from contextlib import contextmanager
 from typing import Callable, Optional
 
+from ..obs import events, metrics, spans
 from .inject import maybe_fault
 from .taxonomy import CollectiveAborted, CollectiveTimeout
 
@@ -64,32 +64,26 @@ DEFAULT_RENDEZVOUS_DEADLINE_S = 60.0
 #: (``PIFFT_COLLECTIVE_ABORT_WAITS`` overrides)
 DEFAULT_ABORT_WAITS = 2
 
-#: the records the reference emits as obs events, in order (obs: not
-#: ported)
-COLLECTIVE_EVENTS: list = []
-#: the counts the reference keeps as obs metrics, by metric name (obs:
-#: not ported)
-COLLECTIVE_STATS: dict = {}
-_RECORD_LOCK = threading.Lock()
+#: the event kinds of the collective layer: the watchdog's, the
+#: consensus's and the escape's (its transport demotion included)
+COLLECTIVE_KINDS = frozenset((
+    "collective_heartbeat", "collective_recovered", "collective_abandoned",
+    "collective_timeout", "collective_late_completion", "distributed_init",
+    "fallback_consensus", "device_unhealthy", "demotion",
+    "collective_escape_completed"))
 
 
-def emit(event: str, /, **payload) -> None:
-    """Record one event of the collective layer."""
-    with _RECORD_LOCK:
-        COLLECTIVE_EVENTS.append({"kind": event, "payload": payload})
-
-
-def count(metric: str) -> None:
-    """Add one to a counter of the collective layer."""
-    with _RECORD_LOCK:
-        COLLECTIVE_STATS[metric] = COLLECTIVE_STATS.get(metric, 0) + 1
-
-
-def reset_records() -> None:
-    """Forget every recorded event and count."""
-    with _RECORD_LOCK:
-        COLLECTIVE_EVENTS.clear()
-        COLLECTIVE_STATS.clear()
+@contextmanager
+def recorded_kinds():
+    """Yield a list that, when the block ends, holds the kinds of the
+    collective layer's events emitted inside it, in order: what a drill
+    reports as its records.  Events are kept only while observability
+    is armed, so the caller arms it (``obs.armed()``)."""
+    seq0 = events._STATE.seq
+    kinds: list = []
+    yield kinds
+    kinds.extend(r["kind"] for r in events.snapshot()
+                 if r["seq"] >= seq0 and r["kind"] in COLLECTIVE_KINDS)
 
 
 def _warn(msg: str) -> None:
@@ -219,9 +213,9 @@ def active_regions() -> list:
 def _emit_recovered(label: str, fired: int, deadline: float) -> None:
     """A stuck-then-unstuck region: a ``collective_recovered`` record
     with its deadline-wait count, and a warn line."""
-    count("pifft_collective_recoveries_total")
-    emit("collective_recovered", label=label, waits=fired,
-         deadline_s=deadline)
+    metrics.inc("pifft_collective_recoveries_total", label=label)
+    events.emit("collective_recovered", label=label, waits=fired,
+                deadline_s=deadline)
     _warn(f"collective_recovered: {label} completed after >= "
           f"{fired * deadline:g}s ({fired} x {deadline:g}s deadline "
           f"waits — stuck-then-unstuck; raise "
@@ -248,7 +242,7 @@ def collective_watchdog(label: str, deadline_s: float | None = None,
     def watch():
         while not done.wait(deadline):
             report.fired += 1
-            count("pifft_watchdog_fires_total")
+            metrics.inc("pifft_watchdog_fires_total", label=label)
             _warn(f"CollectiveTimeout: {label} still waiting after "
                   f">= {report.fired * deadline:g}s (deadline "
                   f"{deadline:g}s; PIFFT_RENDEZVOUS_DEADLINE_S "
@@ -259,15 +253,20 @@ def collective_watchdog(label: str, deadline_s: float | None = None,
     _register(report)
     thread.start()
     try:
-        yield report
+        # the watched region shows up named in the trace and the event
+        # stream, with how many deadlines it overran
+        with spans.span(f"collective:{label}", deadline_s=deadline) as sp:
+            yield report
+            sp.set(fired=report.fired)
     finally:
         done.set()
         thread.join(timeout=deadline + 1.0)
         _unregister(report)
     if report.fired:
         if strict:
-            emit("collective_timeout", label=label, fired=report.fired,
-                 deadline_s=deadline, recovered=False)
+            events.emit("collective_timeout", label=label,
+                        fired=report.fired, deadline_s=deadline,
+                        recovered=False)
             raise CollectiveTimeout(
                 f"{label} exceeded its rendezvous deadline "
                 f"({report.fired} x {deadline:g}s)")
@@ -318,42 +317,48 @@ def supervise_collective(fn: Callable, label: str,
         finally:
             done.set()
             if "value" in box and token.cancelled():
-                emit("collective_late_completion", label=label,
-                     deadline_s=deadline)
+                events.emit("collective_late_completion", label=label,
+                            deadline_s=deadline)
 
     worker = threading.Thread(target=work,
                               name=f"pifft-collective-{label}",
                               daemon=True)
     _register(report)
     try:
-        worker.start()
-        while not done.wait(deadline):
-            report.fired += 1
-            count("pifft_watchdog_fires_total")
-            emit("collective_heartbeat", label=label, waits=report.fired,
-                 deadline_s=deadline, abort_waits=abort_waits)
-            _warn(f"CollectiveTimeout: {label} still waiting after "
-                  f">= {report.fired * deadline:g}s (deadline "
-                  f"{deadline:g}s, abort after {abort_waits} "
-                  f"waits){_straggler_note(report)}")
-            if report.fired >= abort_waits:
-                report.aborted = True
-                token.cancel(f"{label} overran {report.fired} x "
-                             f"{deadline:g}s deadline waits")
-                count("pifft_collective_aborts_total")
-                emit("collective_abandoned", label=label,
-                     waits=report.fired, deadline_s=deadline)
-                _warn(f"collective ABANDONED: {label} after "
-                      f"{report.fired} x {deadline:g}s — supervisor "
-                      f"aborting; the wedged worker is left behind "
-                      f"(daemon) and a late completion will be recorded")
-                aborted = CollectiveAborted(
-                    f"{label} abandoned after {report.fired} x "
-                    f"{deadline:g}s deadline waits "
-                    f"(abort_waits={abort_waits}; "
-                    f"PIFFT_COLLECTIVE_ABORT_WAITS overrides)")
-                aborted.report = report
-                raise aborted
+        with spans.span(f"collective:{label}", deadline_s=deadline,
+                        supervised=True) as sp:
+            worker.start()
+            while not done.wait(deadline):
+                report.fired += 1
+                metrics.inc("pifft_watchdog_fires_total", label=label)
+                events.emit("collective_heartbeat", label=label,
+                            waits=report.fired, deadline_s=deadline,
+                            abort_waits=abort_waits)
+                _warn(f"CollectiveTimeout: {label} still waiting after "
+                      f">= {report.fired * deadline:g}s (deadline "
+                      f"{deadline:g}s, abort after {abort_waits} "
+                      f"waits){_straggler_note(report)}")
+                if report.fired >= abort_waits:
+                    report.aborted = True
+                    token.cancel(f"{label} overran {report.fired} x "
+                                 f"{deadline:g}s deadline waits")
+                    metrics.inc("pifft_collective_aborts_total",
+                                label=label)
+                    events.emit("collective_abandoned", label=label,
+                                waits=report.fired, deadline_s=deadline)
+                    _warn(f"collective ABANDONED: {label} after "
+                          f"{report.fired} x {deadline:g}s — supervisor "
+                          f"aborting; the wedged worker is left behind "
+                          f"(daemon) and a late completion will be "
+                          f"recorded")
+                    aborted = CollectiveAborted(
+                        f"{label} abandoned after {report.fired} x "
+                        f"{deadline:g}s deadline waits "
+                        f"(abort_waits={abort_waits}; "
+                        f"PIFFT_COLLECTIVE_ABORT_WAITS overrides)")
+                    aborted.report = report
+                    raise aborted
+            sp.set(fired=report.fired, aborted=report.aborted)
     finally:
         _unregister(report)
     if "error" in box:

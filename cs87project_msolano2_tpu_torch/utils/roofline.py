@@ -24,14 +24,20 @@ The spectral half (the reference's roofline.py:169-263) models what a
 spectral OPERATION must move when its half-spectrum never leaves the
 card between the paired transforms (``spectral_min_hbm_bytes``), what
 an unfused one moves on top (``spectral_hbm_bytes``), and meters each
-op execution (``charge_spectral_traffic``) on :data:`HBM_METER`, the
-stand-in for the reference's obs counters under their series names.
+op execution (``charge_spectral_traffic``).
+
+The meter is the observability registry: ``pifft_hbm_bytes_total``,
+``pifft_hbm_min_bytes_total`` and ``pifft_apps_hbm_bytes_total{op}``
+count bytes, and ``pifft_roofline_util`` holds the last share of the
+data-sheet bandwidth, only while observability is armed (like every
+metric: per armed run).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
+
+from ..obs import metrics
 
 #: peak device-memory bandwidth, bytes/s, by a substring of the CUDA
 #: device name (NVIDIA data sheets; "H100 80GB HBM3" is how the SXM part
@@ -144,22 +150,45 @@ def fft_hbm_bytes(n: int, carry_passes: int = 0, domain: str = "c2c",
         + carry_passes * carry_unit
 
 
+def _n_label(n: int) -> str:
+    """The gauge's n label: ``2^K`` for powers of two, the exact length
+    otherwise."""
+    n = max(n, 1)
+    if not (n & (n - 1)):
+        return f"2^{n.bit_length() - 1}"
+    return str(n)
+
+
 def roofline_utilization(n: int, ms: float, device_name: str,
                          domain: str = "c2c",
                          storage_bytes: int = 4,
-                         peak: Optional[float] = None) -> Optional[float]:
+                         peak: Optional[float] = None,
+                         carry_passes: int = 0) -> Optional[float]:
     """The achieved share of the card's data-sheet bandwidth (or of
     `peak` bytes/s where given: another backend's ceiling) of an n-point
     transform taking `ms` a call, charging the minimum traffic of its
     domain and storage (``fft_min_hbm_bytes``), so the figure reads
-    against the 1/(1+p) ceiling of the path's carry passes (the
-    reference's ``roofline_utilization``, without its metered counter).
-    None for a card the table does not know or a time that is not
-    positive."""
+    against the 1/(1+p) ceiling of the path's carry passes.  A positive
+    `ms` meters the call's plan-declared traffic (``fft_hbm_bytes`` with
+    `carry_passes`) on ``pifft_hbm_bytes_total`` and its
+    floor on ``pifft_hbm_min_bytes_total``; the share lands on the
+    ``pifft_roofline_util`` gauge.  None for a card the table does not
+    know or a time that is not positive."""
+    if ms is not None and ms > 0.0:
+        metrics.inc("pifft_hbm_min_bytes_total",
+                    fft_min_hbm_bytes(n, domain, storage_bytes))
+        metrics.inc("pifft_hbm_bytes_total",
+                    fft_hbm_bytes(n, carry_passes, domain,
+                                  storage_bytes))
     peak = peak or peak_bytes_per_s(device_name)
     if peak is None or ms is None or ms <= 0.0:
         return None
-    return fft_min_hbm_bytes(n, domain, storage_bytes) / (ms * 1e-3) / peak
+    util = fft_min_hbm_bytes(n, domain, storage_bytes) / (ms * 1e-3) / peak
+    # the storage label keeps a bf16 reading from overwriting its fp32
+    # sibling's at the same {domain, n}
+    metrics.set_gauge("pifft_roofline_util", util, domain=domain,
+                      n=_n_label(n), storage=f"{storage_bytes}B")
+    return util
 
 
 def roofline_ceiling(carry_passes: Optional[int]) -> Optional[float]:
@@ -206,36 +235,6 @@ def bound_ms(nbytes: int, flops: int, device_name: str,
 #: composes
 SPECTRAL_OPS = ("fft", "conv", "corr", "solve")
 
-#: the bytes meter, series name -> {sorted label items: value}: the
-#: stand-in for the reference's obs counters ``pifft_hbm_bytes_total``,
-#: ``pifft_hbm_min_bytes_total`` and ``pifft_apps_hbm_bytes_total{op}``
-#: (obs: not ported), always on
-HBM_METER: dict = {}
-_METER_LOCK = threading.Lock()
-
-
-def meter_inc(name: str, value: float, **labels) -> None:
-    """Add `value` to the series `name` with `labels`."""
-    series = tuple(sorted(labels.items()))
-    with _METER_LOCK:
-        by_labels = HBM_METER.setdefault(name, {})
-        by_labels[series] = by_labels.get(series, 0.0) + float(value)
-
-
-def meter_value(name: str, **labels) -> float:
-    """The value of one series (0 when absent), as the reference's
-    ``metrics.counter_value``: the labels select exactly one series."""
-    with _METER_LOCK:
-        return HBM_METER.get(name, {}).get(tuple(sorted(labels.items())),
-                                           0.0)
-
-
-def meter_reset() -> None:
-    """Drop every series (tests)."""
-    with _METER_LOCK:
-        HBM_METER.clear()
-
-
 def spectral_min_hbm_bytes(op: str, n: int, storage_bytes: int = 4) -> int:
     """The fused floor of one n-point spectral op on real input:
     conv/corr read the signal (n), read the cached kernel half-spectrum
@@ -263,16 +262,17 @@ def spectral_hbm_bytes(op: str, n: int, host_round_trips: int = 0,
 
 def charge_spectral_traffic(op: str, n: int, host_round_trips: int = 0,
                             storage_bytes: int = 4, count: int = 1) -> int:
-    """Meter `count` spectral-op executions on :data:`HBM_METER`: the
-    op's traffic on ``pifft_hbm_bytes_total`` and, labelled by op, on
+    """Meter `count` spectral-op executions: the op's traffic on
+    ``pifft_hbm_bytes_total`` and, labelled by op, on
     ``pifft_apps_hbm_bytes_total``, its floor on
-    ``pifft_hbm_min_bytes_total``.  Returns the charged bytes."""
+    ``pifft_hbm_min_bytes_total`` (no-ops while observability is
+    disarmed).  Returns the charged bytes."""
     charged = count * spectral_hbm_bytes(op, n, host_round_trips,
                                          storage_bytes)
-    meter_inc("pifft_hbm_min_bytes_total",
-              count * spectral_min_hbm_bytes(op, n, storage_bytes))
-    meter_inc("pifft_hbm_bytes_total", charged)
-    meter_inc("pifft_apps_hbm_bytes_total", charged, op=op)
+    metrics.inc("pifft_hbm_min_bytes_total",
+                count * spectral_min_hbm_bytes(op, n, storage_bytes))
+    metrics.inc("pifft_hbm_bytes_total", charged)
+    metrics.inc("pifft_apps_hbm_bytes_total", charged, op=op)
     return charged
 
 
@@ -283,10 +283,14 @@ def spectral_roofline_utilization(op: str, n: int, ms: float,
                                   ) -> Optional[float]:
     """The share of the card's data-sheet bandwidth (or of `peak`) that
     one fused spectral op taking `ms` a call reaches on its fused floor
-    (the bench conv rows' figure).  Meters nothing: the op's execution
-    already charged its traffic.  None for a card the table does not
-    know or a time that is not positive."""
+    (the bench conv rows' figure), set on the ``pifft_roofline_util``
+    gauge.  Meters no bytes: the op's execution already charged its
+    traffic.  None for a card the table does not know or a time that is
+    not positive."""
     peak = peak or peak_bytes_per_s(device_name)
     if peak is None or ms is None or ms <= 0.0:
         return None
-    return spectral_min_hbm_bytes(op, n, storage_bytes) / (ms * 1e-3) / peak
+    util = spectral_min_hbm_bytes(op, n, storage_bytes) / (ms * 1e-3) / peak
+    metrics.set_gauge("pifft_roofline_util", util, op=op, n=_n_label(n),
+                      storage=f"{storage_bytes}B")
+    return util

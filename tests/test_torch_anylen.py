@@ -17,8 +17,9 @@ from cs87project_msolano2_tpu.ops import anylen as ref_anylen
 from cs87project_msolano2_tpu.plans import cache as ref_cache
 from cs87project_msolano2_tpu.plans import ladder as ref_ladder
 from cs87project_msolano2_tpu.plans.core import PlanKey as RefPlanKey
-from cs87project_msolano2_tpu_torch import plans
+from cs87project_msolano2_tpu_torch import obs, plans
 from cs87project_msolano2_tpu_torch.models.fft import fft, ifft
+from cs87project_msolano2_tpu_torch.obs import metrics as obs_metrics
 from cs87project_msolano2_tpu_torch.models.real import (
     irfft_planes_fast,
     rfft_planes_fast,
@@ -246,25 +247,36 @@ def test_mixed_pads_recurse_one_level():
 
 
 def test_chirp_cache_hits():
+    """The table cache's lookups on
+    ``pifft_anylen_chirp_cache_total{result}``, obs armed around exactly
+    the counted calls."""
+    def count(result):
+        return obs_metrics.counter_value("pifft_anylen_chirp_cache_total",
+                                         result=result)
+
     anylen.chirp_cache_clear()
-    before = dict(anylen.CHIRP_CACHE_STATS)
-    a = anylen.bluestein_tables(999, 2048, device="cpu")
-    b = anylen.bluestein_tables(999, 2048, device="cpu")
-    assert a is b
-    assert anylen.CHIRP_CACHE_STATS["miss"] - before["miss"] == 1
-    assert anylen.CHIRP_CACHE_STATS["hit"] - before["hit"] == 1
-    # the device is part of the key: no table crosses devices
-    c = anylen.bluestein_tables(999, 2048, device="meta")
-    assert c is not a and c[0].device.type == "meta"
-    assert anylen.CHIRP_CACHE_STATS["miss"] - before["miss"] == 2
-    # an executor resolves its tables once per device, not per call
-    key = plans.make_key(999, device="cpu")
-    fn = ladder.build_executor(key, "bluestein", {"pad": 2048})
-    x = torch.zeros(999)
-    hits = anylen.CHIRP_CACHE_STATS["hit"]
-    fn(x, x)
-    fn(x, x)
-    assert anylen.CHIRP_CACHE_STATS["hit"] - hits == 1
+    obs.enable()
+    try:
+        a = anylen.bluestein_tables(999, 2048, device="cpu")
+        b = anylen.bluestein_tables(999, 2048, device="cpu")
+        assert a is b
+        assert count("miss") == 1
+        assert count("hit") == 1
+        # the device is part of the key: no table crosses devices
+        c = anylen.bluestein_tables(999, 2048, device="meta")
+        assert c is not a and c[0].device.type == "meta"
+        assert count("miss") == 2
+        # an executor resolves its tables once per device, not per call
+        key = plans.make_key(999, device="cpu")
+        fn = ladder.build_executor(key, "bluestein", {"pad": 2048})
+        x = torch.zeros(999)
+        hits = count("hit")
+        fn(x, x)
+        fn(x, x)
+        assert count("hit") - hits == 1
+    finally:
+        obs.disable()
+        obs_metrics.reset()
 
 
 # --- ladder routing, against the reference -------------------------------

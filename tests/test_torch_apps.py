@@ -4,8 +4,8 @@ case against the reference's ``tests/test_apps.py`` (TestSpectral,
 TestFusionMeter, TestOverlapSave): the same seeded numpy inputs go
 through the reference's function and the port's (``device="cpu"``: the
 kernels' plain versions), each output held to numpy's oracle and to the
-reference's within TOL.  The bytes meter charges what the reference's
-armed obs counters charge for the same calls; the spectral byte models
+reference's within TOL.  The port's armed bytes meter charges what the
+reference's armed obs counters charge for the same calls; the spectral byte models
 and the block chooser equal the reference's; the op executor's rungs
 serve CPU planes and its library rungs refuse card planes; the ``apps``
 CLI's smokes and demo exit 0; an AST guard stands in for the
@@ -27,7 +27,9 @@ from cs87project_msolano2_tpu.apps import stream as ref_stream
 from cs87project_msolano2_tpu.obs import metrics as ref_metrics
 from cs87project_msolano2_tpu.utils import roofline as ref_roofline
 from cs87project_msolano2_tpu_torch.apps import cli as apps_cli
+from cs87project_msolano2_tpu_torch import obs as port_obs
 from cs87project_msolano2_tpu_torch.apps import pde, spectral, stream
+from cs87project_msolano2_tpu_torch.obs import metrics as port_metrics
 from cs87project_msolano2_tpu_torch.utils import roofline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,29 +62,30 @@ def held(got, ref_fn_out, exact):
 
 @pytest.fixture
 def obs_armed():
-    """The reference's obs switched on for the test (its own fixture),
-    its counters dropped after: disarming keeps them, and a later test
-    file in the same worker (``tests/test_obs.py``) holds the disarmed
-    registry empty."""
-    owned = not obs.enabled()
-    if owned:
-        obs.enable()
+    """Both packages' obs switched on for the test (the reference's own
+    fixture), their counters dropped after: disarming keeps them, and a
+    later test file in the same worker (``tests/test_obs.py``) holds the
+    disarmed registry empty."""
+    owned = [o for o in (obs, port_obs) if not o.enabled()]
+    for o in owned:
+        o.enable()
     yield
-    if owned:
-        obs.disable()
-        ref_metrics.reset()
+    for o in owned:
+        o.disable()
+    ref_metrics.reset()
+    port_metrics.reset()
 
 
 def meter_deltas(port_call, ref_call, ops):
     """{series: (port delta, reference delta)} of one call each."""
     names = [(s, {}) for s in SERIES] + [
         ("pifft_apps_hbm_bytes_total", {"op": op}) for op in ops]
-    before = [(roofline.meter_value(s, **lb), ref_metrics.counter_value(
-        s, **lb)) for s, lb in names]
+    before = [(port_metrics.counter_value(s, **lb),
+               ref_metrics.counter_value(s, **lb)) for s, lb in names]
     port_call()
     ref_call()
     return {(s, tuple(lb.items())): (
-        roofline.meter_value(s, **lb) - b[0],
+        port_metrics.counter_value(s, **lb) - b[0],
         ref_metrics.counter_value(s, **lb) - b[1])
         for (s, lb), b in zip(names, before)}
 
@@ -157,20 +160,25 @@ class TestSpectral:
             spectral.circular_conv(np.zeros(1, np.float32),
                                    np.zeros(1, np.float32), device=CPU)
 
-    def test_kernel_spectrum_cache_one_forward_transform(self):
+    def test_kernel_spectrum_cache_one_forward_transform(self, obs_armed):
+        def stats():
+            return {r: port_metrics.counter_value(
+                "pifft_apps_kspec_cache_total", result=r)
+                for r in ("hit", "miss")}
+
         spectral.kernel_spectrum_cache_clear()
         k = rng_for(8).standard_normal(17).astype(np.float32)
         spectral.kernel_spectrum(k, 256, device=CPU)
-        stats = dict(spectral.KSPEC_CACHE_STATS)
+        before = stats()
         spectral.kernel_spectrum(k, 256, device=CPU)
         # same VALUES, another array, a tensor: the same entry
         spectral.kernel_spectrum(np.array(k), 256, device=CPU)
         spectral.kernel_spectrum(torch.from_numpy(k), 256)
-        assert spectral.KSPEC_CACHE_STATS["miss"] == stats["miss"]
-        assert spectral.KSPEC_CACHE_STATS["hit"] == stats["hit"] + 3
+        assert stats()["miss"] == before["miss"]
+        assert stats()["hit"] == before["hit"] + 3
         # a different n (or kernel) is its own entry
         kr, ki = spectral.kernel_spectrum(k, 512, device=CPU)
-        assert spectral.KSPEC_CACHE_STATS["miss"] == stats["miss"] + 1
+        assert stats()["miss"] == before["miss"] + 1
         ref = np.fft.rfft(np.pad(k, (0, 512 - 17)).astype(np.float64))
         assert rel_err(kr.numpy() + 1j * ki.numpy(), ref) < TOL
 
@@ -258,9 +266,9 @@ class TestFusionMeter:
         n_pad = 1024
 
         def delta(fn):
-            before = roofline.meter_value("pifft_hbm_bytes_total")
+            before = port_metrics.counter_value("pifft_hbm_bytes_total")
             y = fn(x, k, device=CPU)
-            return y, int(roofline.meter_value("pifft_hbm_bytes_total")
+            return y, int(port_metrics.counter_value("pifft_hbm_bytes_total")
                           - before)
 
         y_f, fused = delta(spectral.fftconv)
@@ -316,14 +324,16 @@ class TestFusionMeter:
         assert all(p == r for p, r in deltas.values()), deltas
         assert deltas[("pifft_hbm_bytes_total", ())][0] \
             == roofline.spectral_hbm_bytes("solve", f.size)
-        before = roofline.meter_value("pifft_apps_hbm_bytes_total",
-                                      op="solve")
-        solves = pde.OPS_STATS.get("solve", 0)
+        before = port_metrics.counter_value("pifft_apps_hbm_bytes_total",
+                                            op="solve")
+        solves = port_metrics.counter_value("pifft_apps_ops_total",
+                                            op="solve")
         pde.spectral_step(f[0], nu=0.1, dt=0.05, device=CPU)
         pde.helmholtz_solve(f, 2.0, device=CPU)
-        assert pde.OPS_STATS["solve"] == solves + 2
-        assert roofline.meter_value("pifft_apps_hbm_bytes_total",
-                                    op="solve") - before \
+        assert port_metrics.counter_value("pifft_apps_ops_total",
+                                          op="solve") == solves + 2
+        assert port_metrics.counter_value("pifft_apps_hbm_bytes_total",
+                                          op="solve") - before \
             == roofline.spectral_hbm_bytes("solve", 128) \
             + roofline.spectral_hbm_bytes("solve", f.size)
 
@@ -353,15 +363,15 @@ class TestFusionMeter:
         assert roofline.spectral_roofline_utilization(
             "conv", n, 0.0, "NVIDIA H100 80GB HBM3") is None
 
-    def test_charge_counts_and_labels(self):
-        roofline.meter_reset()
+    def test_charge_counts_and_labels(self, obs_armed):
+        port_metrics.reset()
         assert roofline.charge_spectral_traffic("corr", 64, count=3) \
             == 3 * roofline.spectral_hbm_bytes("corr", 64)
-        assert roofline.meter_value("pifft_apps_hbm_bytes_total",
-                                    op="corr") \
-            == roofline.meter_value("pifft_hbm_bytes_total")
-        assert roofline.meter_value("pifft_apps_hbm_bytes_total") == 0
-        assert roofline.meter_value("pifft_hbm_min_bytes_total") \
+        assert port_metrics.counter_value("pifft_apps_hbm_bytes_total",
+                                          op="corr") \
+            == port_metrics.counter_value("pifft_hbm_bytes_total")
+        assert port_metrics.counter_value("pifft_apps_hbm_bytes_total") == 0
+        assert port_metrics.counter_value("pifft_hbm_min_bytes_total") \
             == 3 * roofline.spectral_min_hbm_bytes("corr", 64)
 
 
@@ -450,7 +460,7 @@ class TestOverlapSave:
         assert stream.tune_block(m, 10_000, device=CPU) \
             == ref_stream.choose_block(m, 10_000)
 
-    def test_block_race_rejects_and_times(self, monkeypatch):
+    def test_block_race_rejects_and_times(self, monkeypatch, obs_armed):
         """The race on a card, its timer and device check stood in: a
         candidate whose run raises a CAPACITY fault is rejected and
         counted, the rest timed; a TRANSIENT fault re-raises."""
@@ -472,11 +482,14 @@ class TestOverlapSave:
             return 1.0 / xp.shape[0], None
 
         monkeypatch.setattr(timing, "time_ms", fake_time)
-        stream.BLOCK_RACE_STATS.clear()
+        port_metrics.reset()
         best = stream.tune_block(17, 100, verbose=True)
         cands = stream.block_candidates(17, 100)
-        assert stream.BLOCK_RACE_STATS[(96, "rejected")] == 1
-        assert sum(stream.BLOCK_RACE_STATS.values()) == len(cands)
+        race = {k: v for k, v in port_metrics.snapshot()["counters"].items()
+                if k.startswith("pifft_apps_block_race_total{")}
+        assert port_metrics.counter_value("pifft_apps_block_race_total",
+                                          block="96", fate="rejected") == 1
+        assert sum(race.values()) == len(cands)
         costs = {b: stream.chunk_count(100, 17, b) / b for b in cands
                  if b != 96}
         assert best == min(costs, key=costs.get)

@@ -19,10 +19,9 @@ import pytest
 import torch
 
 from cs87project_msolano2_tpu.analyze import loader as ref_loader
-from cs87project_msolano2_tpu_torch import bench, plans
+from cs87project_msolano2_tpu_torch import bench, obs, plans
 from cs87project_msolano2_tpu_torch.analyze import records
 from cs87project_msolano2_tpu_torch.resilience import (
-    DEMOTION_STATS,
     InjectedFault,
     Journal,
     TransientBackendError,
@@ -34,15 +33,16 @@ CPU = "cpu"
 
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
-    """Small sizes, an empty in-process plan cache, no armed fault."""
+    """Small sizes, an empty in-process plan cache, no armed fault, and
+    obs disarmed after (``--events`` leaves the bench's run armed)."""
     monkeypatch.setattr(bench, "SMOKE_N", 1 << 9)
     monkeypatch.setattr(bench, "SMOKE_LARGE_LOGNS", (10,))
     monkeypatch.delenv("PIFFT_FAULT", raising=False)
     plans.cache.clear(memory=True)
-    DEMOTION_STATS.clear()
     yield
     plans.cache.clear(memory=True)
-    DEMOTION_STATS.clear()
+    obs.disable()
+    obs.metrics.reset()
 
 
 def _bench_record(capsys, argv):
@@ -373,11 +373,13 @@ def test_bench_smoke_op_rows(tmp_path, capsys, monkeypatch):
     """The spectral-op rows of the default smoke size, with the
     reference's field names; the reference's loader parses them with
     their op (its TestBenchAndLoader); conv_np's metered bytes sit below
-    its pad-to-pow2 control's."""
+    its pad-to-pow2 control's (the meter counts while ``--events`` arms
+    obs)."""
     from cs87project_msolano2_tpu_torch.apps.stream import chunk_count
 
     monkeypatch.setattr(bench, "SMOKE_LARGE_LOGNS", (13,))
-    rc, rec = _bench_record(capsys, ["--smoke"])
+    rc, rec = _bench_record(capsys, ["--smoke", "--events",
+                                     str(tmp_path / "events.jsonl")])
     assert rc == 0 and records.validate_record(rec) == []
     assert "degraded" not in rec
     for tag, n in (("conv2^13", 1 << 13), ("conv_np768", 768)):

@@ -8,9 +8,9 @@ journaled resume.
 
 The multi-rank cases run on gloo jobs of CPU ranks
 (``multihost.spawn_local``), one job per world size in a module
-fixture; the stall is injected on every rank.  The reference's obs
-events are the port's records in ``resilience.watchdog``
-(``COLLECTIVE_EVENTS``, ``COLLECTIVE_STATS``).
+fixture; the stall is injected on every rank.  The collective layer's
+events and counters are read from the port's obs, armed around each
+case that counts them.
 """
 
 import datetime
@@ -21,6 +21,7 @@ import time
 import numpy as np
 import pytest
 
+from cs87project_msolano2_tpu_torch import obs
 from cs87project_msolano2_tpu_torch.parallel.mesh import Mesh
 from cs87project_msolano2_tpu_torch.parallel.checks import (
     consensus_rank,
@@ -91,15 +92,22 @@ def job():
 
 @pytest.fixture
 def records():
-    """The collective layer's records, empty at the start and cleared
-    after."""
-    watchdog.reset_records()
-    yield watchdog
-    watchdog.reset_records()
+    """The port's obs armed for the case: the collective layer's events
+    and counters start empty and are dropped after."""
+    obs.enable()
+    yield
+    obs.disable()
+    obs.metrics.reset()
+
+
+def collective_events():
+    """The collective layer's events so far, in order."""
+    return [r for r in obs.snapshot()
+            if r["kind"] in watchdog.COLLECTIVE_KINDS]
 
 
 def kinds():
-    return [r["kind"] for r in watchdog.COLLECTIVE_EVENTS]
+    return [r["kind"] for r in collective_events()]
 
 
 # ------------------------------------------- deadline/knob validation
@@ -184,12 +192,12 @@ def test_supervise_collective_recovers_and_emits(records, capsys):
             deadline_s=0.05, abort_waits=50)
     assert value == "done"
     assert report.recovered and report.fired >= 1
-    recs = [r for r in watchdog.COLLECTIVE_EVENTS
+    recs = [r for r in collective_events()
             if r["kind"] == "collective_recovered"]
     assert recs and recs[-1]["payload"]["waits"] == report.fired
     assert recs[-1]["payload"]["deadline_s"] == 0.05
-    assert watchdog.COLLECTIVE_STATS["pifft_collective_recoveries_total"] \
-        == 1
+    assert obs.metrics.counter_value("pifft_collective_recoveries_total",
+                                     label="stuck-then-unstuck") == 1
     assert "collective_recovered" in capsys.readouterr().err
 
 
@@ -206,7 +214,8 @@ def test_supervise_collective_aborts_past_budget(records):
     assert token.cancelled()
     assert "collective_heartbeat" in kinds()
     assert "collective_abandoned" in kinds()
-    assert watchdog.COLLECTIVE_STATS["pifft_collective_aborts_total"] == 1
+    assert obs.metrics.counter_value("pifft_collective_aborts_total",
+                                     label="wedged") == 1
     # the abandoned worker finishes anyway and records its late
     # completion instead of losing it
     time.sleep(0.8)
@@ -276,7 +285,7 @@ class _FakeStore:
 def test_consensus_single_process_trivially_agrees(records):
     epoch = agree_on_fallback("test-label", reason="unit test")
     assert isinstance(epoch, int) and epoch >= 1
-    recs = [r for r in watchdog.COLLECTIVE_EVENTS
+    recs = [r for r in collective_events()
             if r["kind"] == "fallback_consensus"]
     assert recs and recs[-1]["payload"]["agreed"] is True
 
@@ -312,7 +321,7 @@ def test_consensus_timeout_is_a_classified_desync(records):
     with pytest.raises(HostDesyncError, match="fallback consensus"):
         agree_on_fallback("test-label", deadline_s=0.1,
                           store=_FakeStore(fail=True), processes=2, rank=0)
-    recs = [r for r in watchdog.COLLECTIVE_EVENTS
+    recs = [r for r in collective_events()
             if r["kind"] == "fallback_consensus"]
     assert recs and recs[-1]["payload"]["agreed"] is False
 

@@ -24,14 +24,13 @@ from cs87project_msolano2_tpu.resilience import degrade as ref_degrade
 from cs87project_msolano2_tpu.resilience import journal as ref_journal
 from cs87project_msolano2_tpu.resilience import retry as ref_retry
 from cs87project_msolano2_tpu.resilience import taxonomy as ref_taxonomy
-from cs87project_msolano2_tpu_torch import plans
+from cs87project_msolano2_tpu_torch import obs, plans
 from cs87project_msolano2_tpu_torch.cli import main as cli_main
 from cs87project_msolano2_tpu_torch.ops import precision
 from cs87project_msolano2_tpu_torch.ops.bits import bit_reverse_indices
 from cs87project_msolano2_tpu_torch.plans import ladder
 from cs87project_msolano2_tpu_torch.resilience import (
     DEGRADE_CHAIN,
-    DEMOTION_STATS,
     KINDS,
     KNOWN_SITES,
     CapacityError,
@@ -65,14 +64,24 @@ CPU = "cpu"
 @pytest.fixture(autouse=True)
 def _fresh_plan_memory():
     """Demotions live on memoized plans: each test starts with empty
-    in-process plan caches (both packages') and demotion counts."""
+    in-process plan caches (both packages') and, with the port's obs
+    armed around it, an empty ``pifft_demotions_total``."""
     plans.cache.clear(memory=True)
     ref_plans.cache.clear(memory=True)
-    DEMOTION_STATS.clear()
+    obs.enable()
     yield
+    obs.disable()
+    obs.metrics.reset()
     plans.cache.clear(memory=True)
     ref_plans.cache.clear(memory=True)
-    DEMOTION_STATS.clear()
+
+
+def demotions() -> dict:
+    """The port's ``pifft_demotions_total`` by rung ({to: count})."""
+    prefix = 'pifft_demotions_total{to="'
+    return {k[len(prefix):-2]: int(v)
+            for k, v in obs.metrics.snapshot()["counters"].items()
+            if k.startswith(prefix)}
 
 
 def _planes(n, seed=0, batch=()):
@@ -326,7 +335,7 @@ def test_degradation_chain_full_parity_vs_numpy(capsys):
     assert "DEGRADED" in capsys.readouterr().err
     d = plan.describe()
     assert d["degraded"] is True and d["demoted_to"] == "torch-fft"
-    assert DEMOTION_STATS == {"torch-fft": 1}
+    assert demotions() == {"torch-fft": 1}
     assert plan.storage_bytes() == 4
 
 
@@ -389,7 +398,7 @@ def test_transient_fault_is_not_degraded():
         plan = _pi_plan(n)
         with pytest.raises(InjectedFault):
             plan.execute(*_planes(n))
-    assert not plan.degraded and not DEMOTION_STATS
+    assert not plan.degraded and not demotions()
 
 
 def test_kernel_build_error_is_not_demoted():
@@ -403,7 +412,7 @@ def test_kernel_build_error_is_not_demoted():
     plan._fn = degrade.resilient_executor(plan, broken)
     with pytest.raises(KernelBuildError):
         plan.execute(*_planes(1 << 12))
-    assert not plan.degraded and not DEMOTION_STATS
+    assert not plan.degraded and not demotions()
 
 
 def test_sticky_cuda_error_is_not_demoted():
@@ -434,7 +443,7 @@ def test_sticky_cuda_error_is_not_demoted():
             plan2.execute(*_planes(1 << 13))
     finally:
         degrade.build_rung = real_build
-    assert not plan2.degraded and not DEMOTION_STATS
+    assert not plan2.degraded and not demotions()
 
 
 @pytest.mark.parametrize("variant,tried", [
@@ -462,7 +471,7 @@ def test_card_planes_never_reach_a_library_rung(variant, tried,
     x = torch.empty(1 << 12, device="meta")
     with pytest.raises(CapacityError):
         run(x, x)
-    assert seen == tried and not plan.degraded and not DEMOTION_STATS
+    assert seen == tried and not plan.degraded and not demotions()
     assert degrade.rungs_for(variant, "cuda") == tuple(tried)
     assert degrade.rungs_for(variant, CPU) == degrade._rungs_after(variant)
 
@@ -587,7 +596,7 @@ def test_promote_precision_matches_the_reference():
     assert port.demotions == ref.demotions
     assert port.params == ref.params == {"precision": "fp32"}
     assert port.degraded and ref.degraded
-    assert DEMOTION_STATS == {"precision:default": 1,
+    assert demotions() == {"precision:default": 1,
                               "precision:split3": 1, "precision:fp32": 1}
 
 

@@ -5,6 +5,7 @@ agreement with the reference's C core, the twiddle carry-over, the
 plan ladder, the device rule, and the package's isolation from JAX."""
 
 import importlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -295,10 +296,12 @@ def test_port_imports_no_jax():
         "'parallel.fft2d', 'parallel.poisson3d', 'parallel.escape', "
         "'parallel.checks', 'apps.pde', "
         "'harness.run_sharded_experiments', 'apps.spectral', "
-        "'apps.stream', 'apps.cli']\n"
+        "'apps.stream', 'apps.cli', 'obs', 'obs.events', 'obs.spans', "
+        "'obs.metrics', 'obs.export', 'obs.trace', 'obs.profiler', "
+        "'obs.http', 'obs.slomon', 'utils.tracing']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "from cs87project_msolano2_tpu_torch.utils.roofline import (\n"
-        "    SPECTRAL_OPS, charge_spectral_traffic, meter_value,\n"
+        "    SPECTRAL_OPS, charge_spectral_traffic,\n"
         "    spectral_hbm_bytes, spectral_min_hbm_bytes,\n"
         "    spectral_roofline_utilization)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -310,6 +313,41 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_no_demotions_sees_a_demotion_past_a_cache_clear():
+    """chip_smoke's demotion check fails on a demotion made before the
+    plan cache was cleared (as phase 12 clears it) with obs disarmed,
+    passes with none, and gives the cache its own ``memoize`` back."""
+    from cs87project_msolano2_tpu_torch import obs
+    from cs87project_msolano2_tpu_torch.resilience import inject
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    memoize = plans.cache.memoize
+    assert not obs.enabled()
+    plans.cache.clear(memory=True)
+    try:
+        smoke.no_demotions("healthy", smoke.watch_demotions())
+        assert plans.cache.memoize is memoize
+        restore = smoke.watch_demotions()
+        rng = np.random.default_rng(0)
+        xr, xi = (rng.standard_normal(1 << 9).astype(np.float32)
+                  for _ in range(2))
+        with inject("tube", "capacity"):
+            plan = plans.get_plan(plans.make_key(1 << 9, layout="pi",
+                                                 device="cpu"), "cpu")
+            plan.execute(xr, xi)
+        assert plan.degraded
+        plans.cache.clear(memory=True)
+        with pytest.raises(AssertionError, match="a plan demoted"):
+            smoke.no_demotions("planted", restore)
+        assert plans.cache.memoize is memoize
+    finally:
+        plans.cache.memoize = memoize
+        plans.cache.clear(memory=True)
 
 
 def test_chip_smoke_imports_no_jax_and_refuses_the_cpu():
