@@ -136,7 +136,16 @@ bytes counter, a retry and a demotion counted, a ``torch.profiler``
 trace holding the funnel/tube ranges and the csrc kernels; the stream
 read back by ``obs validate/summary/export``, and ``bench --smoke
 --events --trace-out`` and the harness with ``--events``, all in
-subprocesses).  Phase 14's bench record carries the conv2^K
+subprocesses) and serving on one card (phase 19, ``phase_serve``: a
+Dispatcher of 32-request batches serving 4096, 2^16, 2^20 in pi order,
+4096 r2c, a 2^16 conv and 4096 bf16 over one socket to 8 concurrent
+clients in the JSON and binary dialects and the shm lane, torch.fft
+refused, every response held to numpy in complex128, each batch's
+launches counted (one tile_fft a rows batch), requests/s and the queue
+wait and compute percentiles per shape beside the served plan's slope;
+the serve faults and the overload drill on the card; ``serve --smoke``,
+``--wire-smoke``, the precision and any-length smokes and ``plan warm
+--shapes`` in subprocesses).  Phase 14's bench record carries the conv2^K
 and conv_np rows, its os2^K rows skipped past MAX_BLOCK.  Phase 11's
 pi-layout oracle gathers on the card and its slopes take the fitted
 window (``slope_ms``), the cut that pays for phase 17.
@@ -2736,6 +2745,484 @@ def obs_trace_check(tdir, check) -> dict:
             "launches_in_tube": len(inside)}
 
 
+#: phase 19: the served full-width set (the serve shape file's records),
+#: each with the requests phase 19 sends of it and the kernel launches
+#: one batch of its group makes on the card (rows of 4096: one tile_fft;
+#: rows of 2^16: the per-row rql of ``fft_rows_cuda``, one
+#: long_range_sep then one tile_fft; the pi batch at 2^20: rql over the
+#: batch; r2c rows of 2048 inside the pack and merge; the conv pipeline:
+#: two forward r2c and one c2r transform, each rows of 2^15; bf16
+#: storage: tile_fft_bf16)
+SERVE_SET = (
+    ({"n": 4096}, 256, {"tile_fft": 1}),
+    ({"n": 1 << 16}, 128, {"long_range_sep": 1, "tile_fft": 1}),
+    ({"n": 1 << 20, "layout": "pi"}, 32,
+     {"long_range_sep": 1, "tile_fft": 1}),
+    ({"n": 4096, "domain": "r2c"}, 256, {"tile_fft": 1}),
+    ({"n": 1 << 16, "op": "conv"}, 128,
+     {"long_range_sep": 3, "tile_fft": 3}),
+    ({"n": 4096, "precision": "bf16"}, 256, {"tile_fft_bf16": 1}))
+#: the serving configuration phase 19 runs (ServeConfig's fields)
+SERVE_CONFIG = {"max_batch": 32, "max_wait_ms": 2.0, "queue_depth": 256}
+#: concurrent clients and the requests each keeps in flight: clients 0-1
+#: speak the JSON dialect up to SERVE_JSON_MAX_N (binary past it), the
+#: last one the shm lane, the rest the binary dialect
+SERVE_CLIENTS = 8
+SERVE_INFLIGHT = 4
+SERVE_JSON_CLIENTS = 2
+SERVE_JSON_MAX_N = 4096
+#: the overload drill: a dispatcher this deep takes a burst of this many
+#: 2^16 requests at once
+SERVE_DRILL_DEPTH, SERVE_DRILL_BURST = 8, 64
+
+
+def serve_clients(port, spec, inputs):
+    """Send `inputs` (xr, xi) of `spec` over the socket from
+    SERVE_CLIENTS concurrent clients, SERVE_INFLIGHT in flight each;
+    returns (replies in input order, seconds, {dialect: requests})."""
+    import asyncio
+
+    from cs87project_msolano2_tpu_torch.serve import protocol, wire
+
+    replies = [None] * len(inputs)
+    dialects = {}
+
+    async def client(c):
+        json_ok = c < SERVE_JSON_CLIENTS and spec.n <= SERVE_JSON_MAX_N
+        shm = c == SERVE_CLIENTS - 1
+        dialect = "json" if json_ok else "shm" if shm else "binary"
+        conn = None
+        if not json_ok:
+            conn = await wire.WireClient.connect("127.0.0.1", port,
+                                                 want_shm=shm)
+        gate = asyncio.Semaphore(SERVE_INFLIGHT)
+
+        async def one(i):
+            xr, xi = inputs[i]
+            kw = {"layout": spec.layout, "precision": spec.precision,
+                  "domain": spec.domain, "op": spec.op}
+            async with gate:
+                if json_ok:
+                    rep = await protocol.request_over_socket(
+                        "127.0.0.1", port, xr, xi, **kw)
+                    if rep.get("ok"):
+                        rep["yr"] = np.asarray(rep["yr"], np.float32)
+                        rep["yi"] = np.asarray(rep["yi"], np.float32)
+                else:
+                    real = spec.op == "fft" and spec.domain == "r2c"
+                    rep = await conn.request(xr, None if real else xi,
+                                             use_shm=shm, **kw)
+                    if rep.get("ok"):
+                        # off the receive buffer
+                        rep["yr"] = np.array(rep["yr"])
+                        rep["yi"] = np.array(rep["yi"])
+            replies[i] = rep
+
+        mine = list(range(c, len(inputs), SERVE_CLIENTS))
+        dialects[dialect] = dialects.get(dialect, 0) + len(mine)
+        try:
+            await asyncio.gather(*(one(i) for i in mine))
+        finally:
+            if conn is not None:
+                await conn.close()
+
+    async def main():
+        t0 = time.perf_counter()
+        await asyncio.gather(*(client(c) for c in range(SERVE_CLIENTS)))
+        return time.perf_counter() - t0
+
+    return replies, asyncio.run(main()), dialects
+
+
+def serve_reference(spec, xr, xi):
+    """numpy complex128 of one request of `spec`, in its layout."""
+    from cs87project_msolano2_tpu_torch.apps.spectral import numpy_oracle
+    from cs87project_msolano2_tpu_torch.ops.bits import bit_reverse_indices
+
+    if spec.op != "fft":
+        return numpy_oracle(spec.op, xr, xi, spec.n)
+    if spec.domain == "r2c":
+        return np.fft.rfft(xr.astype(np.float64))
+    y = np.fft.fft(xr.astype(np.complex128) + 1j * xi)
+    return y[bit_reverse_indices(spec.n)] if spec.layout == "pi" else y
+
+
+def phase_serve(dev, rng, paths=None):
+    """Phase 19: serving on one card at full width (``serve/``).  A
+    Dispatcher on the card (SERVE_CONFIG) warms the SERVE_SET shape file
+    and serves it over a real socket (``serve.protocol``, the binary and
+    JSON dialects and the shm lane on one port, in a thread of its own)
+    to SERVE_CLIENTS concurrent clients, one shape at a time, with
+    torch.fft refused in this process: every response within its mode's
+    budget of numpy in complex128 (pi responses through the bit
+    reversal), none degraded and none served by a library rung, batches
+    coalesced (mean batch size above 1), and each group's kernel
+    launches exactly its batches times SERVE_SET's launches a batch (one
+    tile_fft a ``rows`` batch).  Per shape: requests/s, p50/p99 of queue
+    wait and compute, the compute per batch beside the loop slope of the
+    served plan at the batch's bucket and phase 7's slope of the same
+    plan (`paths`).  Then the faults and the overload drill on a second
+    dispatcher: ``serve:transient`` retried and not degraded,
+    ``serve:capacity`` a structured ``request_failed`` of kind capacity
+    with the next request served, QueueFull at depth with the overload
+    level at window collapse and no library rung; meanwhile ``serve
+    --smoke``, ``serve --wire-smoke``, ``precision_smoke``
+    (``PIFFT_PRECISION_BUDGET=0``), ``anylen_smoke`` and ``plan warm
+    --shapes`` (a second process: every shape from the store) as
+    subprocesses.  Returns (rows, launches by kernel of the served
+    load); raises on any failure."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
+    from cs87project_msolano2_tpu_torch.resilience import inject
+    from cs87project_msolano2_tpu_torch.resilience.degrade import (
+        LIBRARY_RUNGS,
+    )
+    from cs87project_msolano2_tpu_torch.serve import (
+        Dispatcher,
+        GroupKey,
+        QueueFull,
+        RequestFailed,
+        ServeConfig,
+        ShapeSpec,
+        protocol,
+    )
+
+    t_phase = time.perf_counter()
+    rows, launched, problems = {"shapes": {}}, {}, []
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="pifft-serve-")
+    specs = [ShapeSpec.from_record(rec) for rec, _, _ in SERVE_SET]
+    shapes_path = os.path.join(tmp, "shapes.jsonl")
+    with open(shapes_path, "w") as fh:
+        for rec, _, _ in SERVE_SET:
+            fh.write(json.dumps(rec) + "\n")
+
+    def check(label, ok, detail):
+        rows.setdefault("checks", {})[label] = bool(ok)
+        log(f"# phase 19 {label}: {'ok' if ok else 'FAILED'} ({detail})")
+        if not ok:
+            problems.append(label)
+
+    # the server: its own thread and event loop, as `serve` runs it
+    cfg = ServeConfig(**SERVE_CONFIG)
+    box, ready, stop = {}, threading.Event(), threading.Event()
+    big = max(s.n for s in specs)
+
+    def server_thread():
+        async def main():
+            t0 = time.perf_counter()
+            d = Dispatcher(cfg, specs, device=dev)
+            async with d:
+                box["warm_s"] = time.perf_counter() - t0
+                server = await asyncio.start_server(
+                    lambda r, w: protocol.handle_connection(
+                        d, r, w, shm_config={"slots": SERVE_INFLIGHT,
+                                             "slot_bytes": big * 8}),
+                    "127.0.0.1", 0)
+                box["d"], box["port"] = d, server.sockets[0].getsockname()[1]
+                ready.set()
+                while not stop.is_set():
+                    await asyncio.sleep(0.05)
+                server.close()
+                await server.wait_closed()
+
+        try:
+            asyncio.run(main())
+        except BaseException as e:  # the main thread reports it
+            box["error"] = e
+            ready.set()
+
+    fallbacks = [(mod, name) for mod in (torch.fft,)
+                 for name in ("fft", "ifft", "rfft", "irfft")]
+    saved = [getattr(mod, name) for mod, name in fallbacks]
+
+    def refused(*_a, **_k):
+        raise AssertionError("a served request reached torch.fft")
+
+    for mod, name in fallbacks:
+        setattr(mod, name, refused)
+    thread = threading.Thread(target=server_thread, daemon=True)
+    thread.start()
+    procs = {}
+    try:
+        ready.wait(600)
+        if "error" in box:
+            raise box["error"]
+        d, port = box["d"], box["port"]
+        log(f"# phase 19 dispatcher on {dev}: {SERVE_CONFIG}, "
+            f"{len(specs)} shapes warmed in {box['warm_s']:.1f} s; "
+            f"socket front on port {port} (JSON, binary, shm lane)")
+        served = []
+        for spec, (rec, count, per_batch) in zip(specs, SERVE_SET):
+            label = GroupKey(n=spec.n, layout=spec.layout,
+                             precision=spec.precision, domain=spec.domain,
+                             op=spec.op).label()
+            inputs = []
+            for _ in range(count):
+                xr = rng.standard_normal(spec.n).astype(np.float32)
+                xi = rng.standard_normal(spec.n).astype(np.float32)
+                real = spec.op == "fft" and spec.domain == "r2c"
+                inputs.append((xr, np.zeros_like(xr) if real else xi))
+            cf.reset_launch_counts()
+            replies, secs, dialects = serve_clients(port, spec, inputs)
+            got = {k: v for k, v in cf.launch_counts().items() if v}
+            for name, c in got.items():
+                launched[name] = launched.get(name, 0) + c
+            batches = d.stats.summary().get(label, {}).get("batches", 0)
+            served.append((spec, inputs, replies))
+            ok = [r for r in replies if r and r.get("ok")]
+            want = {k: v * batches for k, v in per_batch.items()}
+            variants = sorted({r["plan_variant"] for r in ok})
+            q = sorted(r["queue_wait_ms"] for r in ok)
+            c = sorted(r["compute_ms"] for r in ok)
+            sizes = [r["batch_size"] for r in ok]
+            bucket = max(sizes) if sizes else 1
+            bucket = 1 << (bucket - 1).bit_length()
+            plan = plans.plan_for((bucket, spec.n), layout=spec.layout,
+                                  precision=spec.precision,
+                                  domain="r2c" if spec.op != "fft"
+                                  else spec.domain, device=dev,
+                                  autotune=False)
+            width = spec.n
+            xs = [torch.from_numpy(
+                rng.standard_normal((bucket, width)).astype(np.float32)
+            ).to(dev) for _ in range(2)]
+            if spec.op != "fft":
+                from cs87project_msolano2_tpu_torch.apps.spectral import (
+                    op_executor,
+                )
+
+                fn, _ = op_executor(spec.op, (bucket,), spec.n,
+                                    precision=spec.precision, device=dev,
+                                    autotune=False)
+            else:
+                fn = plan.fn
+            plan_ms = slope_ms(fn, *xs)
+            del xs
+            p7 = None
+            if paths:
+                if spec.layout == "pi" and spec.n == 1 << 20:
+                    p7 = ("rql pi N=2^20", paths["rql pi N=2^20"]["ms"]
+                          * bucket)
+                elif spec.n == 4096 and spec.op == "fft" \
+                        and spec.domain == "c2c" \
+                        and spec.precision == "split3":
+                    p7 = ("rows pi (4096,4096)",
+                          paths["rows pi (4096,4096)"]["ms"] * bucket / 4096)
+            entry = {
+                "label": label, "requests": count, "served": len(ok),
+                "seconds": secs, "requests_per_s": count / secs,
+                "dialects": dialects, "batches": batches,
+                "mean_batch": len(ok) / batches if batches else 0.0,
+                "queue_p50_ms": q[len(q) // 2] if q else None,
+                "queue_p99_ms": q[-(-len(q) * 99 // 100) - 1] if q else None,
+                "compute_p50_ms": c[len(c) // 2] if c else None,
+                "compute_p99_ms": c[-(-len(c) * 99 // 100) - 1] if c
+                else None,
+                "bucket": bucket, "plan": plan.describe(),
+                "plan_slope_ms": plan_ms, "phase7": p7,
+                "variants": variants, "launches": got, "want": want}
+            rows["shapes"][spec.label()] = entry
+            log(f"# phase 19 serve {spec.label()}: {len(ok)}/{count} "
+                f"served in {secs:.3f} s ({entry['requests_per_s']:.1f} "
+                f"requests/s; {dialects}), {batches} batches (mean "
+                f"{entry['mean_batch']:.2f}), queue wait p50/p99 "
+                f"{entry['queue_p50_ms']}/{entry['queue_p99_ms']} ms, "
+                f"compute p50/p99 {entry['compute_p50_ms']}/"
+                f"{entry['compute_p99_ms']} ms a batch; the served plan "
+                f"{plan.variant} {plan.params} at bucket {bucket}: slope "
+                f"{plan_ms:.4f} ms"
+                + (f" (phase 7 {p7[0]}: {p7[1]:.4f} ms for {bucket} "
+                   f"transforms)" if p7 else "")
+                + f"; launches {got} (want {want}); variants {variants}")
+            fails = [r for r in replies if not (r and r.get("ok"))]
+            check(f"{spec.label()} served", not fails
+                  and not any(r.get("degraded") for r in ok)
+                  and not set(variants) & set(LIBRARY_RUNGS),
+                  f"{len(fails)} failed "
+                  f"{[r and r.get('error') for r in fails[:2]]}, degraded "
+                  f"{sum(bool(r.get('degraded')) for r in ok)}, variants "
+                  f"{variants}")
+            check(f"{spec.label()} launches", got == want and batches > 0,
+                  f"{got} for {batches} batches, want {want}")
+            check(f"{spec.label()} coalesced", entry["mean_batch"] > 1,
+                  f"mean batch {entry['mean_batch']:.2f}")
+    finally:
+        for mod, name in fallbacks:
+            setattr(mod, name, saved[fallbacks.index((mod, name))])
+        stop.set()
+        thread.join(60)
+
+    log(f"# phase 19 served load done at {time.perf_counter() - t_phase:.1f}"
+        f" s of the phase")
+    # the smokes and the second process's warm, while this one checks
+    env = dict(os.environ)
+    cmds = {
+        "serve --smoke": [sys.executable, "-m",
+                          "cs87project_msolano2_tpu_torch", "serve",
+                          "--smoke", "--json"],
+        "serve --wire-smoke": [sys.executable, "-m",
+                               "cs87project_msolano2_tpu_torch", "serve",
+                               "--wire-smoke", "--json"],
+        "precision_smoke": [sys.executable, "-m",
+                            "cs87project_msolano2_tpu_torch.serve."
+                            "precision_smoke"],
+        "anylen_smoke": [sys.executable, "-m",
+                         "cs87project_msolano2_tpu_torch.serve."
+                         "anylen_smoke"],
+        "plan warm --shapes": [sys.executable, "-m",
+                               "cs87project_msolano2_tpu_torch", "plan",
+                               "warm", "--shapes", shapes_path]}
+    for name, cmd in cmds.items():
+        e = dict(env, PIFFT_PRECISION_BUDGET="0") \
+            if name == "precision_smoke" else env
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True,
+                                       cwd=here, env=e)
+    try:
+        errs = []
+        for spec, inputs, replies in served:
+            tol = BF16_BUDGET if spec.precision == "bf16" else PATH_TOL
+            worst = 0.0
+            for (xr, xi), rep in zip(inputs, replies):
+                if not (rep and rep.get("ok")):
+                    worst = float("inf")
+                    break
+                ref = serve_reference(spec, xr, xi)
+                gotc = rep["yr"].astype(np.float64) if spec.op != "fft" \
+                    else rep["yr"] + 1j * rep["yi"].astype(np.float64)
+                if gotc.shape != ref.shape:
+                    worst = float("inf")
+                    break
+                worst = max(worst, float(np.linalg.norm(gotc - ref)
+                                         / np.linalg.norm(ref)))
+            rows["shapes"][spec.label()]["worst_rel_l2"] = worst
+            errs.append((spec.label(), worst, tol))
+            check(f"{spec.label()} accuracy", worst <= tol,
+                  f"worst rel L2 {worst:.3e} of {len(replies)} responses "
+                  f"vs numpy complex128 (budget {tol:g})")
+        served = None
+        log(f"# phase 19 responses checked at "
+            f"{time.perf_counter() - t_phase:.1f} s of the phase")
+
+        # the faults and the overload drill on a second dispatcher
+        async def drill():
+            out = {}
+            dcfg = ServeConfig(max_batch=SERVE_DRILL_DEPTH, max_wait_ms=2.0,
+                               queue_depth=SERVE_DRILL_DEPTH)
+            xr, xi = (rng.standard_normal(1 << 16).astype(np.float32)
+                      for _ in range(2))
+            async with Dispatcher(dcfg, device=dev) as dd:
+                await dd.submit(xr, xi)
+                with inject("serve", "transient", count=1) as spec_t:
+                    r = await dd.submit(xr, xi)
+                out["transient"] = (spec_t.fired, r.degraded,
+                                    list(r.degrade), r.plan_variant)
+                with inject("serve", "capacity", count=1) as spec_c:
+                    try:
+                        await dd.submit(xr, xi)
+                        out["capacity"] = ("served", spec_c.fired)
+                    except RequestFailed as e:
+                        out["capacity"] = (e.to_record(), spec_c.fired)
+                r = await dd.submit(xr, xi)
+                out["after"] = (r.degraded, r.plan_variant)
+                res = await asyncio.gather(
+                    *(dd.submit(xr, xi) for _ in range(SERVE_DRILL_BURST)),
+                    return_exceptions=True)
+                out["burst"] = res
+            return out
+
+        t0 = time.perf_counter()
+        dr = asyncio.run(drill())
+        fired, degraded, trail, variant = dr["transient"]
+        check("serve:transient retried", fired == 1 and not degraded
+              and not trail and variant not in LIBRARY_RUNGS,
+              f"fired {fired}, degraded {degraded} {trail}, served by "
+              f"{variant}")
+        rec, fired = dr["capacity"]
+        check("serve:capacity structured",
+              isinstance(rec, dict) and rec.get("type") == "request_failed"
+              and rec.get("kind") == "capacity" and fired == 1
+              and dr["after"] == (False, "rows"),
+              f"{rec}, fired {fired}; the next request: degraded, variant "
+              f"{dr['after']}")
+        burst = dr["burst"]
+        full = [e for e in burst if isinstance(e, QueueFull)]
+        ok = [r for r in burst if not isinstance(r, Exception)]
+        other = [e for e in burst if isinstance(e, Exception)
+                 and not isinstance(e, QueueFull)]
+        levels = sorted({t for r in ok for t in r.degrade})
+        check("QueueFull at depth, overload without a library rung",
+              full and ok and not other
+              and all(e.to_record()["retry_after_ms"] >= 1.0 for e in full)
+              and "overload:window" in levels
+              and not {r.plan_variant for r in ok} & set(LIBRARY_RUNGS),
+              f"{len(ok)} served ({sorted({r.plan_variant for r in ok})}, "
+              f"levels {levels}), {len(full)} QueueFull (retry_after_ms "
+              f"{[e.retry_after_ms for e in full[:3]]}...), {len(other)} "
+              f"other")
+        rows["drill_s"] = time.perf_counter() - t0
+        log(f"# phase 19 drill took {rows['drill_s']:.1f} s, done at "
+            f"{time.perf_counter() - t_phase:.1f} s of the phase")
+    finally:
+        cli = {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            cli[name] = {"exit": proc.returncode}
+            tail = (out or "").strip().splitlines()
+            cli[name]["last"] = tail[-1][:300] if tail else ""
+            rep = {}
+            if name.startswith("serve") and proc.returncode == 0:
+                rep = json.loads(out)
+                cli[name]["device"] = rep.get("device")
+            log(f"# phase 19 {name}: exit {proc.returncode}; "
+                + (json.dumps({k: rep.get(k) for k in (
+                    "device", "same_shape_requests", "same_shape_batches",
+                    "binary_host_copy_delta", "json_host_copy_delta",
+                    "dialect", "shm_granted", "fallback_dialect",
+                    "schema_invalid_events", "problems")})
+                   if rep else cli[name]["last"]))
+            if proc.returncode != 0:
+                log(err[-3000:])
+            cli[name]["stdout"] = out
+        log(f"# phase 19 subprocesses done at "
+            f"{time.perf_counter() - t_phase:.1f} s of the phase")
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows["cli"] = {k: {kk: vv for kk, vv in v.items() if kk != "stdout"}
+                   for k, v in cli.items()}
+    for name in ("serve --smoke", "serve --wire-smoke"):
+        check(name, cli[name]["exit"] == 0
+              and cli[name].get("device") == "cuda", cli[name])
+    check("precision_smoke", cli["precision_smoke"]["exit"] == 0
+          and "bf16 -> default -> split3 -> fp32"
+          in cli["precision_smoke"]["last"], cli["precision_smoke"]["last"])
+    check("anylen_smoke", cli["anylen_smoke"]["exit"] == 0
+          and "cuda" in cli["anylen_smoke"]["last"],
+          cli["anylen_smoke"]["last"])
+    warmed = [line for line in cli["plan warm --shapes"]["stdout"]
+              .splitlines() if line.startswith("warmed ")]
+    check("plan warm --shapes in a second process",
+          cli["plan warm --shapes"]["exit"] == 0
+          and len(warmed) == len(specs) + 1
+          and all("[cache]" in line for line in warmed[:-1]),
+          warmed)
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 19 launches (served load): {launched}; phase "
+        f"{rows['seconds']:.1f} s")
+    if problems:
+        raise AssertionError(f"phase 19 failed: {problems}")
+    return rows, launched
+
+
 def main() -> int:
     import torch
 
@@ -4329,6 +4816,10 @@ def run(store) -> int:
     clock.start("phase 18")
     torch.cuda.empty_cache()
     obs18, obs_launches = phase_obs(dev, rng, p7_row)
+    # phase 19: serving on one card
+    clock.start("phase 19")
+    torch.cuda.empty_cache()
+    serve19, serve_launches = phase_serve(dev, rng, paths)
     clock.start(None)
     log(f"# seconds by phase: {clock.seconds}; all phases "
         f"{sum(clock.seconds.values()):.1f} s")
@@ -4405,7 +4896,8 @@ def run(store) -> int:
             "planned_tube_launches": planned_launches.get(name, 0),
             "parallel_launches": parallel_launches.get(name, 0),
             "apps_launches": apps_launches.get(name, 0),
-            "obs_launches": obs_launches.get(name, 0)})
+            "obs_launches": obs_launches.get(name, 0),
+            "serve_launches": serve_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -4417,7 +4909,7 @@ def run(store) -> int:
                     "resilience": resilience, "bench": measurement,
                     "harness_tsv": harness_tsv, "backends": backends15,
                     "parallel": parallel16, "apps": apps17,
-                    "obs": obs18,
+                    "obs": obs18, "serve": serve19,
                     "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),

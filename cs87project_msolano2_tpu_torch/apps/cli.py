@@ -11,9 +11,12 @@ reference's ``apps/cli.py``).
   disarmed after: "owned"), must sit within FUSED_TOL of
   the op's fused floor while the deliberately UNFUSED control (a host
   round trip between the transforms) exceeds it, so the gate
-  discriminates.  The reference's third conv check, a conv request
-  served end to end over the socket protocol, comes with the serving
-  layer.
+  discriminates; (3) a conv request served end to end over the socket
+  protocol (``_served_conv_problems``): op-tagged, coalesced, in its SLO
+  row and on ``pifft_serve_ops_total``, and under one injected capacity
+  fault degrade-tagged on the CPU (the ``torch-fft`` rung speaks conv)
+  or, on the card, where no library rung serves, failed structured with
+  the next request served.
 * **corr**: ``fftcorr`` against ``numpy.correlate`` in every mode, and
   the conjugation mattering (corr != conv on an asymmetric kernel).
 * **solve**: the 1-D solve against its oracle, and the pde family —
@@ -201,6 +204,123 @@ def _solve_family_problems(device) -> list:
     return problems
 
 
+def _served_conv_problems(device) -> list:
+    """A conv request served end to end through the SOCKET protocol on
+    `device`: op-tagged GroupKey, coalesced, visible in the SLO rows and
+    the op counter, schema-valid events; one more request under an
+    injected capacity fault at the ``serve`` site must come back
+    degrade-tagged on CPU planes, or, on the card (no library rung
+    serves a card request), as a structured ``request_failed`` of kind
+    capacity, the request after it served."""
+    import asyncio
+
+    from .. import obs
+    from ..obs import events as obs_events
+    from ..obs import metrics
+    from ..resilience import inject
+    from ..serve import Dispatcher, ServeConfig
+    from ..serve.batcher import GroupKey
+    from ..serve.protocol import handle_connection, request_over_socket
+    from ..serve.shapes import ShapeSpec
+    from .spectral import numpy_oracle
+
+    problems = []
+    owned = not obs.enabled()
+    if owned:
+        obs.enable()
+    n = 1 << 10
+    k_burst = 6
+    rng = np.random.default_rng(2)
+    spec = ShapeSpec(n=n, op="conv")
+    label = GroupKey(n=n, domain="r2c", op="conv").label()
+    inputs = [(rng.standard_normal(n).astype(np.float32),
+               rng.standard_normal(n).astype(np.float32))
+              for _ in range(k_burst)]
+    on_card = device.type != "cpu"
+
+    async def main():
+        d = Dispatcher(ServeConfig(max_wait_ms=25.0), [spec], device=device)
+        await asyncio.get_running_loop().run_in_executor(None, d.warm)
+        server = await asyncio.start_server(
+            lambda r, w: handle_connection(d, r, w), "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        replies = await asyncio.gather(*[
+            request_over_socket("127.0.0.1", port, xr, xi, op="conv")
+            for xr, xi in inputs])
+        # one more with the serve site armed: on the CPU the batch falls
+        # to a rung that still speaks conv, degrade-tagged on the wire;
+        # on the card it fails structured and the next one is served
+        with inject("serve", "capacity", count=1):
+            faulted = await request_over_socket(
+                "127.0.0.1", port, inputs[0][0], inputs[0][1], op="conv")
+        after = await request_over_socket(
+            "127.0.0.1", port, inputs[1][0], inputs[1][1], op="conv")
+        server.close()
+        await server.wait_closed()
+        await d.close()
+        return d, replies, faulted, after
+
+    def wrong(rep, xr, xi):
+        ref = numpy_oracle("conv", xr.astype(np.float64),
+                           xi.astype(np.float64), n)
+        err = float(np.max(np.abs(np.asarray(rep["yr"]) - ref))
+                    / np.max(np.abs(ref)))
+        return f"rel err {err:.2e} > {TOL:.0e}" if err > TOL else None
+
+    try:
+        d, replies, faulted, after = asyncio.run(main())
+        for (xr, xi), rep in zip(inputs, replies):
+            if not rep.get("ok"):
+                problems.append(f"served conv failed: {rep}")
+                break
+            if wrong(rep, xr, xi):
+                problems.append(f"served conv wrong: {wrong(rep, xr, xi)}")
+                break
+        batches = int(metrics.counter_value(
+            "pifft_serve_batches_total", shape=label))
+        if not (0 < batches < k_burst):
+            problems.append(
+                f"no coalescing: {k_burst} concurrent conv requests "
+                f"-> {batches} invocation(s) on group {label!r}")
+        if on_card:
+            err = faulted.get("error") or {}
+            if faulted.get("ok") or err.get("type") != "request_failed" \
+                    or err.get("kind") != "capacity":
+                problems.append(f"fault-injected conv on the card was not "
+                                f"a structured capacity failure: "
+                                f"{faulted}")
+        elif not faulted.get("ok"):
+            problems.append(f"fault-injected conv request FAILED instead "
+                            f"of degrading: {faulted}")
+        elif not faulted.get("degraded") or not faulted.get("degrade"):
+            problems.append(
+                f"fault-injected conv served UNTAGGED "
+                f"(degraded={faulted.get('degraded')}, "
+                f"trail={faulted.get('degrade')})")
+        if not after.get("ok") or after.get("degraded") \
+                or wrong(after, *inputs[1]):
+            problems.append(f"the conv request after the fault was not "
+                            f"served healthy: {after.get('error')} "
+                            f"{after.get('degrade')}")
+        if label not in d.stats.summary():
+            problems.append(f"op-tagged SLO row {label!r} missing from "
+                            f"{sorted(d.stats.summary())}")
+        ops_served = metrics.counter_value("pifft_serve_ops_total",
+                                           op="conv")
+        if ops_served < k_burst:
+            problems.append(f"pifft_serve_ops_total{{op=conv}} = "
+                            f"{ops_served} < {k_burst}")
+        bad = [p for rec in obs_events.snapshot()
+               for p in obs_events.validate_event(rec)]
+        if bad:
+            problems.append(f"{len(bad)} schema-invalid event(s): "
+                            f"{bad[:3]}")
+    finally:
+        if owned:
+            obs.disable()
+    return problems
+
+
 def apps_main(argv) -> int:
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch apps",
@@ -236,6 +356,11 @@ def apps_main(argv) -> int:
         problems += _fusion_gate_problems(device)
         checks.append("metered fusion gate (fused floor vs unfused "
                       "control)")
+        problems += _served_conv_problems(device)
+        checks.append("served socket conv (op-tagged, coalesced, "
+                      + ("a capacity fault failed structured, the next "
+                         "request served)" if device.type != "cpu" else
+                         "degrade-tagged under a capacity fault)"))
     if args.op == "solve":
         problems += _solve_family_problems(device)
         checks.append("pde family (3-D poisson, helmholtz, variable "

@@ -209,15 +209,17 @@ def fused_cache_clear() -> None:
         _FUSED_CACHE.clear()
 
 
-def _plan_pair(shape: tuple, precision: Optional[str], device) -> tuple:
+def _plan_pair(shape: tuple, precision: Optional[str], device,
+               autotune: bool = True) -> tuple:
     """(r2c plan, c2r plan) for real planes of `shape`: the inverse at
     the forward plan's EFFECTIVE precision, so a promotion
-    (``resilience.degrade.promote_precision``) serves both directions."""
+    (``resilience.degrade.promote_precision``) serves both directions.
+    `autotune`: as ``plans.get_plan``'s."""
     fwd = plans.plan_for(shape, layout="natural", precision=precision,
-                         domain="r2c", device=device)
+                         domain="r2c", device=device, autotune=autotune)
     inv = plans.plan_for(shape, layout="natural",
                          precision=fwd.effective_precision(), domain="c2r",
-                         device=device)
+                         device=device, autotune=autotune)
     return fwd, inv
 
 
@@ -226,7 +228,7 @@ def _poisson_multiplier_on(n: int, device) -> torch.Tensor:
 
 
 def _build_fused(op: str, batch: tuple, n: int, precision: Optional[str],
-                 device) -> tuple:
+                 device, autotune: bool = True) -> tuple:
     """(run(xr, xi) -> (yr, yi), forward plan) for one op at the
     transform length n over `batch` leading dims on `device`: rfft of
     each operand, the pointwise half-spectrum multiply, irfft, the
@@ -235,7 +237,8 @@ def _build_fused(op: str, batch: tuple, n: int, precision: Optional[str],
     conv/corr: ``xr`` is the signal plane(s), ``xi`` the kernel
     plane(s), both real.  solve: ``xr`` is the field, ``xi`` ignored;
     the multiplier is the 1-D periodic Poisson symbol."""
-    fwd, inv = _plan_pair(tuple(batch) + (n,), precision, device)
+    fwd, inv = _plan_pair(tuple(batch) + (n,), precision, device,
+                          autotune)
     if op == "solve":
         mult = _poisson_multiplier_on(n, device)
 
@@ -271,7 +274,8 @@ def _refuse_card_planes(rung: str, plane) -> None:
 
 def op_executor(op: str, batch: tuple, n: int,
                 precision: Optional[str] = None,
-                rung: Optional[str] = None, device=None) -> tuple:
+                rung: Optional[str] = None, device=None,
+                autotune: bool = True) -> tuple:
     """(callable, plan) serving one op-tagged group: the fused pipeline
     (rung None) or a degradation rung that speaks the OP natively —
     ``torch-fft`` through ``torch.fft.rfft/irfft``, ``numpy-ref``
@@ -279,7 +283,8 @@ def op_executor(op: str, batch: tuple, n: int,
     operation.  The library rungs serve CPU planes only and raise for
     planes on the card, as ``resilience.degrade.rungs_for`` keeps them
     off it.  The callable takes and returns float32 planes (tensors);
-    the plan is the forward r2c plan."""
+    the plan is the forward r2c plan.  ``autotune=False`` resolves the
+    plans without a race (the serving threads' resolution)."""
     check_op(op)
     if op == "fft":
         raise ValueError("op='fft' is the plain transform: it is served "
@@ -287,9 +292,9 @@ def op_executor(op: str, batch: tuple, n: int,
     dev = _device(device)
     shape = tuple(batch) + (n,)
     if rung is None:
-        return _build_fused(op, tuple(batch), n, precision, dev)
+        return _build_fused(op, tuple(batch), n, precision, dev, autotune)
     fwd_plan = plans.plan_for(shape, layout="natural", precision=precision,
-                              domain="r2c", device=dev)
+                              domain="r2c", device=dev, autotune=autotune)
     torch_rung, numpy_rung = LIBRARY_RUNGS
     if rung == torch_rung:
         mult = _poisson_multiplier_on(n, dev) if op == "solve" else None

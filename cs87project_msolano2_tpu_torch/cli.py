@@ -5,13 +5,16 @@
     python -m cs87project_msolano2_tpu_torch -t -b cuda
     python -m cs87project_msolano2_tpu_torch -n 65536 -p 4 -b pthreads
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
-        [--backend {cuda,gpu,cpu-native}]
+        [--backend {cuda,gpu,cpu-native}] [--shapes FILE]
     python -m cs87project_msolano2_tpu_torch hw probe [--json | -v | --cores]
     python -m cs87project_msolano2_tpu_torch faults {list|inject <spec>}
     python -m cs87project_msolano2_tpu_torch multichip smoke [-n N]
         [--deadline S] [--stall S] [--world W] [--device D]
     python -m cs87project_msolano2_tpu_torch apps {conv,corr,solve}
         [--smoke] [--json] [-n N] [--device D]
+    python -m cs87project_msolano2_tpu_torch serve [--smoke | --wire-smoke
+        | --host H --port P] [--shapes FILE] [--device D] [...]
+    python -m cs87project_msolano2_tpu_torch wire {layout|probe}
     python -m cs87project_msolano2_tpu_torch obs {summary|export|validate|top}
         [--events FILE] [--format {chrome,prom}] [--out FILE] [--json]
         [--url URL] [--once]
@@ -30,7 +33,9 @@ fault and says how the retry and degradation policies carried it
 (``resilience``); ``multichip smoke`` drives the collective supervision
 -> consensus -> collective-free escape loop on a local job of W ranks
 (``parallel``); ``apps`` runs the spectral operation suite's demo or
-its smoke (``apps.cli``); ``obs`` summarizes, exports or validates an
+its smoke (``apps.cli``); ``serve`` runs the serving front door on
+one card or its smokes (``serve.cli``), ``wire`` inspects its binary
+dialect; ``obs`` summarizes, exports or validates an
 event stream, or renders a live telemetry plane (``obs``).  ``--trace
 DIR`` writes a ``torch.profiler`` trace of the run.  The tensor backends
 run on the card unless ``--device cpu`` is given; a p above a backend's
@@ -96,7 +101,13 @@ def plan_main(argv) -> int:
     )
     ap.add_argument("action", choices=("show", "warm", "clear", "sweep"))
     ap.add_argument("--shapes", default=None, metavar="FILE",
-                    help="warm a served shape set (not ported yet)")
+                    help="warm: a served shape set (JSONL of {n, batch, "
+                         "layout, precision, domain, op}, the file `serve "
+                         "--shapes` takes) in one call: raced on the "
+                         "card, static defaults where no race can run")
+    ap.add_argument("--device", default="cuda",
+                    help="warm --shapes: cuda (default: the card) or cpu "
+                         "(static plans, in this process only)")
     ap.add_argument("-n", type=_parse_n, default=1 << 20,
                     help="transform length for warm (int or 2^k; any "
                          "n >= 1: n that is not a power of two warms "
@@ -132,12 +143,6 @@ def plan_main(argv) -> int:
     from . import plans
 
     backend = args.backend or "cuda"
-
-    if args.shapes:
-        print("error: --shapes (warming a served shape set) comes with "
-              "the serving slice of the port; warm one -n at a time",
-              file=sys.stderr)
-        return 2
 
     if args.action == "clear":
         removed = plans.cache.clear(memory=True, disk=True)
@@ -199,6 +204,8 @@ def plan_main(argv) -> int:
         return 0
 
     # warm
+    if args.shapes:
+        return _warm_shapes(args)
     try:
         key = plans.make_key(args.n, tuple(args.batch), layout=args.layout,
                              precision=args.precision, domain=args.domain,
@@ -222,6 +229,118 @@ def plan_main(argv) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"warmed {key.token()}\n  -> {plan.describe()}")
+    return 0
+
+
+def _warm_shapes(args) -> int:
+    """``plan warm --shapes FILE``: the whole served shape set in one
+    call, by the function serve startup runs (``serve.shapes.warm``):
+    raced on the card, the static default where no race can run."""
+    from .serve import shapes as serve_shapes
+    from .utils.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+        specs = serve_shapes.load_shapes(args.shapes)
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    warmed = serve_shapes.warm(specs, force=args.force, verbose=True,
+                               device=device)
+    for spec, p in zip(specs, warmed):
+        ms = f" ({p.ms:.4f} ms)" if p.ms is not None else ""
+        print(f"warmed {spec.label()}: {p.variant} {p.params} "
+              f"[{p.source}]{ms}")
+    print(f"warmed {len(warmed)} shape(s) from {args.shapes}")
+    return 0
+
+
+def wire_main(argv) -> int:
+    """``wire {layout|probe}``: the binary wire protocol's tools (the
+    reference's ``wire``).  ``layout`` prints the frame header table
+    from the struct itself; ``probe`` dials a running server, negotiates,
+    and reports what the connection granted (dialect, credit window,
+    shm lane), then round-trips one PING."""
+    import asyncio
+    import json
+
+    ap = argparse.ArgumentParser(
+        prog="cs87project_msolano2_tpu_torch wire",
+        description="binary wire protocol tools")
+    ap.add_argument("cmd", choices=("layout", "probe"))
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8571)
+    ap.add_argument("--shm", action="store_true",
+                    help="probe: also ask for the shm lane")
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+
+    from .serve import wire
+
+    if args.cmd == "layout":
+        fields = (
+            ("magic", "4s", 'b"PIFB"'),
+            ("version", "u16", f"wire version (current: "
+                               f"{wire.WIRE_VERSION})"),
+            ("flags", "u16", "F_NO_XI|F_PI|F_SHM|F_STREAM|"
+                             "F_DEGRADED|F_WANT_SHM"),
+            ("msg_type", "u8", "HELLO/ACK/REQUEST/RESPONSE/ERROR/"
+                               "STREAM_*/PING/PONG"),
+            ("op", "u8", f"index into {wire.WIRE_OPS}"),
+            ("domain", "u8", f"index into {wire.WIRE_DOMAINS}"),
+            ("precision", "u8", "0 = unset, else index into the "
+                                "precision modes"),
+            ("priority", "u8", f"index into {wire.WIRE_PRIORITIES}"),
+            ("inverse", "u8", "0/1"),
+            ("dtype", "u8", "0 = float32, 1 = bfloat16"),
+            ("pad", "u8", "reserved (zero)"),
+            ("rid", "u64", "request id (echoed on the reply)"),
+            ("n", "u32", "logical transform length"),
+            ("width", "u32", "plane elements in the payload"),
+            ("extras_len", "u32", "metadata blob bytes (JSON: "
+                                  "tenant/trace/response meta)"),
+            ("slot", "u32", "shm slot / stream seq / HELLO_ACK "
+                            "credit window"),
+            ("payload_len", "u64", "raw plane bytes (xr then xi, "
+                                   "contiguous)"),
+        )
+        if args.json:
+            print(json.dumps({
+                "magic": "PIFB", "version": wire.WIRE_VERSION,
+                "header_bytes": wire.HEADER.size,
+                "struct": wire.HEADER.format,
+                "fields": [{"name": n, "type": t, "meaning": m}
+                           for n, t, m in fields]}, indent=1))
+        else:
+            print(f"# wire header: {wire.HEADER.size} bytes, "
+                  f"little-endian ({wire.HEADER.format})")
+            for name, typ, meaning in fields:
+                print(f"{name:<12} {typ:<4} {meaning}")
+        return 0
+
+    async def probe():
+        c = await wire.WireClient.connect(args.host, args.port,
+                                          want_shm=args.shm)
+        out = {"dialect": c.dialect}
+        if c.dialect == "binary":
+            out["credits"] = c.window
+            out["shm"] = c.shm.name if c.shm is not None else None
+            out["pong"] = await c.ping()
+        await c.close()
+        return out
+
+    try:
+        out = asyncio.run(probe())
+    except (OSError, wire.WireError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(out, indent=1, sort_keys=True))
+    else:
+        print(f"# {args.host}:{args.port} -> dialect={out['dialect']}"
+              + (f" credits={out['credits']} shm={out['shm']} "
+                 f"pong={out['pong']}"
+                 if out["dialect"] == "binary" else ""))
     return 0
 
 
@@ -569,6 +688,12 @@ def main(argv=None) -> int:
         from .apps.cli import apps_main
 
         return apps_main(argv[1:])
+    if argv and argv[0] == "serve":
+        from .serve.cli import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "wire":
+        return wire_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="cs87project_msolano2_tpu_torch",
         description="communication-free pi-FFT on PyTorch/CUDA",

@@ -77,16 +77,19 @@ def make_key(n: int, batch: tuple = (), layout: str = "natural",
     )
 
 
-def get_plan(key: PlanKey, device: str = "cuda") -> Plan:
+def get_plan(key: PlanKey, device: str = "cuda",
+             autotune: bool = True) -> Plan:
     """The plan for `key`: in-process cache, then disk cache, then the
     static default (memoized).  Never tunes unless the user opted in
     with PIFFT_PLAN_AUTOTUNE=1 and `device` is a card; even then a
     failed race warns once and falls through to the static default,
-    which then serves the key without another race."""
+    which then serves the key without another race.  ``autotune=False``
+    never races, opt-in or not: the serving threads resolve their plans
+    so (a race in a request's path would hold every queued request)."""
     hit = cache.lookup(key)
     if hit is not None and hit.source != "static":
         return hit
-    opt_in = (os.environ.get("PIFFT_PLAN_AUTOTUNE") == "1"
+    opt_in = (autotune and os.environ.get("PIFFT_PLAN_AUTOTUNE") == "1"
               and device_is_tunable(device)
               and not offline_kind(key.device_kind)
               and not cache.race_failed(key))
@@ -102,7 +105,7 @@ def get_plan(key: PlanKey, device: str = "cuda") -> Plan:
         # path's.  Odd n resolves below, on the any-length ladder
         from . import ladder
 
-        inner = get_plan(ladder.c2c_subkey(key), device)
+        inner = get_plan(ladder.c2c_subkey(key), device, autotune)
         plan = Plan(key=key, variant=inner.variant,
                     params=dict(inner.params), source=inner.source,
                     device=str(device))
@@ -194,23 +197,27 @@ def measured_ms(key: PlanKey, *, verbose: bool = True, device="cuda",
 
 def plan(n: int, batch: tuple = (), layout: str = "natural",
          precision: str | None = None, domain: str = "c2c",
-         device="cuda", backend: str = "cuda") -> Plan:
+         device="cuda", backend: str = "cuda",
+         autotune: bool = True) -> Plan:
     """The single dispatch point: ``plan(n).execute(xr, xi)``.  Numpy
     input to ``execute`` goes to `device` — the card by default.
     `backend` picks the lowering family: "cuda" (the port's kernels),
     "gpu" or "cpu-native" (``hw.lowering``; cpu-native runs the C core
-    on the host, the planes' device whatever it is)."""
+    on the host, the planes' device whatever it is).  `autotune`: as
+    :func:`get_plan`'s."""
     return get_plan(make_key(n, batch, layout, precision, domain=domain,
-                             backend=backend, device=device), str(device))
+                             backend=backend, device=device), str(device),
+                    autotune)
 
 
 def plan_for(shape, layout: str = "natural",
              precision: str | None = None, domain: str = "c2c",
-             device="cuda", backend: str = "cuda") -> Plan:
+             device="cuda", backend: str = "cuda",
+             autotune: bool = True) -> Plan:
     """Plan for float-plane arrays of `shape` (trailing axis = transform
     length, leading axes = batch).  For every domain the shape is the
     signal side's: a c2r plan's executor takes half-spectrum planes, but
     its key's n is the real length."""
     shape = tuple(shape)
     return plan(shape[-1], shape[:-1], layout, precision, domain=domain,
-                device=device, backend=backend)
+                device=device, backend=backend, autotune=autotune)

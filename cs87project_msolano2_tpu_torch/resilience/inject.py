@@ -60,15 +60,17 @@ KNOWN_SITES = {
                   "and at collective_watchdog's arm point)",
     "bench": "bench.py measurement loops",
     "harness": "harness/run_experiments.py sweep cells",
-    "serve": "the serving batcher's tuned-kernel batch (not ported yet: "
-             "comes with serving)",
+    "serve": "the serving batcher's tuned-plan batch (serve/batcher.py "
+             "BatchRunner._invoke: every attempt of the plan's executor, "
+             "before the batch is copied to the card; the fallback rungs "
+             "stay clean)",
     "device": "per-device batch execution of a serving mesh, one site "
               "per device named device<K> (not ported yet: comes with "
-              "serving)",
+              "the mesh slice of serving)",
     "canary": "the fleet canary's shadow re-race (not ported yet: comes "
-              "with serving)",
+              "with fleet)",
     "promote": "the fleet canary's promotion write (not ported yet: "
-               "comes with serving)",
+               "comes with fleet)",
 }
 
 KINDS = ("transient", "capacity", "permanent", "timeout", "stall")

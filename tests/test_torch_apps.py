@@ -555,8 +555,11 @@ def test_apps_smoke_on_the_cpu(op, capsys):
                                CPU]) == 0
     rep = json.loads(capsys.readouterr().out)
     assert rep["ok"] and rep["problems"] == [] and rep["device"] == CPU
-    # the served socket conv comes with serving: not claimed as passed
-    assert not any("served" in c for c in rep["checks"])
+    # the served socket conv is conv's third check, as the reference's
+    served = [c for c in rep["checks"] if "served" in c]
+    assert len(served) == (op == "conv")
+    if served:
+        assert "degrade-tagged" in served[0]
 
 
 def test_apps_cli_demo_and_dispatch(capsys):

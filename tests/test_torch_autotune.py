@@ -647,9 +647,19 @@ def test_cli_plan_warm_refuses_offline(argv, capsys):
     assert "offline" in capsys.readouterr().err
 
 
-def test_cli_plan_shapes_waits_for_the_serve_slice(capsys):
-    assert cli_main(["plan", "warm", "--shapes", "shapes.jsonl"]) == 2
-    assert "serving slice" in capsys.readouterr().err
+def test_cli_plan_shapes_waits_for_the_serve_slice(capsys, tmp_path):
+    # the serve slice has landed: --shapes warms a served shape set (the
+    # serve tests cover its output); a file that cannot be read is a
+    # usage error naming it, and without a card the default device is
+    # refused as every entry point refuses it
+    missing = str(tmp_path / "shapes.jsonl")
+    assert cli_main(["plan", "warm", "--shapes", missing, "--device",
+                     "cpu"]) == 2
+    assert "shapes.jsonl" in capsys.readouterr().err
+    (tmp_path / "ok.jsonl").write_text('{"n": 256}\n')
+    assert cli_main(["plan", "warm", "--shapes",
+                     str(tmp_path / "ok.jsonl"), "--device", "cpu"]) == 0
+    assert "warmed 1 shape(s)" in capsys.readouterr().out
 
 
 def test_cli_plan_warm_refuses_unported_keys(capsys, monkeypatch,

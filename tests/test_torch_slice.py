@@ -298,7 +298,11 @@ def test_port_imports_no_jax():
         "'harness.run_sharded_experiments', 'apps.spectral', "
         "'apps.stream', 'apps.cli', 'obs', 'obs.events', 'obs.spans', "
         "'obs.metrics', 'obs.export', 'obs.trace', 'obs.profiler', "
-        "'obs.http', 'obs.slomon', 'utils.tracing']\n"
+        "'obs.http', 'obs.slomon', 'utils.tracing', 'utils.stats', "
+        "'serve', 'serve.slo', 'serve.shapes', 'serve.buffers', "
+        "'serve.batcher', 'serve.dispatcher', 'serve.wire', 'serve.shm', "
+        "'serve.protocol', 'serve.cli', 'serve.precision_smoke', "
+        "'serve.anylen_smoke']\n"
         "assert all(pkg.__name__ + '.' + m in mods for m in new), mods\n"
         "from cs87project_msolano2_tpu_torch.utils.roofline import (\n"
         "    SPECTRAL_OPS, charge_spectral_traffic,\n"
