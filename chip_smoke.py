@@ -159,7 +159,15 @@ p99 before and after the kill; ``serve --devices 4 --mesh-smoke``,
 ``phase_analysis``: ``analyze fit`` of the paper's law on phase 14's
 (n, p) TSV, its coefficients, CIs, R^2 and verdict printed as a
 finding; ``analyze report`` on phase 14's record and phase 20's serving
-records, every row parsed and the untagged rows tagged ``cuda``).  Phase 14's bench record carries the conv2^K
+records, every row parsed and the untagged rows tagged ``cuda``) and the
+fleet loop (phase 22, ``phase_fleet``: ``fleet smoke`` and ``hw smoke``
+as subprocesses one after the other — drift under a stall flagged by
+Mann-Whitney, the canary's promotion, p99's recovery, the rollback's
+byte-identical store, the warm restart, the served batches' launches
+counted; the two-backend mesh's cross-backend kill through tile_fft
+and gpu_rows — then the five-config record of ``bench_configs``, config
+1 from phase 15, config 2 the store's 2^20 winner, configs 3-5 from
+phase 16's world-1 job, whose sharded slopes those functions take).  Phase 14's bench record carries the conv2^K
 and conv_np rows, its os2^K rows skipped past MAX_BLOCK.  Phase 11's
 pi-layout oracle gathers on the card and its slopes take the fitted
 window (``slope_ms``), the cut that pays for phase 17.
@@ -168,7 +176,7 @@ standard output is
 ``{"ok": true, "device": {...}}``; any failed phase raises and the
 script exits non-zero without it.  It imports nothing of JAX.
 The loop slopes (``slope_ms``) read a call of more than about a
-millisecond over the window that takes about 200 ms a run, not the
+millisecond over the window that takes about 100 ms a run, not the
 reference's 256 or 1024 calls, as the race's timer does.
 
 Bounds and carry ceilings come from the port's ``utils/roofline.py``:
@@ -439,22 +447,10 @@ def counted(fn, *args):
 
     from cs87project_msolano2_tpu_torch.ops import cuda_fft as cf
 
-    def refused(*_a, **_k):
-        raise AssertionError("a domain path reached torch.fft or numpy.fft")
-
-    fallbacks = [(mod, name) for mod in (torch.fft, np.fft)
-                 for name in ("fft", "ifft", "rfft", "irfft")]
-    saved = [getattr(mod, name) for mod, name in fallbacks]
-    for mod, name in fallbacks:
-        setattr(mod, name, refused)
-    cf.reset_launch_counts()
-    try:
+    with cf.library_fft_refused(numpy_too=True) as launched:
         out = fn(*args)
         torch.cuda.synchronize()
-    finally:
-        for (mod, name), f in zip(fallbacks, saved):
-            setattr(mod, name, f)
-    return out, {k: v for k, v in cf.launch_counts().items() if v}
+    return out, launched
 
 
 def domain_case(dev, rng, timed, label, domain, shape, want, want_launches):
@@ -1167,13 +1163,13 @@ def phase_backends(dev, rng):
 
     import torch
 
+    from cs87project_msolano2_tpu_torch import bench_configs
     from cs87project_msolano2_tpu_torch.backends.cpu import (
         NativeBackend,
         num_cores,
     )
     from cs87project_msolano2_tpu_torch.cli import main as cli_main
     from cs87project_msolano2_tpu_torch.harness import run_experiments
-    from cs87project_msolano2_tpu_torch.models.direct_dft import dft_direct
 
     rows = {}
     launches = {}
@@ -1270,16 +1266,16 @@ def phase_backends(dev, rng):
         shutil.rmtree(out, ignore_errors=True)
     rows["harness"] = sweeps
 
-    # (d) BASELINE config 1: the float64 direct DFT at N = 1024
-    x1 = rng.standard_normal(1024) + 1j * rng.standard_normal(1024)
-    y1 = dft_direct(x1, np.complex128)
-    ref1 = np.fft.fft(x1)
-    e1 = float(np.linalg.norm(y1 - ref1) / np.linalg.norm(ref1))
+    # (d) BASELINE config 1: the float64 direct DFT at N = 1024, the
+    # five-config record's row (bench_configs), assembled in phase 22
+    row1 = bench_configs.config1_direct_dft_f64()
+    e1 = row1["rel_l2_vs_numpy"]
     log(f"# phase 15 BASELINE config 1 dft_direct N=1024 complex128: rel "
-        f"L2 {e1:.3e} vs numpy.fft (bound {CONFIG1_TOL}), dtype "
-        f"{y1.dtype}")
-    rows["config1"] = {"rel_l2": e1}
-    if not (e1 <= CONFIG1_TOL and y1.dtype == np.complex128):
+        f"L2 {e1:.3e} vs numpy.fft (bound {CONFIG1_TOL}), max abs over "
+        f"max {row1['rel_err_vs_numpy']:.3e}, dtype {row1['dtype']}, "
+        f"{row1['ms']:.3f} ms (one call, host clock)")
+    rows["config1"] = {"rel_l2": e1, "bench_config": row1}
+    if not (e1 <= CONFIG1_TOL and row1["dtype"] == "complex128"):
         raise AssertionError("phase 15 config 1 failed")
     return rows, launches
 
@@ -1363,7 +1359,7 @@ def p16_world1(poisson_path):
     the twins' too, returned for the parent's oracles."""
     import torch
 
-    from cs87project_msolano2_tpu_torch import plans
+    from cs87project_msolano2_tpu_torch import bench_configs, plans
     from cs87project_msolano2_tpu_torch.apps.pde import poisson_solve
     from cs87project_msolano2_tpu_torch.models.fft import (
         fft2,
@@ -1390,8 +1386,10 @@ def p16_world1(poisson_path):
     def events(fn, *args):
         return time_ms(fn, *args, reps=10, warmup=2, flush_l2=True)[0]
 
-    def case(run, twin, args, twin_args, plan_shapes):
-        run(*args)
+    def case(run, twin, args, twin_args, plan_shapes, bench):
+        # the sharded entry's slope is the five-config record's row
+        # (bench_configs: its first call warms it)
+        bench_row, _ = bench()
         twin(*twin_args)
         torch.cuda.synchronize()
         out, launched, colls, copies = p16_counted(run, *args)
@@ -1403,28 +1401,32 @@ def p16_world1(poisson_path):
                twin_copies,
                "plans": {str(s): plans.plan_for(s, device=dev).variant
                          for s in plan_shapes},
-               "slope_ms": slope_ms(run, *args),
+               "slope_ms": bench_row["ms"],
                "event_ms": events(run, *args),
                "twin_slope_ms": slope_ms(twin, *twin_args),
-               "twin_event_ms": events(twin, *twin_args)}
+               "twin_event_ms": events(twin, *twin_args),
+               "bench_config": bench_row}
         return row, to_host(out), to_host(twin_out)
 
     rows, outs = {}, {}
     xr, xi = p16_planes(dev, P16_ROWS, P16_SEEDS["rows"])
     rows["config 3"], outs["config 3"], outs["config 3 twin"] = case(
         lambda a, b: fft_batched_planes(a, b, mesh_d),
-        lambda a, b: fft_planes_fast(a, b), (xr, xi), (xr, xi), [P16_ROWS])
+        lambda a, b: fft_planes_fast(a, b), (xr, xi), (xr, xi), [P16_ROWS],
+        lambda: bench_configs.config3_batched(mesh_d, planes=(xr, xi)))
     R, C = P16_FFT2
     xr, xi = p16_planes(dev, P16_FFT2, P16_SEEDS["fft2"])
     x = torch.complex(xr, xi)
     rows["config 4"], outs["config 4"], outs["config 4 twin"] = case(
         lambda a, b: fft2_sharded_planes(a, b, mesh),
-        lambda v: fft2(v), (xr, xi), (x,), [(R, C), (C, R)])
+        lambda v: fft2(v), (xr, xi), (x,), [(R, C), (C, R)],
+        lambda: bench_configs.config4_fft2d(mesh, planes=(xr, xi)))
     del xr, xi, x
     f = torch.from_numpy(np.load(poisson_path)).to(dev)
     rows["config 5"], outs["config 5"], outs["config 5 twin"] = case(
         lambda v: poisson_solve_sharded(v, mesh),
-        lambda v: poisson_solve(v), (f,), (f,), [P16_POISSON])
+        lambda v: poisson_solve(v), (f,), (f,), [P16_POISSON],
+        lambda: bench_configs.config5_poisson(mesh, f=f))
     rows["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     return rows, outs
 
@@ -2962,15 +2964,8 @@ def phase_serve(dev, rng, paths=None):
             box["error"] = e
             ready.set()
 
-    fallbacks = [(mod, name) for mod in (torch.fft,)
-                 for name in ("fft", "ifft", "rfft", "irfft")]
-    saved = [getattr(mod, name) for mod, name in fallbacks]
-
-    def refused(*_a, **_k):
-        raise AssertionError("a served request reached torch.fft")
-
-    for mod, name in fallbacks:
-        setattr(mod, name, refused)
+    refusal = contextlib.ExitStack()
+    refusal.enter_context(cf.library_fft_refused())
     thread = threading.Thread(target=server_thread, daemon=True)
     thread.start()
     procs = {}
@@ -3078,8 +3073,7 @@ def phase_serve(dev, rng, paths=None):
             check(f"{spec.label()} coalesced", entry["mean_batch"] > 1,
                   f"mean batch {entry['mean_batch']:.2f}")
     finally:
-        for mod, name in fallbacks:
-            setattr(mod, name, saved[fallbacks.index((mod, name))])
+        refusal.close()
         stop.set()
         thread.join(60)
 
@@ -3391,13 +3385,6 @@ def phase_mesh(dev, rng):
 
     def budget(spec):
         return BF16_BUDGET if spec.precision == "bf16" else PATH_TOL
-
-    fallbacks = [(torch.fft, name)
-                 for name in ("fft", "ifft", "rfft", "irfft")]
-    saved = [getattr(mod, name) for mod, name in fallbacks]
-
-    def refused(*_a, **_k):
-        raise AssertionError("a served request reached torch.fft")
 
     cmds = {
         "serve --devices 4 --mesh-smoke": [
@@ -3763,14 +3750,10 @@ def phase_mesh(dev, rng):
               and set(states.values()) <= {"dead", "drained"},
               f"errors {types}, states {states}")
 
-    for mod, name in fallbacks:
-        setattr(mod, name, refused)
     try:
-        with obs.armed():
+        with obs.armed(), cf.library_fft_refused():
             asyncio.run(drive())
     finally:
-        for (mod, name), fn in zip(fallbacks, saved):
-            setattr(mod, name, fn)
         os.environ.pop("PIFFT_FAULT", None)
         for name in list(procs):
             finish(name)
@@ -3962,6 +3945,130 @@ def phase_analysis(harness_tsv, bench_record, serve_records):
     if problems:
         raise AssertionError(f"phase 21 failed: {problems}")
     return rows
+
+
+#: phase 22's subprocesses' time limit, seconds each
+FLEET_TIMEOUT_S = 300
+
+
+def fleet_subprocess(label, args):
+    """(summary, finding lines, seconds) of one smoke run as a
+    subprocess on the card with a fresh plan store of its own: the
+    ``#`` lines it prints, then its JSON summary.  Raises if it exits
+    non-zero."""
+    env = dict(os.environ)
+    cache = tempfile.mkdtemp(prefix="pifft-fleet-store-")
+    env["PIFFT_PLAN_CACHE"] = cache
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "cs87project_msolano2_tpu_torch", *args],
+            capture_output=True, text=True, timeout=FLEET_TIMEOUT_S,
+            env=env)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 22 {label} exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("{"))
+    findings = [line for line in lines[:start] if line.startswith("# ")]
+    return json.loads("\n".join(lines[start:])), findings, secs
+
+
+def phase_fleet(dev, config1_row, parallel_rows):
+    """Phase 22: the fleet loop and the backend plane on the card, then
+    the five-config record.  ``fleet smoke`` and ``hw smoke`` run as two
+    subprocesses, one after the other, each on a plan store of its own:
+    the fleet smoke's drift under a stall flagged by Mann-Whitney, the
+    canary's promotion at p < alpha, live p99's recovery, the rollback's
+    byte-identical store and the warm restart with no tuning event, its
+    served batches' kernel launches counted with torch.fft refused and
+    held to each label's batches times its plan's launches, each
+    window's host load beside its latencies; the
+    hw smoke's plan-key axis, probe, ceilings, the two-backend mesh's
+    cross-backend kill with zero drops and its answers within 1e-4
+    through tile_fft and gpu_rows, the backend bench rows.  Then the
+    record (``bench_configs``): config 1 from phase 15, config 2 the
+    store's 2^20 winner (``plans.measured_ms``), configs 3-5 from phase
+    16's world-1 job, each stamped with the card's name and power limit;
+    all five rows present and none with ``error``.  Returns (rows,
+    launches by kernel of the fleet's served batches, launches by kernel
+    of the two-backend mesh); raises on any failure."""
+    from cs87project_msolano2_tpu_torch import bench_configs
+
+    t_phase = time.perf_counter()
+    rows = {}
+    fleet, findings, secs = fleet_subprocess("fleet smoke",
+                                             ["fleet", "smoke"])
+    for line in findings:
+        log(f"# phase 22 {line[2:]}")
+    phases = fleet["phases"]
+    outcome = phases["C"]["outcome"]
+    served = fleet["served"]
+    rows["fleet"] = {"seconds": secs, "summary_seconds": fleet["seconds"],
+                     "drift": phases["B"]["drift"],
+                     "outcome": outcome,
+                     "same_plan": phases["C"]["same_plan"],
+                     "kept": phases["C"]["kept"],
+                     "vs_drifted": phases["C"]["vs_drifted"],
+                     "vs_a": phases["C"]["vs_a"],
+                     "drifted_p99_ms": phases["C"]["drifted_p99_ms"],
+                     "recovered_p99_ms": phases["C"]["recovered_p99_ms"],
+                     "rollback": phases["D"],
+                     "prewarmed": phases["E"]["prewarmed"],
+                     "traffic": {k: phases[k]["traffic"]
+                                 for k in ("A", "B", "C")},
+                     "served": served, "events": fleet["events"],
+                     "windows": {k: phases[k]["window"]
+                                 for k in ("A", "C")}}
+    log(f"# phase 22 fleet smoke: {secs:.1f} s (its own clock "
+        f"{fleet['seconds']:.1f} s), ok {fleet['ok']}, device "
+        f"{fleet['device']}, the winner the prior plan "
+        f"{phases['C']['same_plan']}, the loop "
+        f"{'kept' if phases['C']['kept'] else 'rolled back'} the "
+        f"promotion, events {fleet['events']}")
+    if not (fleet["ok"] and fleet["device"].startswith("cuda")
+            and outcome["epoch"] == 1
+            and outcome["verdict"]["significant"]
+            and phases["C"]["vs_drifted"]["significant"]
+            and phases["D"]["outcome"]["rolled_back"]
+            and served["batches"] > 0
+            and served["launches"] == served["want"]):
+        raise AssertionError(f"phase 22 fleet smoke: {rows['fleet']}")
+
+    hw, _, secs = fleet_subprocess("hw smoke", ["hw", "smoke"])
+    d = hw["phases"]["D"]
+    rows["hw"] = {"seconds": secs, "phases": hw["phases"],
+                  "events": hw["events"]}
+    log(f"# phase 22 hw smoke: {secs:.1f} s, ok {hw['ok']}; A "
+        f"{hw['phases']['A']}; B {hw['phases']['B']}; C "
+        f"{hw['phases']['C']}; D devices {d['devices']}, killed "
+        f"{d['killed']}, {d['crossed']} re-routed across backends, max "
+        f"parity rel err {d['max_parity_relerr']:.3e} (bound 1e-4) at n = "
+        f"{d['n']}, launches {d['launches']}; E {hw['phases']['E']}")
+    if not (hw["ok"] and hw["device"].startswith("cuda")
+            and d["launches"].get("tile_fft") and d["launches"].get(
+                "gpu_rows") and d["max_parity_relerr"] < 1e-4):
+        raise AssertionError(f"phase 22 hw smoke: {rows['hw']}")
+
+    t0 = time.perf_counter()
+    config2 = bench_configs.config2_fft_2e20(device=dev)
+    record = bench_configs.record(
+        [config1_row, config2] + [parallel_rows[f"config {k}"]
+                                  ["bench_config"] for k in (3, 4, 5)],
+        dev)
+    problems = bench_configs.check_record(record)
+    rows["record"] = record
+    log(f"# phase 22 five-config record ({time.perf_counter() - t0:.1f} "
+        f"s; config 2 from the store, plan {config2['plan']}): "
+        + json.dumps(record))
+    if problems:
+        raise AssertionError(f"phase 22 five-config record: {problems}")
+    rows["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 22 took {rows['seconds']:.1f} s (budget 60 s)")
+    return rows, served["launches"], d["launches"]
 
 
 def main() -> int:
@@ -5569,6 +5676,12 @@ def run(store) -> int:
     clock.start("phase 21")
     analysis21 = phase_analysis(harness_tsv, measurement["record"],
                                 serve_records)
+    # phase 22: the fleet loop, the two-backend smoke, the five-config
+    # record
+    clock.start("phase 22")
+    torch.cuda.empty_cache()
+    fleet22, fleet_launches, hw_launches = phase_fleet(
+        dev, backends15["config1"]["bench_config"], parallel16["world 1"])
     clock.start(None)
     log(f"# seconds by phase: {clock.seconds}; all phases "
         f"{sum(clock.seconds.values()):.1f} s")
@@ -5647,7 +5760,9 @@ def run(store) -> int:
             "apps_launches": apps_launches.get(name, 0),
             "obs_launches": obs_launches.get(name, 0),
             "serve_launches": serve_launches.get(name, 0),
-            "mesh_launches": mesh_launches.get(name, 0)})
+            "mesh_launches": mesh_launches.get(name, 0),
+            "fleet_launches": fleet_launches.get(name, 0),
+            "hw_smoke_launches": hw_launches.get(name, 0)})
     checks = {label: {"rel_l2": c["rel_l2"], "max_abs_err": c["max_abs_err"]}
               for label, c in cases.items()}
     log(json.dumps({"timings": timings, "paths": paths, "card": card,
@@ -5660,7 +5775,7 @@ def run(store) -> int:
                     "harness_tsv": harness_tsv, "backends": backends15,
                     "parallel": parallel16, "apps": apps17,
                     "obs": obs18, "serve": serve19, "mesh": mesh20,
-                    "analysis": analysis21,
+                    "analysis": analysis21, "fleet": fleet22,
                     "seconds_by_phase": clock.seconds,
                     "tuned": {"race_2^20_pi": race,
                               "winner_pi": tuned_pi.describe(),

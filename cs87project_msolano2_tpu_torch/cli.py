@@ -7,6 +7,9 @@
     python -m cs87project_msolano2_tpu_torch plan {show|warm|clear|sweep}
         [--backend {cuda,gpu,cpu-native}] [--shapes FILE]
     python -m cs87project_msolano2_tpu_torch hw probe [--json | -v | --cores]
+    python -m cs87project_msolano2_tpu_torch hw smoke [--device D]
+    python -m cs87project_msolano2_tpu_torch fleet {smoke [--device D]|model
+        [--json]}
     python -m cs87project_msolano2_tpu_torch faults {list|inject <spec>}
     python -m cs87project_msolano2_tpu_torch multichip smoke [-n N]
         [--deadline S] [--stall S] [--world W] [--device D]
@@ -29,7 +32,10 @@ tube_ms) for any backend of the registry (``-b``: the native C core's
 own, ``pifft_golden_test``, for the native backends; exact, or within
 the backend's ``golden_atol``);
 ``plan`` manages the persistent plan store (``plans.cache``); ``hw
-probe`` prints the device inventory (``hw.inventory``); ``faults``
+probe`` prints the device inventory (``hw.inventory``) and ``hw smoke``
+runs the two-backend acceptance drive (``hw.smoke``); ``fleet`` runs
+the closed fleet loop's smoke or prints the arrival model (``fleet``);
+``faults``
 lists the fault-injection sites or runs one transform under an injected
 fault and says how the retry and degradation policies carried it
 (``resilience``); ``multichip smoke`` drives the collective supervision
@@ -666,10 +672,16 @@ def _obs_top(args) -> int:
 
 
 def hw_main(argv) -> int:
-    """``hw probe`` — the device inventory (``hw.inventory.main``)."""
+    """``hw probe`` — the device inventory (``hw.inventory.main``);
+    ``hw smoke`` — the two-backend acceptance drive (``hw.smoke``)."""
+    if argv and argv[0] == "smoke":
+        from .hw.smoke import main as smoke_main
+
+        return smoke_main(argv[1:])
     if not argv or argv[0] != "probe":
         print("usage: cs87project_msolano2_tpu_torch hw probe "
-              "[--json | -v | --cores]", file=sys.stderr)
+              "[--json | -v | --cores] | hw smoke [--device cpu]",
+              file=sys.stderr)
         return 2
     from .hw.inventory import main as inventory_main
 
@@ -693,6 +705,10 @@ def main(argv=None) -> int:
         from .analyze.cli import analyze_main
 
         return analyze_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        from .fleet.cli import fleet_main
+
+        return fleet_main(argv[1:])
     if argv and argv[0] == "apps":
         from .apps.cli import apps_main
 

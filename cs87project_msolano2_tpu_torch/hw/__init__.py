@@ -11,9 +11,8 @@ families.
   backend (the native C core, ``backends.cpu``, with p the raced
   parameter), which ``plans.ladder`` dispatches to for keys of those
   backends.
-
-The reference's ``smoke`` (a two-backend failover mesh) comes with
-serving.
+* ``smoke``     — the acceptance drive: a two-backend mesh (``cuda`` +
+  ``gpu``) with a cross-backend failover mid-run (``hw smoke``).
 """
 
 from __future__ import annotations

@@ -59,6 +59,7 @@ with a ValueError naming the limiting pair.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import functools
 
 import torch
@@ -1385,6 +1386,36 @@ def launch_counts() -> dict:
     counts.update({f"{k.__name__}_bf16": k.launches_bf16
                    for k in BF16_KERNELS})
     return counts
+
+
+@contextlib.contextmanager
+def library_fft_refused(numpy_too: bool = False):
+    """Refuse ``torch.fft``'s transforms (and ``numpy.fft``'s with
+    `numpy_too`) inside the block, so a path that reaches one raises
+    instead of serving, with the launch counts reset on entry.  Yields a
+    dict that holds, once the block has ended, its nonzero
+    ``launch_counts()``."""
+    import numpy as np
+
+    modules = (torch.fft, np.fft) if numpy_too else (torch.fft,)
+    slots = [(mod, name) for mod in modules
+             for name in ("fft", "ifft", "rfft", "irfft")]
+    saved = [getattr(mod, name) for mod, name in slots]
+    what = " or ".join(mod.__name__ for mod in modules)
+
+    def refused(*_a, **_k):
+        raise AssertionError(f"a counted path reached {what}")
+
+    for mod, name in slots:
+        setattr(mod, name, refused)
+    reset_launch_counts()
+    launched: dict = {}
+    try:
+        yield launched
+    finally:
+        for (mod, name), fn in zip(slots, saved):
+            setattr(mod, name, fn)
+        launched.update({k: v for k, v in launch_counts().items() if v})
 
 
 # --- compositions -----------------------------------------------------------

@@ -9,9 +9,9 @@ plan dispatch (``plans/core.py``, ``plan``), tube-plan resolution
 (``ops/anylen.py``, ``anylen``), the sharded pi-FFT entries
 (``parallel/pi_shard.py``, ``shard``), collective supervision
 (``resilience/watchdog.py``, ``collective``), the bench's measurement
-loops (``bench``) and the harness's sweep cells (``harness``).  The
-sites of modules the port does not have yet (serving) keep their names
-here and fire nowhere until those modules land.
+loops (``bench``), the harness's sweep cells (``harness``), the serving
+batcher (``serve``) and mesh devices (``device<K>``), and the fleet
+canary's race and promotion write (``canary``, ``promote``).
 
 Arming:
 
@@ -71,10 +71,12 @@ KNOWN_SITES = {
               "spec wedges the device until the batch supervisor "
               "(MeshConfig.batch_deadline_s) aborts it; either way the "
               "mesh marks the device dead and re-routes its requests",
-    "canary": "the fleet canary's shadow re-race (not ported yet: comes "
-              "with fleet)",
-    "promote": "the fleet canary's promotion write (not ported yet: "
-               "comes with fleet)",
+    "canary": "the fleet canary's shadow re-race (fleet/canary.py "
+              "CanaryController.race: before any timing; a fault aborts "
+              "the race with nothing written)",
+    "promote": "the fleet canary's promotion write (fleet/canary.py: "
+               "between the journaled epoch and the store write; a "
+               "fault rolls the store back byte for byte)",
 }
 
 KINDS = ("transient", "capacity", "permanent", "timeout", "stall")

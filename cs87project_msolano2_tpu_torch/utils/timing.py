@@ -55,8 +55,9 @@ SLOPE_REPS = 5
 #: cycles the card spins before each timed replay, so the host has
 #: enqueued the whole graph before the start event fires (about 10 ms)
 SPIN_CYCLES = 20_000_000
-#: the longest run ``fitted_window`` aims a window's k2 calls at, ms
-FITTED_RUN_MS = 200.0
+#: the longest run ``fitted_window`` aims a window's k2 calls at, ms: a
+#: run of 100 ms is still about 50 times the SLOPE_MIN_DELTA_MS floor
+FITTED_RUN_MS = 100.0
 #: ``race_window`` halves the big window for each doubling of the input
 #: past this many elements
 RACE_HALVING_ELEMENTS = 1 << 24

@@ -591,3 +591,317 @@ def test_cpu_native_race_on_the_host_clock():
     assert all(r.status in ("won", "lost") for r in plan.tuning)
     assert key.token() != PlanKey(device_kind=CARD, n=1024,
                                   layout="pi").token()
+
+
+# ----------------------------------------- cross-backend mesh failover
+
+
+def _rel(got, ref):
+    """rel L2 of complex arrays (numpy)."""
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _mesh_planes(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+def test_cross_backend_failover_tags_trail(plan_cache_tmp):
+    """The reference's test_hw.py:205 on the port: kill the ``cuda``
+    home of a two-tag mesh; re-routes that CROSS the backend boundary
+    carry the second trail entry and bump the cross-backend counter;
+    answers stay numpy-correct.  The reference's mesh (cpu-interpret +
+    gpu) gives the same trail."""
+    import asyncio
+
+    from cs87project_msolano2_tpu import obs as ref_obs
+    from cs87project_msolano2_tpu import resilience as ref_resilience
+    from cs87project_msolano2_tpu.obs import metrics as ref_metrics
+    from cs87project_msolano2_tpu.serve import batcher as ref_batcher
+    from cs87project_msolano2_tpu.serve import mesh as ref_mesh
+    from cs87project_msolano2_tpu.serve import shapes as ref_shapes
+    from cs87project_msolano2_tpu_torch import obs, resilience
+    from cs87project_msolano2_tpu_torch.obs import metrics
+    from cs87project_msolano2_tpu_torch.serve import (
+        GroupKey,
+        MeshConfig,
+        MeshDispatcher,
+        ShapeSpec,
+    )
+
+    n = 256
+    xr, xi = _mesh_planes(n, 31)
+
+    def drive(cfg_cls, mesh_cls, spec_cls, group_cls, inject, backends,
+              **kw):
+        async def main():
+            cfg = cfg_cls(devices=2, max_batch=2, max_wait_ms=2.0,
+                          backends=backends)
+            async with mesh_cls(cfg, [spec_cls(n=n)], **kw) as mesh:
+                home = mesh.router.route(group_cls(n=n), record=False)
+                await mesh.submit(xr, xi)  # prime the home device
+                # prime the survivor too, so failover lands on a warm body
+                home.state = "draining"
+                await mesh.submit(xr, xi)
+                home.state = "healthy"
+                with inject(home.site, "permanent", count=1):
+                    results = await asyncio.gather(
+                        *[mesh.submit(xr, xi) for _ in range(6)])
+                return mesh, home, results
+
+        return asyncio.run(asyncio.wait_for(main(), timeout=180.0))
+
+    obs.enable()
+    ref_obs.enable()
+    try:
+        mesh, home, results = drive(MeshConfig, MeshDispatcher, ShapeSpec,
+                                    GroupKey, resilience.inject,
+                                    ("cuda", "gpu"), device="cpu")
+        cross = metrics.counter_value(
+            "pifft_serve_failover_cross_backend_total", device=home.id)
+        _, ref_home, ref_results = drive(
+            ref_mesh.MeshConfig, ref_mesh.MeshDispatcher,
+            ref_shapes.ShapeSpec, ref_batcher.GroupKey,
+            ref_resilience.inject, ("cpu-interpret", "gpu"))
+        ref_cross = ref_metrics.counter_value(
+            "pifft_serve_failover_cross_backend_total", device=ref_home.id)
+    finally:
+        obs.disable()
+        ref_obs.disable()
+    survivor = next(d for d in mesh.router.devices if d.id != home.id)
+    assert (home.backend, survivor.backend) == ("cuda", "gpu")
+    assert mesh.device(home.id).state == "dead"
+    assert len(results) == 6
+    crossed = [r for r in results
+               if f"failover:backend:{survivor.backend}" in r.degrade]
+    assert crossed and all(f"failover:{home.id}" in r.degrade
+                           for r in crossed)
+    assert all(r.degraded and r.device == survivor.id for r in crossed)
+    ref = np.fft.fft(xr.astype(np.complex128) + 1j * xi.astype(np.complex128))
+    for r in results:
+        got = np.asarray(r.yr) + 1j * np.asarray(r.yi)
+        assert _rel(got, ref) < 1e-4
+    assert cross >= len(crossed)
+    # the reference's trail on its own tags: the same entries
+    assert sorted(r.degrade for r in results) == \
+        sorted(r.degrade for r in ref_results)
+    assert ref_cross == cross
+
+
+# ----------------------------------------------------- canary refusal
+
+
+def test_canary_refuses_cross_backend_promotion(plan_cache_tmp):
+    """The reference's test_hw.py:251 on the port: a canary whose device
+    tag (``gpu``, the highest-index healthy device) differs from the
+    key's backend axis (``cuda``) refuses the race before any timing
+    runs; the reference refuses its own mismatch the same way."""
+    from cs87project_msolano2_tpu import obs as ref_obs
+    from cs87project_msolano2_tpu import plans as ref_plans
+    from cs87project_msolano2_tpu.fleet import (
+        CanaryController as RefCanaryController,
+    )
+    from cs87project_msolano2_tpu.serve import mesh as ref_mesh
+    from cs87project_msolano2_tpu_torch import obs
+    from cs87project_msolano2_tpu_torch.fleet import CanaryController
+    from cs87project_msolano2_tpu_torch.obs import events as obs_events
+    from cs87project_msolano2_tpu_torch.obs import metrics
+    from cs87project_msolano2_tpu_torch.serve import (
+        MeshConfig,
+        MeshDispatcher,
+    )
+
+    def never(fn, key):
+        raise AssertionError("a refused race must time nothing")
+
+    obs.enable()
+    ref_obs.enable()
+    try:
+        mesh = MeshDispatcher(MeshConfig(devices=2,
+                                         backends=("cuda", "gpu")),
+                              device="cpu")
+        key = plans.make_key(256, device="cpu")
+        assert mesh.router.devices[-1].backend == "gpu" != key.backend
+        out = CanaryController(mesh=mesh).race(key, [30.0] * 40,
+                                               timer=never)
+        aborted = [r for r in obs_events.snapshot()
+                   if r["kind"] == "fleet_canary"
+                   and r["payload"].get("aborted") == "backend_mismatch"]
+        count = metrics.counter_value("pifft_fleet_canary_aborted_total",
+                                      kind="backend_mismatch")
+        ref_m = ref_mesh.MeshDispatcher(ref_mesh.MeshConfig(
+            devices=2, backends=("cpu-interpret", "gpu")))
+        ref_out = RefCanaryController(mesh=ref_m).race(
+            ref_plans.make_key(256), [30.0] * 40)
+    finally:
+        obs.disable()
+        ref_obs.disable()
+    assert not out.promoted and not out.rolled_back
+    assert "backend_mismatch" in out.reason and "'gpu'" in out.reason
+    assert mesh.router.canary is None   # released after the refusal
+    assert aborted and count == 1.0
+    assert not ref_out.promoted and "backend_mismatch" in ref_out.reason
+
+
+def test_hw_smoke_on_the_cpu(capsys):
+    """``hw smoke --device cpu``: the five phases on the plain versions,
+    every event schema-valid; the caller's plan-store setting is put
+    back."""
+    import os
+
+    before = os.environ.get("PIFFT_PLAN_CACHE")
+    assert cli_main(["hw", "smoke", "--device", "cpu"]) == 0
+    assert os.environ.get("PIFFT_PLAN_CACHE") == before
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["ok"] and doc["device"] == "cpu"
+    phases = doc["phases"]
+    assert sorted(phases) == ["A", "B", "C", "D", "E"]
+    assert (phases["A"]["cuda_variant"], phases["A"]["gpu_variant"]) == \
+        ("rows", "gpu-rows")
+    assert phases["C"]["cuda_gbps"] == phases["C"]["gpu_gbps"] == \
+        roofline.peak_bytes_per_s(CARD) / 1e9
+    assert phases["D"]["devices"] == {"vdev0": "cuda", "vdev1": "gpu"}
+    assert phases["D"]["crossed"] >= 1
+    assert phases["D"]["max_parity_relerr"] < 1e-4
+    assert phases["E"]["backends"] == ["cpu-native", "cuda", "gpu"]
+    assert doc["events"]["failover"] >= 1
+
+
+def test_hw_smoke_refuses_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the refusal is for machines "
+                    "without one")
+    assert cli_main(["hw", "smoke"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+# ------------------------------------------- the five-config record
+
+
+@pytest.fixture
+def world1():
+    """A world-1 gloo process group in this process: the sharded
+    entries' collectives have a group to dispatch on."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def _cheap_slope(fn, *args):
+    """One call on the host clock: the CPU cases check the configs'
+    results and rows, not their times."""
+    import time
+
+    t0 = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def test_config1_direct_dft_against_numpy():
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+
+    row = bc.config1_direct_dft_f64(n=64)
+    assert row["rel_err_vs_numpy"] <= 1e-12
+    assert row["rel_l2_vs_numpy"] <= 1e-12
+    assert row["dtype"] == "complex128" and row["ms"] > 0
+    assert row["config"] == "1D DFT N=64 float64 (CPU einsum reference)"
+
+
+def test_config2_plan_against_numpy(plan_cache_tmp):
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+    from cs87project_msolano2_tpu_torch.utils.verify import (
+        pi_layout_to_natural,
+    )
+
+    n = 1 << 10
+    row = bc.config2_fft_2e20(n=n, device="cpu",
+                              timer=lambda fn, key: 0.5)
+    assert row["ms"] == 0.5 and row["gflops"] == round(
+        5 * n * 10 / 0.5e-3 / 1e9, 1)
+    assert row["plan"]["variant"] == "rows"
+    plan = plans.get_plan(plans.make_key(n, layout="pi", device="cpu"),
+                          device="cpu")
+    xr, xi = _planes(5, (n,))
+    yr, yi = plan.fn(*_t(xr, xi))
+    got = pi_layout_to_natural(yr.numpy() + 1j * yi.numpy())
+    ref = np.fft.fft(xr.astype(np.complex128) + 1j * xi)
+    assert _rel(got, ref) <= 1e-5
+
+
+def test_config3_batched_against_numpy(world1):
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+    from cs87project_msolano2_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis="data", device="cpu")
+    xr, xi = _planes(6, (8, 256))
+    row, (yr, yi) = bc.config3_batched(mesh, planes=_t(xr, xi),
+                                       slope=_cheap_slope)
+    ref = np.fft.fft(xr.astype(np.complex128) + 1j * xi, axis=-1)
+    assert _rel(yr.numpy() + 1j * yi.numpy(), ref) <= 1e-5
+    assert row["config"] == "batched FFT 8x256 (DP over 1 device(s))"
+    assert {"ms", "gflops", "ms_pi_layout", "gflops_pi_layout"} <= set(row)
+
+
+def test_config4_fft2d_against_numpy(world1):
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+    from cs87project_msolano2_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis="p", device="cpu")
+    xr, xi = _planes(7, (32, 64))
+    row, (yr, yi) = bc.config4_fft2d(mesh, planes=_t(xr, xi),
+                                     slope=_cheap_slope)
+    ref = np.fft.fft2(xr.astype(np.complex128) + 1j * xi)
+    assert _rel(yr.numpy() + 1j * yi.numpy(), ref) <= 1e-5
+    assert row["config"] == "2D FFT 32x64 (1-device slab)"
+    assert row["gflops"] >= 0
+
+
+def test_config5_poisson_against_numpy(world1):
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+    from cs87project_msolano2_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis="p", device="cpu")
+    s = 16
+    f = np.random.default_rng(8).standard_normal((s, s, s))
+    f -= f.mean()
+    row, u = bc.config5_poisson(mesh, f=torch.from_numpy(
+        f.astype(np.float32)), slope=_cheap_slope)
+    k = np.fft.fftfreq(s, 1.0 / s) ** 2
+    ksq = k[:, None, None] + k[None, :, None] + k[None, None, :]
+    ksq[0, 0, 0] = 1.0
+    uh = -np.fft.fftn(f.astype(np.float32).astype(np.float64)) / ksq
+    uh[0, 0, 0] = 0.0
+    ref = np.fft.ifftn(uh).real
+    assert _rel(u.numpy().astype(np.float64), ref) <= 1e-5
+    assert row["config"] == "3D Poisson 16^3 slab solve (1 device(s))"
+    assert row["preflight"] == {"need_bytes_per_rank":
+                                bc.POISSON_PLANES * 16 ** 3 * 4}
+    # no field given: the solve makes its own at the preflight's side
+    row, u = bc.config5_poisson(mesh, side=8, slope=_cheap_slope)
+    assert row["config"] == "3D Poisson 8^3 slab solve (1 device(s))"
+    assert tuple(u.shape) == (8, 8, 8) and torch.isfinite(u).all()
+
+
+def test_five_config_record_and_its_check(tmp_path):
+    from cs87project_msolano2_tpu_torch import bench_configs as bc
+
+    rows = [{"config": f"c{i}", "ms": 1.0 + i} for i in range(5)]
+    rec = bc.record(rows, "cpu")
+    assert all(r["env"]["platform"] == "cpu" and "torch" in r["env"]
+               for r in rec)
+    assert bc.check_record(rec) == []
+    assert bc.check_record(rec[:4]) == ["4 rows, not 5"]
+    bad = rec[:4] + [{"config": "c5", "error": "OOM", "env": {}}]
+    assert bc.check_record(bad) == ["config 5: OOM"]
+    assert bc.check_record([dict(r, env=None) for r in rows]) == []
+    assert bc.check_record(rows)[0] == "config 1: no env"
+    out = tmp_path / "configs.json"
+    bc.write_record(rec, str(out))
+    assert json.loads(out.read_text()) == rec
+    # the output goes where --out says, never to the committed dataset
+    with pytest.raises(SystemExit):
+        bc.main(["--device", "cpu"])

@@ -105,6 +105,28 @@ def test_plain_paths_do_not_count_launches():
     assert cf.long_range_sep.launches == 0
 
 
+@pytest.mark.parametrize("numpy_too", [False, True])
+def test_library_fft_refused_refuses_resets_and_restores(numpy_too):
+    x = torch.ones(8, dtype=torch.complex64)
+    want = torch.fft.fft(x)
+    cf.tile_fft.launches = 5
+    with cf.library_fft_refused(numpy_too=numpy_too) as launched:
+        assert cf.tile_fft.launches == 0
+        with pytest.raises(AssertionError, match="torch.fft"):
+            torch.fft.fft(x)
+        if numpy_too:
+            with pytest.raises(AssertionError, match="numpy.fft"):
+                np.fft.ifft(np.ones(8))
+        else:
+            np.fft.ifft(np.ones(8))
+        cf.tile_fft.launches = 2      # as one wrapper's two launches
+        assert launched == {}
+    assert launched == {"tile_fft": 2}
+    assert torch.equal(torch.fft.fft(x), want)
+    assert np.allclose(np.fft.fft(np.ones(4)), [4, 0, 0, 0])
+    cf.reset_launch_counts()
+
+
 @pytest.mark.parametrize("tile", [1 << 15, 1 << 16])
 def test_over_budget_tile_raises_before_launch(tile):
     xr, xi = torch.zeros(2, tile), torch.zeros(2, tile)

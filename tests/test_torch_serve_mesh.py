@@ -481,9 +481,10 @@ def test_device_site_registered(capsys):
     text = resilience.KNOWN_SITES["device"]
     assert "device<K>" in text and "device*" in text
     assert "not ported" not in text
-    # the fleet's two sites still wait for fleet
+    # the fleet's two sites are live since fleet/ landed
     for site in ("canary", "promote"):
-        assert "comes with fleet" in resilience.KNOWN_SITES[site]
+        assert "fleet/canary.py" in resilience.KNOWN_SITES[site]
+        assert "not ported" not in resilience.KNOWN_SITES[site]
     assert main(["faults", "list"]) == 0
     out = capsys.readouterr().out
     assert "device<K>" in out and "device*" in out

@@ -245,8 +245,9 @@ def test_fitted_slope_ms_fits_the_window_and_restores_the_probe(
         return a
 
     assert timing.fitted_slope_ms(consume, x, consumes=True) == 0.5
+    # k2: FITTED_RUN_MS (100 ms) over the 50 ms call
     assert captured["window"] == timing.fitted_window(50.0, 1 << 10) \
-        == (1, 4)
+        == (1, 2)
     assert captured["copies"] == 1  # no L2 on the CPU
     assert torch.equal(x, torch.ones(1 << 10))
     assert torch.equal(captured["first"], x)
