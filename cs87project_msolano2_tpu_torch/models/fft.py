@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs.spans import call_span, path_span
 from ..ops.bits import to_natural
 from ..utils.device import as_planes, resolve_device
 from .pi_fft import pi_fft_pi_layout
@@ -44,19 +45,22 @@ def fft(x, p: int = 1, tables=None, plan=None, precision: str | None = None,
     An explicit `p` or `tables` (per-level (wr, wi) tensors, e.g. from
     ``ops.twiddle.tables_from_reference``) keeps the stage-by-stage pi
     decomposition.  The result is p-invariant."""
-    xr, xi = _complex_planes(x, device)
-    if p == 1 and tables is None:
-        from .. import plans
+    with call_span("fft.call"):
+        with path_span("fft.split"):
+            xr, xi = _complex_planes(x, device)
+        if p == 1 and tables is None:
+            from .. import plans
 
-        pl = plan if plan is not None else plans.plan_for(
-            xr.shape, layout="natural", precision=precision,
-            device=xr.device)
-        # the planes are this call's own split of x: an executor that
-        # writes over its input may use them without a copy
-        yr, yi = pl.execute(xr, xi, source=x)
-        return torch.complex(yr, yi)
-    yr, yi = to_natural(*pi_fft_pi_layout(xr, xi, p, tables))
-    return torch.complex(yr, yi)
+            pl = plan if plan is not None else plans.plan_for(
+                xr.shape, layout="natural", precision=precision,
+                device=xr.device)
+            # the planes are this call's own split of x: an executor
+            # that writes over its input may use them without a copy
+            yr, yi = pl.execute(xr, xi, source=x)
+        else:
+            yr, yi = to_natural(*pi_fft_pi_layout(xr, xi, p, tables))
+        with path_span("fft.join"):
+            return torch.complex(yr, yi)
 
 
 def ifft(x, p: int = 1, tables=None, plan=None,
@@ -107,14 +111,16 @@ def fft_planes_fast(xr, xi, natural: bool = True, plan=None,
     """Plane-level FFT through the plan layer — the hot path batched
     rows and large 1-D transforms take.  `natural=False` returns pi
     layout (per-row bit-reversed) and needs a kernel-eligible shape."""
-    xr, xi = as_planes(xr, xi, device)
-    if plan is None:
-        from .. import plans
+    with call_span("fft.call"):
+        with path_span("fft.split"):
+            xr, xi = as_planes(xr, xi, device)
+        if plan is None:
+            from .. import plans
 
-        plan = plans.plan_for(
-            xr.shape, layout="natural" if natural else "pi",
-            precision=precision, device=xr.device)
-    return plan.execute(xr, xi)
+            plan = plans.plan_for(
+                xr.shape, layout="natural" if natural else "pi",
+                precision=precision, device=xr.device)
+        return plan.execute(xr, xi)
 
 
 def ifft_planes_fast(xr, xi, plan=None, precision: str | None = None,

@@ -32,6 +32,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..obs.spans import call_span, path_span
 from ..utils.device import as_plane, as_planes
 from .fft import _complex_planes
 
@@ -101,8 +102,11 @@ def rfft_executor(c2c_fn, n: int):
 
     def run(xr, xi):
         del xi  # real by declaration (domain="r2c")
-        zr, zi = c2c_fn(*pack_real_planes(xr))
-        return hermitian_merge(zr, zi, n)
+        with path_span("real.pack"):
+            zr, zi = pack_real_planes(xr)
+        zr, zi = c2c_fn(zr, zi)
+        with path_span("real.merge"):
+            return hermitian_merge(zr, zi, n)
 
     return run
 
@@ -151,9 +155,12 @@ def rfft(x, precision: str | None = None, plan=None, device=None):
     odd n a direct any-length plan.  `plan` pins an explicit r2c plan;
     `precision` picks the mode as in ``models.fft.fft``.  Numpy input
     goes to `device` (the card by default)."""
-    xr = _real_plane(x, device)
-    yr, yi = rfft_planes_fast(xr, plan=plan, precision=precision)
-    return torch.complex(yr, yi)
+    with call_span("fft.call"):
+        with path_span("fft.split"):
+            xr = _real_plane(x, device)
+        yr, yi = rfft_planes_fast(xr, plan=plan, precision=precision)
+        with path_span("fft.join"):
+            return torch.complex(yr, yi)
 
 
 def irfft(x, precision: str | None = None, plan=None, device=None):

@@ -23,8 +23,11 @@ JAX package's ``obs`` (so the same tools read either package's stream):
                  deprecation shim remains at ``utils/tracing.py``).
 
 The OFF state is the contract: everything is gated on one module-level
-flag (``events._STATE``), so a disabled process pays one attribute read
-per call — no locks, no allocation, zero events (verified by test).
+flag (``events._STATE``; the spans read ``spans._REC``, which enable
+sets beside it), so a disabled process pays one attribute read per call
+— no locks, no allocation, zero events (verified by test).  The
+transform path's spans (:data:`TRANSFORM_PATH`) also record, into
+``spans.intervals()`` only, while a ``torch.profiler`` session runs.
 Enable explicitly (:func:`enable`, ``bench --events``) or by
 environment: ``PIFFT_OBS_EVENTS=<path>`` arms the JSONL sink,
 ``PIFFT_OBS=1`` buffers in-process only.
@@ -47,7 +50,22 @@ from .events import (  # noqa: F401
     snapshot,
     validate_event,
 )
-from .spans import span, traced  # noqa: F401
+from .spans import intervals, span, traced  # noqa: F401
+
+#: the transform path's spans, root first, and its counters (README,
+#: "Telemetry"): what the port records beyond the reference's stream.
+#: ``fft.call`` is the root of ``models.fft.fft``, ``fft_planes_fast``
+#: and ``models.real.rfft``; ``fft.split``/``fft.join`` their planes
+#: split and complex pack; ``plan.lookup`` is ``plans.plan_for``,
+#: ``plan.execute`` ``Plan.execute``, ``fft.gather`` ``ops.bits.to_natural``;
+#: ``real.pack``/``real.merge`` the r2c executor's passes;
+#: ``kernel.launch`` the library call of every counted kernel launch.
+#: The counters count ``Plan``'s protective copies of a caller's plane
+#: and the bit-reversal index tensors built.
+TRANSFORM_PATH = ("fft.call", "fft.split", "fft.join", "plan.lookup",
+                  "plan.execute", "fft.gather", "real.pack", "real.merge",
+                  "kernel.launch", "pifft_plan_input_copies_total",
+                  "pifft_gather_index_builds_total")
 
 # NOTE: ``obs.trace`` is the TRACE-CONTEXT module (request tracing,
 # the live plane); the deep profiler is ``obs.profiler.trace``

@@ -31,6 +31,7 @@ import uuid
 from collections import deque
 from typing import Optional
 
+from . import spans
 from .spans import clock
 
 #: bump when the event envelope changes incompatibly
@@ -45,13 +46,14 @@ BUFFER_MAX = 65536
 class _State:
     """Everything one enabled observability run owns."""
 
-    __slots__ = ("run", "t0", "seq", "lock", "buffer", "dropped",
-                 "spans", "sink_path", "sink_fh", "buffer_max")
+    __slots__ = ("run", "t0", "t0_ns", "seq", "lock", "buffer", "dropped",
+                 "spans", "sink_path", "sink_fh", "buffer_max", "rec")
 
     def __init__(self, run: str, sink_path: Optional[str],
                  buffer_max: int = BUFFER_MAX):
         self.run = run
-        self.t0 = clock()
+        # t0 on the span clock and on the profiler's Unix-ns clock
+        self.t0, self.t0_ns = spans.anchor()
         self.seq = 0
         self.lock = threading.Lock()
         # deques with maxlen: drop-oldest stays O(1) when a long sweep
@@ -63,6 +65,9 @@ class _State:
         self.sink_path = sink_path
         self.sink_fh = None
         self.buffer_max = buffer_max
+        # where closing spans land until the stream is read (drain)
+        self.rec = spans.Recorder(buffer_max, stream=self, t0=self.t0,
+                                  t0_ns=self.t0_ns)
 
 
 #: THE module-level enabled flag: None = disabled (every emit/span/
@@ -112,6 +117,7 @@ def enable(events_path: Optional[str] = None,
                 pass  # truncate: this run owns the file
         st.sink_fh = open_append(events_path)
     _STATE = st
+    spans._REC = st.rec
     from . import metrics
 
     metrics.reset()
@@ -124,9 +130,12 @@ def disable() -> None:
     before disabling."""
     global _STATE
     st = _STATE
-    _STATE = None
     if st is None:
         return
+    drain(st)  # the closed spans reach the sink before it closes
+    _STATE = None
+    if spans._REC is st.rec:
+        spans._REC = None
     error = None
     with st.lock:
         if st.sink_fh is not None:
@@ -148,6 +157,7 @@ def flush() -> None:
     st = _STATE
     if st is None or st.sink_fh is None:
         return
+    drain(st)
     import os
 
     error = None
@@ -179,10 +189,17 @@ def emit(kind: str, /, cell: Optional[dict] = None, **payload):
 
 
 def _emit(st: _State, kind: str, cell, payload):
+    drain(st)  # the spans that closed before this event come first
+    return _put(st, kind, cell, payload)
+
+
+def _put(st: _State, kind: str, cell, payload, t: Optional[float] = None):
+    """Append one event (at span-clock time `t`, default now) to the
+    buffer and the sink."""
     from ..resilience.journal import write_line
 
     rec = {"v": SCHEMA_VERSION, "run": st.run, "kind": str(kind),
-           "t": round(clock() - st.t0, 9)}
+           "t": round((clock() if t is None else t) - st.t0, 9)}
     if cell:
         rec["cell"] = dict(cell)
     if payload:
@@ -241,15 +258,43 @@ def _emit(st: _State, kind: str, cell, payload):
 
 
 def record_span(span_rec: dict) -> None:
-    """Called by :mod:`.spans` when a span closes: keep it for the
-    in-process Chrome export and mirror it into the event stream."""
+    """Keep a finished span's record (one built whole, as the trace
+    plane's request spans are) for the in-process Chrome export and
+    mirror it into the event stream."""
     st = _STATE
     if st is None:
         return
+    drain(st)
+    _keep_span(st, span_rec)
+
+
+def _keep_span(st: _State, span_rec: dict, t: Optional[float] = None):
     with st.lock:
         st.spans.append(span_rec)  # deque maxlen: drop-oldest is O(1)
-    _emit(st, "span", span_rec.get("cell"),
-          {k: v for k, v in span_rec.items() if k != "cell"})
+    _put(st, "span", span_rec.get("cell"),
+         {k: v for k, v in span_rec.items() if k != "cell"}, t)
+
+
+def drain(st: _State) -> None:
+    """Turn the spans `st`'s recorder holds into span records and
+    ``span`` events, in the order they closed: what each read or write
+    of the stream does first.  The record is the one a span has always
+    had: name, ts_s and dur_s (seconds on the span clock since enable),
+    tid, depth, then parent, cell, args, links, sid, trace and error
+    where set."""
+    done = st.rec.done
+    while done:
+        try:
+            name, t0, t1, depth, parent, tid, extra = done.popleft()
+        except IndexError:  # another thread took the last one
+            break
+        rec = {"name": name, "ts_s": round(t0 - st.t0, 9),
+               "dur_s": round(t1 - t0, 9), "tid": tid, "depth": depth}
+        if parent:
+            rec["parent"] = parent
+        if extra:
+            rec.update(extra)
+        _keep_span(st, rec, t1)
 
 
 def snapshot() -> list:
@@ -257,6 +302,7 @@ def snapshot() -> list:
     st = _STATE
     if st is None:
         return []
+    drain(st)
     with st.lock:
         return [dict(r) for r in st.buffer]
 
@@ -266,13 +312,17 @@ def span_snapshot() -> list:
     st = _STATE
     if st is None:
         return []
+    drain(st)
     with st.lock:
         return [dict(r) for r in st.spans]
 
 
 def dropped() -> int:
     st = _STATE
-    return st.dropped if st is not None else 0
+    if st is None:
+        return 0
+    drain(st)
+    return st.dropped
 
 
 # ------------------------------------------------------------- schema

@@ -25,6 +25,8 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from . import events
+
 #: Prometheus' default bucket ladder (seconds-ish scale) — fine for the
 #: cell/phase durations this project observes
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
@@ -55,15 +57,9 @@ def _series(name: str, labels: dict) -> str:
     return f"{name}{{{body}}}"
 
 
-def _enabled() -> bool:
-    from . import events
-
-    return events._STATE is not None
-
-
 def inc(name: str, value: float = 1.0, **labels) -> None:
     """Add `value` (default 1) to a counter series."""
-    if not _enabled():
+    if events._STATE is None:
         return
     key = _series(name, labels)
     with _LOCK:
@@ -72,7 +68,7 @@ def inc(name: str, value: float = 1.0, **labels) -> None:
 
 def set_gauge(name: str, value: float, **labels) -> None:
     """Set a gauge series to `value` (last write wins)."""
-    if not _enabled():
+    if events._STATE is None:
         return
     with _LOCK:
         _GAUGES[_series(name, labels)] = float(value)
@@ -82,7 +78,7 @@ def observe(name: str, value: float,
             buckets: Optional[tuple] = None, **labels) -> None:
     """Record one observation into a histogram series (cumulative
     Prometheus buckets, plus sum and count)."""
-    if not _enabled():
+    if events._STATE is None:
         return
     key = _series(name, labels)
     value = float(value)

@@ -24,6 +24,17 @@ pass through ``torch.profiler.record_function`` (plus an NVTX range
 when a card is present) when requested, so funnel/tube/cell phases show
 up NAMED in a ``torch.profiler`` trace captured around them.
 
+A finished span is kept as a raw tuple on the recorder (:class:`Recorder`);
+the event stream builds its record and its ``span`` event when it is
+read or written (``events.drain``), so closing a span costs a tuple and
+a deque append.  The transform path's per-call sites (``fft.call`` down
+to ``kernel.launch``, ``obs.TRANSFORM_PATH``) use :func:`call_span` and
+:func:`path_span`, which take a bare name.  The root, :func:`call_span`,
+also records while a ``torch.profiler`` session is open with
+observability off; :func:`intervals` gives those spans on the profiler's
+Unix-nanosecond clock, so each host interval of a call lines up with the
+device activity of the same trace.
+
 Inside a CUDA graph capture (the race's and ``loop_slope_ms``'s timer)
 a span runs once per capture, never per replay, and must not
 synchronize: ``sync=`` there raises after the span unwinds.
@@ -32,8 +43,10 @@ synchronize: ``sync=`` there raises after the span unwinds.
 from __future__ import annotations
 
 import functools
+import sys
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional
 
 
@@ -43,6 +56,19 @@ def clock() -> float:
     (that is ``utils.timing``'s job; see the module docstring)."""
     return time.perf_counter()
 
+
+def anchor() -> tuple:
+    """(clock(), Unix ns) read together: the pair that maps the span
+    clock onto the Unix-nanosecond clock of ``torch.profiler``'s events."""
+    ns0 = time.time_ns()
+    t = clock()
+    return t, (ns0 + time.time_ns()) // 2
+
+
+#: the clock and thread id as the per-call spans read them: no call of
+#: this module's own between the site and the C function
+_now = time.perf_counter
+_tid = threading.get_ident
 
 _TLS = threading.local()
 
@@ -54,6 +80,73 @@ def _stack() -> list:
     return st
 
 
+#: spans a torch.profiler session's recorder keeps, the oldest dropped
+#: first: every span of a 10 s window of the fastest streamed cell
+#: (about 2,600 calls a second, at most 9 spans a call) twice over
+FOLLOW_CAP = 1 << 19
+
+
+class Recorder:
+    """Where finished spans go while something records them: raw
+    ``(name, t0, t1, depth, parent, tid, extra)`` tuples on the span
+    clock, ``extra`` None or the record's optional fields, with the
+    (clock, Unix ns) anchor of the recording.  `stream` is the armed
+    event stream's state, which turns the tuples into its span records
+    and events when it is read (``events.drain``); without one (a
+    torch.profiler session's recorder) :func:`intervals` reads the
+    tuples, the oldest dropped past `cap` and counted in ``lost``."""
+
+    __slots__ = ("done", "cap", "lost", "t0", "t0_ns", "stream")
+
+    def __init__(self, cap: int, stream=None, t0=None, t0_ns=None):
+        self.done: deque = deque()
+        self.cap = cap
+        self.lost = 0
+        self.stream = stream
+        self.t0, self.t0_ns = anchor() if t0 is None else (t0, t0_ns)
+
+    def full(self) -> None:
+        """More than `cap` spans wait: the stream takes them, or the
+        oldest goes."""
+        if self.stream is not None:
+            from . import events
+
+            events.drain(self.stream)
+        else:
+            self.done.popleft()
+            self.lost += 1
+
+
+#: THE recording flag: None while no span records (every span site
+#: returns NOOP_SPAN after reading it), else the Recorder
+_REC: Optional[Recorder] = None
+
+
+class _NoProfiler:
+    """Stands in for ``torch.autograd.profiler`` until torch is loaded,
+    then puts the module in its place."""
+
+    @property
+    def _is_profiler_enabled(self) -> bool:
+        global _PROFILER
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is None or not hasattr(prof, "_is_profiler_enabled"):
+            return False
+        _PROFILER = prof
+        return prof._is_profiler_enabled
+
+
+#: ``torch.autograd.profiler``, whose ``_is_profiler_enabled`` is True
+#: while a torch.profiler session runs
+_PROFILER = _NoProfiler()
+
+
+def streaming() -> bool:
+    """True while the event stream is armed: the general spans record."""
+    rec = _REC
+    return rec is not None and rec.stream is not None
+
+
 class _NoopSpan:
     """The disabled path: one shared instance, no state, no work."""
 
@@ -63,7 +156,7 @@ class _NoopSpan:
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, exc, tb):
         return False
 
     def set(self, **args):
@@ -74,6 +167,94 @@ class _NoopSpan:
 
 
 NOOP_SPAN = _NoopSpan()
+
+
+class _PathSpan:
+    """A span with a bare name: the transform path's per-call sites
+    (:func:`path_span`, :func:`call_span`)."""
+
+    __slots__ = ("name", "t0", "depth", "parent", "stack")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = self.stack = _stack()
+        if stack:
+            top = stack[-1]
+            self.parent, self.depth = top.name, top.depth + 1
+        else:
+            self.parent, self.depth = None, 0
+        stack.append(self)
+        self.t0 = _now()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = _now()
+        stack = self.stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        rec = _REC
+        if rec is not None:
+            done = rec.done
+            done.append((self.name, self.t0, t1, self.depth, self.parent,
+                         _tid(), None if exc_type is None
+                         else {"error": exc_type.__name__}))
+            if len(done) > rec.cap:
+                rec.full()
+        return False
+
+
+def path_span(name: str):
+    """A span of one step of the transform path, named and nothing
+    else: while nothing records, one global read and the shared no-op.
+    It records into the armed event stream, or into a torch.profiler
+    session's recorder that :func:`call_span` opened."""
+    if _REC is None:
+        return NOOP_SPAN
+    return _PathSpan(name)
+
+
+def call_span(name: str):
+    """The root span of one call into the port (``fft.call``): a
+    :func:`path_span` that also starts recording when a torch.profiler
+    session is open and observability is off, so the profiler's trace
+    and :func:`intervals` cover the same calls on one clock, and stops
+    at the first call after the session closed."""
+    global _REC
+    rec = _REC
+    if rec is None:
+        if not _PROFILER._is_profiler_enabled:
+            return NOOP_SPAN
+        _REC = Recorder(FOLLOW_CAP)
+    elif rec.stream is None and not _PROFILER._is_profiler_enabled:
+        _REC = None
+        return NOOP_SPAN
+    return _PathSpan(name)
+
+
+def intervals() -> list:
+    """The finished spans of the recording, oldest first, as ``(name,
+    parent, depth, tid, start_ns, end_ns)`` on the Unix-nanosecond
+    clock of ``torch.profiler``'s events; [] while nothing records."""
+    rec = _REC
+    if rec is None:
+        return []
+    t0, t0_ns = rec.t0, rec.t0_ns
+    if rec.stream is not None:
+        from . import events
+
+        out = []
+        for r in events.span_snapshot():
+            start = t0_ns + round(r["ts_s"] * 1e9)
+            out.append((r["name"], r.get("parent"), r.get("depth", 0),
+                        r["tid"], start, start + round(r["dur_s"] * 1e9)))
+        return out
+    return [(name, parent, depth, tid, t0_ns + round((s - t0) * 1e9),
+             t0_ns + round((e - t0) * 1e9))
+            for name, s, e, depth, parent, tid, _ in list(rec.done)]
 
 
 def _cuda_devices(value, out: set) -> set:
@@ -115,13 +296,14 @@ def sync_value(value) -> None:
 
 
 class Span:
-    """One live span.  Use via :func:`span`; on exit the finished
-    record goes to :func:`events.record_span` (buffer + event stream).
+    """One live span.  Use via :func:`span`; on exit the finished span
+    goes to the recorder, which the event stream turns into its record
+    (buffer + event stream) when it is read.
     """
 
     __slots__ = ("name", "cell", "args", "annotate", "sync",
-                 "t0", "dur_s", "_parent", "_depth", "_ann", "_nvtx",
-                 "links", "sid", "trace_id")
+                 "t0", "dur_s", "parent", "depth", "stack", "_ann",
+                 "_nvtx", "links", "sid", "trace_id")
 
     def __init__(self, name: str, cell: Optional[dict], annotate: bool,
                  sync: Optional[Callable], args: dict,
@@ -134,8 +316,8 @@ class Span:
         self.sync = sync
         self.t0 = None
         self.dur_s = None
-        self._parent = None
-        self._depth = 0
+        self.parent = None
+        self.depth = 0
         self._ann = None
         self._nvtx = False
         #: trace-plane identity (obs/trace.py): ``links`` is the
@@ -159,10 +341,10 @@ class Span:
         return self
 
     def __enter__(self):
-        stack = _stack()
+        stack = self.stack = _stack()
         if stack:
-            self._parent = stack[-1].name
-            self._depth = stack[-1]._depth + 1
+            self.parent = stack[-1].name
+            self.depth = stack[-1].depth + 1
         stack.append(self)
         if self.annotate:
             import torch
@@ -196,7 +378,8 @@ class Span:
                            else self.sync)
             except Exception as e:
                 sync_error = e
-        self.dur_s = clock() - self.t0
+        t1 = clock()
+        self.dur_s = t1 - self.t0
         if self._nvtx:
             import torch
 
@@ -205,35 +388,33 @@ class Span:
         if self._ann is not None:
             self._ann.__exit__(exc_type, exc, tb)
             self._ann = None
-        stack = _stack()
+        stack = self.stack
         if stack and stack[-1] is self:
             stack.pop()
         elif self in stack:  # tolerate out-of-order exits
             stack.remove(self)
-        from . import events
-
-        st = events._STATE
-        if st is not None:
-            rec = {"name": self.name, "ts_s": round(self.t0 - st.t0, 9),
-                   "dur_s": round(self.dur_s, 9),
-                   "tid": threading.get_ident(), "depth": self._depth}
-            if self._parent:
-                rec["parent"] = self._parent
+        rec = _REC
+        if rec is not None and rec.stream is not None:
+            extra = {}
             if self.cell:
-                rec["cell"] = dict(self.cell)
+                extra["cell"] = dict(self.cell)
             if self.args:
-                rec["args"] = dict(self.args)
+                extra["args"] = dict(self.args)
             if self.links:
-                rec["links"] = list(self.links)
+                extra["links"] = list(self.links)
             if self.sid:
-                rec["sid"] = self.sid
+                extra["sid"] = self.sid
             if self.trace_id:
-                rec["trace"] = self.trace_id
+                extra["trace"] = self.trace_id
             if exc_type is not None:
-                rec["error"] = exc_type.__name__
+                extra["error"] = exc_type.__name__
             elif sync_error is not None:
-                rec["error"] = type(sync_error).__name__
-            events.record_span(rec)
+                extra["error"] = type(sync_error).__name__
+            rec.done.append((self.name, self.t0, t1, self.depth,
+                             self.parent, threading.get_ident(),
+                             extra or None))
+            if len(rec.done) > rec.cap:
+                rec.full()
         if sync_error is not None and exc_type is None:
             raise sync_error
         # already unwinding: the body's original exception wins
@@ -257,10 +438,11 @@ def span(name: str, cell: Optional[dict] = None, annotate: bool = False,
     returning one) closes the span over a synchronize of their CUDA
     devices.  `links`/`sid`/`trace_id` are the trace-plane identity
     fields (obs/trace.py): ``links`` records the span ids this span fans
-    in from (the Chrome exporter draws them as flow arrows)."""
-    from . import events
-
-    if events._STATE is None:
+    in from (the Chrome exporter draws them as flow arrows).  A site on
+    a per-call path that passes a `cell` or attributes builds them only
+    where :func:`streaming` holds."""
+    rec = _REC
+    if rec is None or rec.stream is None:
         return NOOP_SPAN
     return Span(name, cell, annotate, sync, args, links=links,
                 sid=sid, trace_id=trace_id)

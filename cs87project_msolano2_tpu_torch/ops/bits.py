@@ -9,6 +9,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..obs import metrics
+from ..obs.spans import path_span
+
 
 def is_power_of_two(v: int) -> bool:
     return v > 0 and (v & (v - 1)) == 0
@@ -47,6 +50,7 @@ def _index_tensor(n: int, device: torch.device) -> torch.Tensor:
     """``bit_reverse_indices(n)`` built on `device` itself: at n = 2^27
     the host loop would take tens of seconds, the card's a few
     milliseconds."""
+    metrics.inc("pifft_gather_index_builds_total")
     bits = ilog2(n)
     k = torch.arange(n, dtype=torch.int64, device=device)
     idx = torch.zeros_like(k)
@@ -58,5 +62,6 @@ def _index_tensor(n: int, device: torch.device) -> torch.Tensor:
 def to_natural(yr: torch.Tensor, yi: torch.Tensor):
     """Gather pi-layout (bit-reversed) planes into natural frequency
     order over the trailing axis — one ``index_select`` per plane."""
-    idx = _index_tensor(yr.shape[-1], yr.device)
-    return yr.index_select(-1, idx), yi.index_select(-1, idx)
+    with path_span("fft.gather"):
+        idx = _index_tensor(yr.shape[-1], yr.device)
+        return yr.index_select(-1, idx), yi.index_select(-1, idx)

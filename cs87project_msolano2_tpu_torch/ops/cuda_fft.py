@@ -65,7 +65,7 @@ import functools
 import torch
 
 from ..hw.inventory import sm_count
-from ..obs.spans import span as _obs_span
+from ..obs import spans as _obs
 from ..resilience.inject import maybe_fault
 from .bits import ilog2, is_power_of_two, to_natural
 from .butterfly import stage_full
@@ -511,13 +511,14 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
                            f"CPU tensors")
     from ..utils.buildlib import load_kernels
 
-    lib = load_kernels()
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    err = getattr(lib, fn)(*ptrs, index, stream)
+    with _obs.path_span("kernel.launch"):
+        lib = load_kernels()
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        err = getattr(lib, fn)(*ptrs, index, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"{lib.pifft_cuda_error_name(err).decode()} "
@@ -1571,8 +1572,10 @@ def fft_pi_layout_cuda_sixstep(xr, xi, tile: int | None = None,
     dev = xr.device
     lr = device_factors if separable else dense_long_range_tables
     xr, xi = _to_storage(xr, xi, storage)
-    with _obs_span("sixstep", cell={"n": n, "r1": R1, "r2": R2},
-                   tile=tile, cb1=cb1, cb2=cb2, annotate=True):
+    # the cell and attributes are built only where the stream records
+    with (_obs.span("sixstep", cell={"n": n, "r1": R1, "r2": R2},
+                    tile=tile, cb1=cb1, cb2=cb2, annotate=True)
+          if _obs.streaming() else _obs.NOOP_SPAN):
         yr, yi = sixstep(xr.reshape(R1, R2, tile),
                          xi.reshape(R1, R2, tile),
                          *lr(R1, R2 * tile, dev, storage),
@@ -1637,7 +1640,8 @@ def tube_cuda(sr, si, n: int, p: int):
 
     if sr.shape[-1] < LANE:
         return tube(sr, si, n, p)
-    with _obs_span("tube", cell={"n": n, "p": p}, annotate=True):
+    with (_obs.span("tube", cell={"n": n, "p": p}, annotate=True)
+          if _obs.streaming() else _obs.NOOP_SPAN):
         return fft_pi_layout_cuda_rql(sr, si)  # pifft: noqa[PIF104]: the tube is one rql transform of every segment: its two launches, by design
 
 

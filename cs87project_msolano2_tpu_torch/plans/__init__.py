@@ -35,6 +35,7 @@ from __future__ import annotations
 import os
 import sys
 
+from ..obs.spans import path_span
 from . import cache  # noqa: F401
 from .autotune import (  # noqa: F401
     TuningError,
@@ -218,6 +219,8 @@ def plan_for(shape, layout: str = "natural",
     length, leading axes = batch).  For every domain the shape is the
     signal side's: a c2r plan's executor takes half-spectrum planes, but
     its key's n is the real length."""
-    shape = tuple(shape)
-    return plan(shape[-1], shape[:-1], layout, precision, domain=domain,
-                device=device, backend=backend, autotune=autotune)
+    with path_span("plan.lookup"):
+        shape = tuple(shape)
+        return plan(shape[-1], shape[:-1], layout, precision,
+                    domain=domain, device=device, backend=backend,
+                    autotune=autotune)

@@ -19,6 +19,8 @@ import json
 import sys
 from typing import Callable, Optional
 
+from ..obs import metrics
+from ..obs.spans import path_span
 from ..ops.precision import PRECISIONS
 from ..resilience.inject import maybe_fault
 from ..utils.debug import check_finite
@@ -191,6 +193,7 @@ def _unshared(plane, callers):
         else:
             shared = plane.device.type == "cpu"
         if shared:
+            metrics.inc("pifft_plan_input_copies_total")
             return plane.clone()
     return plane
 
@@ -272,11 +275,12 @@ class Plan:
         (``models.fft``'s plane split), which then need no copy; by
         default (xr, xi) are the caller's.  The dispatch point: the
         ``plan`` injection site."""
-        maybe_fault("plan")
-        xr, xi = self._planes(xr, xi, source, both=True)
-        out = self.fn(xr, xi)
-        check_finite(f"plan {self.variant}", *out)
-        return out
+        with path_span("plan.execute"):
+            maybe_fault("plan")
+            xr, xi = self._planes(xr, xi, source, both=True)
+            out = self.fn(xr, xi)
+            check_finite(f"plan {self.variant}", *out)
+            return out
 
     def execute_inverse(self, xr, xi):
         """Inverse via the conj trick (natural layout, c2c only: the real

@@ -1063,8 +1063,11 @@ def test_bench_smoke_events_match_the_reference(tmp_path, capsys,
                                                 monkeypatch):
     """Both benches' ``--smoke --events`` runs on the CPU name the same
     spans and metric series; the port leaves out only the reference's
-    forced sixstep cell (its serving suites do not run under --smoke).
-    The port's stream validates, its record carries the run id every
+    forced sixstep cell (its serving suites do not run under --smoke)
+    and adds exactly its transform path's spans and counters
+    (``obs.TRANSFORM_PATH``), less ``kernel.launch`` (the CPU launches
+    no kernel) and the protective-copy counter (no CPU plan writes over
+    its input).  The port's stream validates, its record carries the run id every
     event shares, its cell spans nest the funnel/tube probe, the
     ``metrics`` event comes last, and ``--trace-out`` and the ``obs``
     CLI read it."""
@@ -1076,7 +1079,7 @@ def test_bench_smoke_events_match_the_reference(tmp_path, capsys,
     from cs87project_msolano2_tpu_torch import bench, plans
     from cs87project_msolano2_tpu_torch.apps import spectral
     from cs87project_msolano2_tpu_torch.cli import main as cli_main
-    from cs87project_msolano2_tpu_torch.ops import anylen
+    from cs87project_msolano2_tpu_torch.ops import anylen, bits
 
     def run(bench_mod, o, argv, name):
         # both runs start from empty in-process caches: a hit or a miss
@@ -1087,7 +1090,8 @@ def test_bench_smoke_events_match_the_reference(tmp_path, capsys,
                       spectral.fused_cache_clear,
                       ref_spectral.kernel_spectrum_cache_clear,
                       anylen.chirp_cache_clear, ref_anylen.chirp_cache_clear,
-                      ref_spectral._FUSED_CACHE.clear):
+                      ref_spectral._FUSED_CACHE.clear,
+                      bits._index_tensor.cache_clear):
             clear()
         epath = str(tmp_path / f"{name}.jsonl")
         assert _bench_smoke(bench_mod, monkeypatch, argv + [
@@ -1122,8 +1126,12 @@ def test_bench_smoke_events_match_the_reference(tmp_path, capsys,
         f'pifft_demotions_total{{to="{e["payload"]["to"]}"}}'
         for e in ref_recs if e["kind"] == "demotion"
         and (e.get("cell") or {}).get("variant") == "sixstep"}
-    assert names(recs) == names(ref_recs) - {"sixstep"}
-    assert series(recs) == series(ref_recs) - sixstep_demotions
+    path = set(obs.TRANSFORM_PATH)
+    path_counters = {n for n in path if n.startswith("pifft_")}
+    assert names(recs) == (names(ref_recs) - {"sixstep"}) \
+        | (path - path_counters - {"kernel.launch"})
+    assert series(recs) == (series(ref_recs) - sixstep_demotions) \
+        | (path_counters - {"pifft_plan_input_copies_total"})
 
     # the port's stream on its own
     assert export.validate_stream(recs) == []
